@@ -1,0 +1,115 @@
+"""Build and load the CUDA kernels of ``tpufluid_torch/csrc``.
+
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` into one shared library
+with a plain C interface, for Hopper (``sm_90a``), which is then loaded with
+``ctypes``. The library lands in ``tpufluid_torch/_build/<hash>/``, keyed by
+a hash of the sources and flags, so an edited source rebuilds and an
+unchanged one loads at once. A failed build raises with the compiler's
+output; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent / "_build"
+LIB_NAME = "libtpufluid_kernels.so"
+# -fmad=false: every f32 op rounds on its own, as in the plain versions.
+# -Xptxas -v: registers / spills of each kernel, kept in build.log.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# argtypes of each C entry point (every pointer and the stream as c_void_p)
+_SIGNATURES = {
+    "tf_rebin": [_P] * 6 + [_P] * 4 + [_P] * 3 + [_I] * 3 + [_F] * 3
+    + [_I] * 2 + [_P],
+    "tf_density": [_P] * 6 + [_P] * 2 + [_I] * 3 + [_F] * 4 + [_P],
+    "tf_forces": [_P] * 9 + [_P] * 4 + [_I] * 3 + [_F] * 9 + [_P],
+}
+
+_lib = None
+build_seconds = None  # wall time of the build that this process ran
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (CUDA_HOME, /usr/local/cuda, PATH): "
+                           "the CUDA kernels cannot be built")
+    return found
+
+
+def build_dir() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def _build(out_dir: Path) -> Path:
+    global build_seconds
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib = out_dir / LIB_NAME
+    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    (out_dir / "build.log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built first if this source hash has none."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    out_dir = build_dir()
+    lib_path = out_dir / LIB_NAME
+    if not lib_path.exists():
+        lib_path = _build(out_dir)
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.tf_error_string.argtypes = [ctypes.c_int]
+    lib.tf_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return lib
+
+
+def build_log() -> str:
+    """The compiler output (incl. ptxas register counts) of the loaded build."""
+    path = build_dir() / "build.log"
+    return path.read_text() if path.exists() else ""
+
+
+def error_string(err: int) -> str:
+    return f"{err} ({load().tf_error_string(err).decode()})"

@@ -1,0 +1,151 @@
+"""Command line: ``python -m tpufluid_torch <run|info>``.
+
+The flags of ``python -m tpufluid``, plus ``--device`` (default ``cuda``).
+Only the resident engine is ported: other engines and the obstacle, video,
+checkpoint and variant flags raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import torch
+
+
+def _add_common(p):
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device to run on (default cuda)")
+    p.add_argument("--particles", type=int, default=100_000)
+    p.add_argument("--spacing", type=float, default=0.1)
+    p.add_argument("--radius", type=float, default=0.2,
+                   help="smoothing radius h")
+    p.add_argument("--size", type=float, nargs=2, default=(53.0, 53.0))
+    p.add_argument("--cell-capacity", type=int, default=16)
+    p.add_argument("--capacity-policy",
+                   choices=("grow", "strict", "fixed"), default="grow",
+                   help="grow = auto-size + regrow-and-replay, never loses "
+                        "mass (default); strict = refuse undersized scenes; "
+                        "fixed = keep the given capacity, count losses")
+    p.add_argument("--no-strict-capacity", action="store_true",
+                   help="deprecated alias for --capacity-policy fixed")
+    p.add_argument("--texture-size", type=int, nargs=2, default=(1024, 1024),
+                   help="obstacle force-field resolution (W H)")
+    p.add_argument("--dt", type=float, default=1.0 / 120.0)
+    p.add_argument("--gravity", type=float, nargs=2, default=(0.0, 0.0))
+    p.add_argument("--mass", type=float, default=1.0)
+    p.add_argument("--pressure", type=float, default=50.0)
+    p.add_argument("--rest-density", type=float, default=0.0)
+    p.add_argument("--damping", type=float, default=0.1)
+    p.add_argument("--viscosity", type=float, default=25.0)
+    p.add_argument("--surface-tension", action="store_true")
+    p.add_argument("--neighbor-mode",
+                   choices=("resident", "grid", "dense", "pallas", "naive"),
+                   default="dense",
+                   help="engine; only resident is ported")
+    p.add_argument("--x-boundary", choices=("bounce", "wrap"),
+                   default="bounce")
+    p.add_argument("--adaptive-subsampling", action="store_true")
+    p.add_argument("--checkpoint", type=str, default=None)
+    p.add_argument("--circle", type=float, nargs=3, action="append",
+                   default=[], metavar=("X", "Y", "R"))
+    p.add_argument("--rect", type=float, nargs=5, action="append",
+                   default=[], metavar=("X", "Y", "W", "H", "ROT"))
+    p.add_argument("--video-field", type=str, default=None)
+
+
+def _device(name: str) -> torch.device:
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: no CUDA device is available")
+    return dev
+
+
+def build_app(args):
+    from .app import FluidApp
+    from .params import SimSettings, TickParams
+
+    if args.circle or args.rect:
+        raise NotImplementedError(
+            "obstacles are not ported yet: ROADMAP.md queue 1, forcefield.py")
+    if args.video_field:
+        raise NotImplementedError(
+            "video force fields are not ported yet: ROADMAP.md queue 1, "
+            "forcefield.py")
+    if args.checkpoint:
+        raise NotImplementedError(
+            "checkpoints are not ported yet: ROADMAP.md queue 1, utils/io.py")
+    device = _device(args.device)
+    settings = SimSettings(
+        particle_count=args.particles, particle_spacing=args.spacing,
+        smoothing_radius=args.radius, size=tuple(args.size),
+        cell_capacity=args.cell_capacity,
+        texture_size=tuple(args.texture_size),
+    )
+    params = TickParams.default(
+        device, delta=args.dt, gravity=tuple(args.gravity), mass=args.mass,
+        pressure_constant=args.pressure, rest_density=args.rest_density,
+        damping_factor=args.damping, viscosity_coefficient=args.viscosity,
+    )
+    policy = "fixed" if args.no_strict_capacity else args.capacity_policy
+    return FluidApp(settings, params, capacity_policy=policy,
+                    device=device, neighbor_mode=args.neighbor_mode,
+                    x_boundary=args.x_boundary,
+                    surface_tension=args.surface_tension,
+                    adaptive_subsampling=args.adaptive_subsampling)
+
+
+def run(args):
+    """The ``run`` command: advance ``--steps`` ticks, printing rates.
+    Returns the app."""
+    from .utils.profiling import synchronize
+
+    app = build_app(args)
+    t0 = time.perf_counter()
+    done = 0
+    while done < args.steps:
+        chunk = min(args.report_every, args.steps - done)
+        app.run(chunk)
+        done += chunk
+        if app.timer.last_rate:
+            rate = app.timer.last_rate
+            print(f"step {done}/{args.steps}  {rate:.1f} steps/s  "
+                  f"{rate * app.settings.particle_count:.3e} particle-steps/s")
+    synchronize(app.device)
+    dt = time.perf_counter() - t0
+    print(f"done: {args.steps} steps in {dt:.2f}s "
+          f"({args.steps / dt:.1f} steps/s)")
+    return app
+
+
+def parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="tpufluid_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+    run_p = sub.add_parser("run", help="advance the simulation N steps")
+    _add_common(run_p)
+    run_p.add_argument("--steps", type=int, default=1200)
+    run_p.add_argument("--report-every", type=int, default=120)
+    sub.add_parser("info", help="print torch / device info")
+    return p
+
+
+def main(argv=None) -> int:
+    args = parser().parse_args(argv)
+    if args.cmd == "info":
+        cuda = torch.cuda.is_available()
+        print(json.dumps(dict(
+            torch=torch.__version__,
+            cuda=torch.version.cuda,
+            cuda_available=cuda,
+            devices=[torch.cuda.get_device_name(i)
+                     for i in range(torch.cuda.device_count())] if cuda else [],
+        ), indent=2))
+        return 0
+    run(args)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,74 @@
+"""Carry values of the JAX package into the port and back, as numpy.
+
+The JAX package is the port's reference: tests run both on the same
+state. These helpers take its values (any object with the named
+attributes, whose values ``numpy.array`` accepts: the JAX package's
+dataclasses, or numpy arrays) and build the port's. Nothing here imports
+JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from .ops.resident import GridState
+from .params import SimSettings, TickParams
+from .state import ParticleState
+
+_GRID_FIELDS = ("pos_x", "pos_y", "vel_x", "vel_y", "occ_row", "tick", "lost")
+_STATE_FIELDS = ("position", "predicted", "velocity", "density", "cell", "tick")
+
+
+def _get(obj: Any, name: str) -> np.ndarray:
+    # a writable copy: torch warns on read-only numpy views
+    return np.array(getattr(obj, name))
+
+
+def settings_from(obj: Any) -> SimSettings:
+    """SimSettings from the JAX package's (a dataclass, same fields)."""
+    fields = dataclasses.asdict(obj)
+    fields["size"] = tuple(fields["size"])
+    fields["texture_size"] = tuple(fields["texture_size"])
+    return SimSettings(**fields)
+
+
+def tick_params_from_numpy(obj: Any, device) -> TickParams:
+    """TickParams on ``device`` from per-field values."""
+    names = [f.name for f in dataclasses.fields(TickParams)]
+    return TickParams.default(device, **{n: _get(obj, n) for n in names})
+
+
+def particle_state_from_numpy(obj: Any, device) -> ParticleState:
+    """ParticleState on ``device``; u32 cells and tick are widened."""
+    v = {n: _get(obj, n) for n in _STATE_FIELDS}
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)
+    return ParticleState(
+        position=f32(v["position"]), predicted=f32(v["predicted"]),
+        velocity=f32(v["velocity"]), density=f32(v["density"]),
+        cell=torch.from_numpy(v["cell"].astype(np.int32)).to(device),
+        tick=torch.tensor(int(v["tick"]), dtype=torch.int64, device=device),
+    )
+
+
+def grid_state_from_numpy(obj: Any, device) -> GridState:
+    """GridState on ``device`` from the JAX package's GridState fields."""
+    v = {n: _get(obj, n) for n in _GRID_FIELDS}
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)
+    return GridState(
+        pos_x=f32(v["pos_x"]), pos_y=f32(v["pos_y"]),
+        vel_x=f32(v["vel_x"]), vel_y=f32(v["vel_y"]),
+        occ_row=torch.from_numpy(v["occ_row"].astype(np.int32)).to(device),
+        tick=torch.tensor(int(v["tick"]), dtype=torch.int64, device=device),
+        lost=torch.tensor(int(v["lost"]), dtype=torch.int32, device=device),
+    )
+
+
+def grid_state_to_numpy(gs: GridState) -> Dict[str, np.ndarray]:
+    """The GridState's fields as numpy arrays (tick as u32, as in JAX)."""
+    out = {n: getattr(gs, n).cpu().numpy() for n in _GRID_FIELDS}
+    out["tick"] = out["tick"].astype(np.uint32)
+    return out

@@ -1,0 +1,9 @@
+from .scenes import (  # noqa: F401
+    Scene,
+    dam_break_4k,
+    default_scene,
+    scene_64k,
+    scene_256k,
+    scene_1m,
+    scene_4m,
+)

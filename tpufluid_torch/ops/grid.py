@@ -1,0 +1,51 @@
+"""Cell keys and sort-based binning (port of ``tpufluid.ops.grid``).
+
+Cell math matches ``funcs.wgsl:206-218``: cell = floor((p + bounds/2)/h) + 1,
+clamped to the interior [1, grid_dim - 2] so the one-cell sentinel ring
+stays empty even when size/h divides exactly in f32.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..params import SimSettings
+
+
+def cell_xy(point: torch.Tensor, settings: SimSettings) -> torch.Tensor:
+    """Integer (x, y) cell coords of world points f32[..., 2] -> i32[..., 2]."""
+    half = torch.tensor(np.asarray(settings.size, np.float32) * np.float32(0.5),
+                        device=point.device)
+    h = torch.tensor(np.float32(settings.smoothing_radius), device=point.device)
+    xy = torch.floor((point + half) / h).to(torch.int32) + 1
+    lo = torch.ones(2, dtype=torch.int32, device=point.device)
+    hi = torch.tensor([settings.grid_w - 2, settings.grid_h - 2],
+                      dtype=torch.int32, device=point.device)
+    return torch.minimum(torch.maximum(xy, lo), hi)
+
+
+def cell_id(point: torch.Tensor, settings: SimSettings) -> torch.Tensor:
+    """Row-major cell id of world points f32[..., 2] -> i32[...]."""
+    xy = cell_xy(point, settings)
+    return xy[..., 1] * settings.grid_w + xy[..., 0]
+
+
+class Binning(NamedTuple):
+    """A permutation into cell-sorted order plus the segment table."""
+
+    perm: torch.Tensor          # i64[N]: sorted[i] = orig[perm[i]]
+    sorted_cells: torch.Tensor  # i32[N] cell id per sorted slot
+    cell_start: torch.Tensor    # i32[G+1]: run of cell c is [start[c], start[c+1])
+
+
+def bin_particles(cells: torch.Tensor, settings: SimSettings) -> Binning:
+    """Stable sort of particle indices by cell id, plus segment starts."""
+    sorted_cells, perm = torch.sort(cells.to(torch.int32), stable=True)
+    all_cells = torch.arange(settings.num_cells + 1, dtype=torch.int32,
+                             device=cells.device)
+    cell_start = torch.searchsorted(sorted_cells, all_cells,
+                                    side="left").to(torch.int32)
+    return Binning(perm=perm, sorted_cells=sorted_cells, cell_start=cell_start)

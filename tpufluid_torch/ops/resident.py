@@ -1,0 +1,302 @@
+"""Grid-resident engine: particles live in the cell grid between steps
+(port of ``tpufluid.ops.resident``, single world, base variant).
+
+The state IS the slot grid ``[Gy, K, Gxp]`` (rows padded to a multiple of
+4, columns to a multiple of 128, K above 8 to a multiple of 8: the JAX
+shapes, so the two engines' states compare one to one). One step:
+
+  1. rebin: slots move to their next predicted cell (``fused.rebin``);
+  2. far movers (> 1 cell in one step, rare) re-insert through plain
+     tensor code, only when the rebin counted any;
+  3. density -> (pressure, 1/rho) (``fused.density``);
+  4. forces fused with the integration (``fused.forces_integrate``).
+
+Arrivals beyond ``cell_capacity`` and far movers beyond ``far_capacity``
+are dropped and counted in ``GridState.lost``, never silently.
+
+Host syncs: one per step, reading the far-mover count to decide whether
+step 2 runs (the JAX step branches on the device with ``lax.cond``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from ..params import SimSettings
+from ..state import ParticleState, init_state
+from . import grid as gridops
+from .dense import build_grid_cols, ranks
+from . import fused
+from .fused import SENTINEL, SENTINEL_HALF
+
+# grid rows are padded to a multiple of this (the JAX engine's
+# ROWS_PER_PROGRAM); pad rows stay empty
+ROW_PAD = 4
+
+
+@dataclasses.dataclass
+class GridState:
+    """pos/vel slot grids f32[Gy, K, Gxp] (empty slots at pos=SENTINEL),
+    per-row packed occupancy i32[Gy], tick (i64 0-d) and the cumulative
+    lost counter (i32 0-d)."""
+
+    pos_x: torch.Tensor
+    pos_y: torch.Tensor
+    vel_x: torch.Tensor
+    vel_y: torch.Tensor
+    occ_row: torch.Tensor
+    tick: torch.Tensor
+    lost: torch.Tensor
+
+
+def _gxp(settings: SimSettings) -> int:
+    return -(-settings.grid_w // 128) * 128
+
+
+def _rows(settings: SimSettings) -> int:
+    return -(-settings.grid_h // ROW_PAD) * ROW_PAD
+
+
+def pad_capacity(settings: SimSettings) -> SimSettings:
+    """Round cell_capacity > 8 up to a multiple of 8 (as the JAX engine
+    does; extra capacity never loses mass)."""
+    k = settings.cell_capacity
+    if k <= 8 or k % 8 == 0:
+        return settings
+    return dataclasses.replace(settings, cell_capacity=-(-k // 8) * 8)
+
+
+def valid_mask(gs: GridState) -> torch.Tensor:
+    """bool[Gy, K, Gxp]: which slots hold a live particle."""
+    return gs.pos_x < SENTINEL_HALF
+
+
+def occ_row_of(pos_x: torch.Tensor) -> torch.Tensor:
+    """Per-row max packed occupancy, recomputed from a sentinel grid."""
+    occ_cell = (pos_x < SENTINEL_HALF).sum(dim=1)
+    return occ_cell.amax(dim=1).to(torch.int32)
+
+
+def from_particles(state: ParticleState, settings: SimSettings) -> GridState:
+    """Bin a ParticleState into the resident grid on the state's device."""
+    settings = pad_capacity(settings)
+    cells = gridops.cell_id(state.predicted, settings)
+    binning = gridops.bin_particles(cells, settings)
+    g4 = torch.cat([state.position, state.velocity], dim=1)[binning.perm]
+    grid = build_grid_cols(
+        g4[:, 0], g4[:, 1], g4[:, 2], g4[:, 3], binning.sorted_cells,
+        settings, dims=(_rows(settings), settings.grid_w))
+    px = torch.where(grid.valid, grid.px, SENTINEL)
+    py = torch.where(grid.valid, grid.py, SENTINEL)
+    return GridState(
+        pos_x=px, pos_y=py, vel_x=grid.vx, vel_y=grid.vy,
+        occ_row=occ_row_of(px),
+        tick=state.tick.to(torch.int64), lost=grid.n_dropped,
+    )
+
+
+def init_grid_state(settings: SimSettings, device) -> GridState:
+    return from_particles(init_state(settings, device), settings)
+
+
+def grow_capacity(gs: GridState, new_k: int) -> GridState:
+    """Widen the slot axis to ``new_k`` by appending empty slots; packing
+    and the trajectory are unchanged."""
+    gy, k, gxp = gs.pos_x.shape
+    if new_k % 8 != 0:
+        raise ValueError(f"new_k {new_k} must be a multiple of 8")
+    if new_k <= k:
+        return gs
+    pad = (0, 0, 0, new_k - k)
+    F = torch.nn.functional
+    return dataclasses.replace(
+        gs, pos_x=F.pad(gs.pos_x, pad, value=SENTINEL),
+        pos_y=F.pad(gs.pos_y, pad, value=SENTINEL),
+        vel_x=F.pad(gs.vel_x, pad), vel_y=F.pad(gs.vel_y, pad))
+
+
+def shrink_capacity(gs: GridState, new_k: int) -> GridState:
+    """Narrow the slot axis to ``new_k``; exact only when every row's
+    occupancy is <= ``new_k`` (the caller checks)."""
+    gy, k, gxp = gs.pos_x.shape
+    if new_k % 8 != 0:
+        raise ValueError(f"new_k {new_k} must be a multiple of 8")
+    if new_k >= k:
+        return gs
+    sl = lambda a: a[:, :new_k, :].contiguous()
+    return dataclasses.replace(
+        gs, pos_x=sl(gs.pos_x), pos_y=sl(gs.pos_y),
+        vel_x=sl(gs.vel_x), vel_y=sl(gs.vel_y))
+
+
+def to_particles(gs: GridState,
+                 settings: SimSettings) -> Tuple[ParticleState, torch.Tensor]:
+    """(ParticleState, live_count): live slots in cell order, then zeros;
+    arrays sized to settings.particle_count."""
+    n = settings.particle_count
+    gy, k, gxp = gs.pos_x.shape
+    size = gy * k * gxp
+    dev = gs.pos_x.device
+    slot = torch.arange(size, dtype=torch.int64, device=dev)
+    cell = (slot // (k * gxp)) * settings.grid_w + slot % gxp
+    valid = valid_mask(gs).reshape(-1)
+    key = torch.where(valid, cell, settings.num_cells + 1)
+    _, perm = torch.sort(key, stable=True)
+    sel = perm[:n]
+    live = valid.sum().to(torch.int32)
+    ok = torch.arange(n, device=dev) < live
+    fields = torch.stack(
+        [gs.pos_x.reshape(-1), gs.pos_y.reshape(-1),
+         gs.vel_x.reshape(-1), gs.vel_y.reshape(-1)], dim=1)[sel]
+    fields = torch.where(ok[:, None], fields, 0.0)
+    cells_out = torch.where(ok, key[sel], 0).to(torch.int32)
+    pos = fields[:, 0:2]
+    return ParticleState(
+        position=pos, predicted=pos.clone(), velocity=fields[:, 2:4],
+        density=torch.zeros((n,), dtype=torch.float32, device=dev),
+        cell=cells_out, tick=gs.tick.clone(),
+    ), live
+
+
+def _reinsert_far(gs: GridState, px, py, vx, vy, n_far, dt,
+                  settings: SimSettings, far_capacity: int):
+    """Far-mover fallback (``tpufluid.ops.resident`` ``do_far``): take the
+    far movers of the pre-rebin grid in slot order (at most
+    ``far_capacity``), order them by target cell, and append each to its
+    target cell after the slots the rebin filled. Returns the new grids,
+    occ_row and the count dropped for want of room."""
+    gy, k, gxp = px.shape
+    size = px.numel()
+    dev = px.device
+    grid_w = settings.grid_w
+    ncx, ncy = fused._cells(gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, dt,
+                            settings)
+    scx = torch.arange(gxp, device=dev)[None, None, :]
+    scy = torch.arange(gy, device=dev)[:, None, None]
+    far = (gs.pos_x < SENTINEL_HALF) & (
+        ((ncy - scy).abs() > 1) | ((ncx - scx).abs() > 1))
+    sort_key = torch.where(far.reshape(-1), 0, 1)
+    _, perm = torch.sort(sort_key, stable=True)
+    sel = perm[:far_capacity]
+    ok = torch.arange(sel.shape[0], device=dev) < n_far
+    rows = torch.stack(
+        [gs.pos_x.reshape(-1), gs.pos_y.reshape(-1),
+         gs.vel_x.reshape(-1), gs.vel_y.reshape(-1)], dim=1)[sel]
+    tcx = ncx.reshape(-1)[sel]
+    tcy = ncy.reshape(-1)[sel]
+    tcell = torch.where(ok, tcy * grid_w + tcx, 2**30)
+    tcell_s, perm2 = torch.sort(tcell, stable=True)
+    rows = rows[perm2]
+    ok = ok[perm2]
+    rank = ranks(tcell_s)
+    occ_cell = (px < SENTINEL_HALF).sum(dim=1)  # [Gy, Gxp]
+    cy2 = torch.clamp(tcell_s // grid_w, 0, gy - 1)
+    cx2 = torch.clamp(tcell_s % grid_w, 0, gxp - 1)
+    slot = occ_cell.reshape(-1)[cy2 * gxp + cx2] + rank
+    fits = ok & (slot < k)
+    flat = torch.where(fits, (cy2 * k + slot) * gxp + cx2, size)
+
+    def put(grid, vals):
+        buf = torch.cat([grid.reshape(-1), grid.new_zeros(1)])
+        buf.index_put_((flat,), vals)
+        return buf[:size].reshape(grid.shape)
+
+    px, py = put(px, rows[:, 0]), put(py, rows[:, 1])
+    vx, vy = put(vx, rows[:, 2]), put(vy, rows[:, 3])
+    dropped = (n_far - fits.sum()).to(torch.int32)
+    return px, py, vx, vy, occ_row_of(px), dropped
+
+
+def _unported(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md {item}")
+
+
+def make_grid_step(settings: SimSettings, far_capacity: int | None = None,
+                   x_boundary: str = "bounce",
+                   has_force_field: bool = False,
+                   surface_tension: bool = False,
+                   adaptive_subsampling: bool = False,
+                   n_worlds: int = 1):
+    """Resident step ``step(gs, params) -> GridState``, memoised on its
+    arguments. The step runs where ``gs`` lies: the CUDA kernels on a
+    CUDA device, their plain versions on the CPU."""
+    if x_boundary not in ("bounce", "wrap"):
+        raise ValueError(f"unknown x_boundary {x_boundary!r}")
+    if x_boundary == "wrap":
+        _unported("x_boundary='wrap'", "queue 2, forces_integrate wrap_x")
+    if has_force_field:
+        _unported("obstacle force fields", "queue 1, forcefield.py")
+    if surface_tension:
+        _unported("surface tension", "queue 2, forces_integrate surface_tension")
+    if adaptive_subsampling:
+        _unported("adaptive subsampling", "queue 2, forces_integrate adaptive")
+    if n_worlds != 1:
+        _unported("batched worlds", "queue 1, batched worlds")
+    key = (settings, far_capacity)
+    hit = _STEP_CACHE.get(key)
+    if hit is None:
+        hit = _STEP_CACHE[key] = _make_step(
+            settings, far_capacity, fused.rebin, fused.density,
+            fused.forces_integrate)
+    return hit
+
+
+def make_plain_grid_step(settings: SimSettings,
+                         far_capacity: int | None = None):
+    """The resident step built on the kernels' plain PyTorch versions, on
+    any device: the reference that the CUDA step is held to on the card."""
+    return _make_step(settings, far_capacity, fused.rebin_plain,
+                      fused.density_plain, fused.forces_integrate_plain)
+
+
+def _make_step(settings: SimSettings, far_capacity, rebin, density,
+               forces_integrate):
+    settings = pad_capacity(settings)
+    k = settings.cell_capacity
+    gy_p = _rows(settings)
+    gxp = _gxp(settings)
+    if far_capacity is None:
+        # impact phases can fling thousands of >1-cell movers in one step
+        far_capacity = max(4096, (gy_p * k * gxp) // 128)
+
+    def step(gs: GridState, params) -> GridState:
+        if gs.pos_x.shape != (gy_p, k, gxp):
+            raise ValueError(f"state shape {tuple(gs.pos_x.shape)} does not "
+                             f"match settings {(gy_p, k, gxp)}")
+        frame = gs.tick + 1
+        dt = params.delta
+        px, py, vx, vy, occ_row, far_n, over_n = rebin(
+            gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, gs.occ_row, dt, settings)
+        n_far = far_n.sum()
+        lost = gs.lost + over_n.sum().to(torch.int32)
+        if int(n_far) > 0:  # the step's one host sync
+            px, py, vx, vy, occ_row, dropped = _reinsert_far(
+                gs, px, py, vx, vy, n_far, dt, settings, far_capacity)
+            lost = lost + dropped
+        pres, invr = density(
+            px, py, vx, vy, occ_row, params.mass, dt,
+            params.pressure_constant, params.rest_density, settings)
+        npx, npy, nvx, nvy = forces_integrate(
+            px, py, vx, vy, pres, invr, occ_row, params, settings, frame)
+        return GridState(pos_x=npx, pos_y=npy, vel_x=nvx, vel_y=nvy,
+                         occ_row=occ_row, tick=frame, lost=lost)
+
+    return step
+
+
+_STEP_CACHE: dict = {}
+
+
+def make_grid_multi_step(settings: SimSettings, n_steps: int, **kw):
+    """``run(gs, params)``: ``n_steps`` resident steps in a Python loop."""
+    step = make_grid_step(settings, **kw)
+
+    def run(gs: GridState, params) -> GridState:
+        for _ in range(n_steps):
+            gs = step(gs, params)
+        return gs
+
+    return run
