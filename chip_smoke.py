@@ -2,27 +2,39 @@
 
     python3 chip_smoke.py
 
-Builds the resident engine's CUDA kernels from ``tpufluid_torch/csrc``,
-holds each kernel against its plain PyTorch version on the card at scene_1m
-shapes (K=8, and the same grid at K=32), runs a synced 20-step comparison
-of the kernel step against the plain step, drives
-``FluidApp(scene_1m, neighbor_mode="resident", device="cuda").run(200)``
-with the launch counters reset just before it, and runs the reference's
-default scene (100k particles, gravity) through the CLI's ``run`` path for
-512 steps. Any failed phase raises and the script exits non-zero.
+Builds the CUDA kernels from ``tpufluid_torch/csrc`` and runs, in order:
 
-Output: progress lines, then the card's name and power limit, then one JSON
-line of per-kernel results, and last one JSON line
-``{"ok": true, "device": {...}}``. Without a CUDA device it exits
-non-zero and prints no result. Imports no JAX.
+1. each resident-step kernel (rebin, density, forces_integrate) against its
+   plain PyTorch version on the card at scene_1m shapes (K=8, and the same
+   grid at K=32), timed;
+2. a synced 20-step comparison of the kernel step against the plain step;
+3. ``FluidApp(scene_1m, neighbor_mode="resident", device="cuda").run(200)``
+   with the launch counters reset just before it;
+4. the reference's default scene (100k particles, gravity) through the
+   CLI's ``run`` path for 512 steps;
+5. the metaball coarse-field kernel against its plain version at scene_1m
+   (K=8, K=32) and on phase 4's high-occupancy grid, timed;
+6. forces_integrate's obstacle (has_ff) variant against its plain version
+   at scene_1m, and 20 synced obstacle steps, kernel step against plain;
+7. the render path through the CLI's parser: 16 frames at 960x540 of the
+   default scene falling onto a circle, counters reset just before it;
+8. the frame breakdown at scene_1m, 960x540.
+
+Any failed phase raises and the script exits non-zero. Output: progress
+lines, then the card's name and power limit, then one JSON line of
+per-kernel results, and last one JSON line ``{"ok": true, "device":
+{...}}``. Without a CUDA device it exits non-zero and prints no result.
+Imports no JAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -30,7 +42,19 @@ import torch
 # BASELINE.md's measured cross-backend per-step bounds, relative where the
 # value exceeds 1: what the kernels must meet against the plain versions
 POS_TOL, VEL_TOL, RHO_TOL = 4.8e-7, 3.8e-5, 9.2e-5
+# the metaball coarse fields: |kernel - plain| <= FIELD_TOL * max(1, |plain|)
+FIELD_TOL = 1e-5
 SEED = 1234
+# the H100 SXM's published peaks (at 700 W): HBM bytes/s, f32 (non-tensor)
+# operations/s
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+# f32 operations per unit of work, counted from the kernel sources: per live
+# particle (rebin: predict 2 x 4, cell 2 x 3), per live (target, candidate)
+# pair (density: predict 8, distance 5, kernel 5; forces: predict 8,
+# distance 7, pressure 11, viscosity 17), per live (sample, candidate) pair
+# (metaball_coarse: distance 5, scale 1, exp 1, sums 3)
+OPS = {"rebin": 14, "density": 18, "forces_integrate": 43,
+       "metaball_coarse": 10}
 KERNELS = {
     "rebin": ("tpufluid_torch/csrc/rebin.cu",
               "tpufluid/ops/pallas/fused.py:396"),
@@ -38,7 +62,14 @@ KERNELS = {
                 "tpufluid/ops/pallas/fused.py:627"),
     "forces_integrate": ("tpufluid_torch/csrc/forces.cu",
                          "tpufluid/ops/pallas/fused.py:1702"),
+    "metaball_coarse": ("tpufluid_torch/csrc/metaball_coarse.cu",
+                        "tpufluid/ops/pallas/render.py:103"),
 }
+# obstacles of phases 6 and 7 (scene_1m world: 101.95 x 104.1)
+OBSTACLES_1M = [("circle", (0.0, 0.0), 6.0), ("circle", (-20.0, 10.0), 4.0),
+                ("circle", (15.0, -12.0), 3.0),
+                ("rect", (5.0, 20.0), (12.0, 5.0), 0.5)]
+CIRCLE_7 = (0.0, -20.0, 4.0)
 
 
 def log(msg: str) -> None:
@@ -102,9 +133,55 @@ def seeded_state(settings, device):
         cell=st.cell.to(device), tick=st.tick.to(device))
 
 
+def bound(n_bytes: float, n_ops: float):
+    """(ms, "bytes" | "operations"): the least time the card could take,
+    bytes read and written once over the memory rate against the f32
+    operations over the f32 peak."""
+    t_b = n_bytes / PEAK_BYTES * 1e3
+    t_o = n_ops / PEAK_F32 * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def live_per_cell(pos_x):
+    from tpufluid_torch.ops.fused import SENTINEL_HALF
+
+    return (pos_x < SENTINEL_HALF).sum(dim=1).double()  # [Gy, Gxp]
+
+
+def stencil_pairs(pos_x) -> float:
+    """Live (target, candidate) pairs over the 3x3 cell stencil: the work
+    of density and forces on this grid."""
+    c = live_per_cell(pos_x)
+    box = torch.nn.functional.conv2d(
+        c[None, None], torch.ones(1, 1, 3, 3, dtype=c.dtype,
+                                  device=c.device), padding=1)[0, 0]
+    return float((c * box).sum())
+
+
+def coarse_pairs(pos_x, sup: int = 2) -> float:
+    """Live (sample, candidate) pairs of the metaball coarse kernel. The
+    8 x (sup * Gxp) samples of block p read the source rows 8p/sup - 3 ..
+    + n_rows - 1, 7 columns each; over a row of samples every column is
+    read sup times per dx, so the block's pairs are 8 * sup * 7 * (live
+    particles in its rows)."""
+    gy = pos_x.shape[0]
+    rows = live_per_cell(pos_x).sum(dim=1).cpu()  # live per source row
+    n_rows = 7 // sup + 1 + 6
+    total = 0.0
+    for p in range(sup * gy // 8):
+        r0 = (8 * p) // sup - 3
+        total += float(rows[max(r0, 0):min(r0 + n_rows, gy)].sum())
+    return total * 8 * sup * 7
+
+
+def grid_bytes(a) -> int:
+    return a.numel() * a.element_size()
+
+
 def compare_kernels(settings, params, label):
     """Each kernel against its plain version on one grid. Returns per-kernel
-    dicts of max_abs_err, and the calls for ``time_kernels``."""
+    dicts of max_abs_err and the bound, and the calls for
+    ``time_kernels``."""
     from tpufluid_torch.ops import fused, resident
 
     dev = params.device
@@ -157,6 +234,16 @@ def compare_kernels(settings, params, label):
         f"{POS_TOL}) vel {max(errs[2:]):.3g} (bound {VEL_TOL}), max abs err "
         f"{out['forces_integrate']['max_abs_err']:.3g}")
 
+    g = grid_bytes(gs.pos_x)
+    n_live = float(live_per_cell(gs.pos_x).sum())
+    pairs = stencil_pairs(px)
+    for name, n_bytes, n_ops in (
+            ("rebin", 8 * g, OPS["rebin"] * n_live),
+            ("density", 6 * g, OPS["density"] * pairs),
+            ("forces_integrate", 10 * g, OPS["forces_integrate"] * pairs)):
+        out[name]["bound_ms"], out[name]["bound_by"] = bound(n_bytes, n_ops)
+    log(f"{label}: {n_live:.0f} live particles, {pairs:.4e} stencil pairs")
+
     calls = {
         "rebin": (lambda: fused.rebin(*rargs),
                   lambda: fused.rebin_plain(*rargs)),
@@ -181,23 +268,26 @@ def time_kernels(calls, out, label) -> None:
         out[name].update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2)
         log(f"{label} {name}: kernel {out[name]['ms']:.4f} ms "
             f"({k1:.4f}, {k2:.4f}), plain {out[name]['plain_ms']:.3f} ms "
-            f"({p1:.3f}, {p2:.3f})")
+            f"({p1:.3f}, {p2:.3f}), bound {out[name]['bound_ms']:.4f} ms "
+            f"({out[name]['bound_by']})")
 
 
-def synced_steps(settings, params, n_steps: int) -> None:
+def synced_steps(settings, params, n_steps: int, field=None) -> None:
     """The kernel step against the plain step, each step from the plain
     step's state: occupancy, layout, tick and lost bitwise, floats within
-    the bounds."""
+    the bounds. ``field``: an obstacle push-out field (the has_ff step)."""
     from tpufluid_torch.ops import fused, resident
 
-    kstep = resident.make_grid_step(settings)
-    pstep = resident.make_plain_grid_step(settings)
+    has_ff = field is not None
+    extra = (field,) if has_ff else ()
+    kstep = resident.make_grid_step(settings, has_force_field=has_ff)
+    pstep = resident.make_plain_grid_step(settings, has_force_field=has_ff)
     gs = resident.from_particles(seeded_state(settings, params.device),
                                  settings)
     worst = [0.0, 0.0]
     for i in range(n_steps):
-        k = kstep(gs, params)
-        p = pstep(gs, params)
+        k = kstep(gs, params, *extra)
+        p = pstep(gs, params, *extra)
         for f in ("occ_row", "tick", "lost"):
             if not torch.equal(getattr(k, f), getattr(p, f)):
                 raise AssertionError(f"synced step {i}: {f} differs")
@@ -213,10 +303,224 @@ def synced_steps(settings, params, n_steps: int) -> None:
                                  f"{e_vel}")
         worst = [max(worst[0], e_pos), max(worst[1], e_vel)]
         gs = p
-    log(f"synced {n_steps} steps at {tuple(gs.pos_x.shape)}: layout, "
+    log(f"synced {n_steps} {'obstacle ' if has_ff else ''}steps at "
+        f"{tuple(gs.pos_x.shape)}: layout, "
         f"occupancy, tick and lost bitwise; worst rel err pos {worst[0]:.3g} "
         f"vel {worst[1]:.3g}; lost {int(gs.lost)}")
 
+
+def compare_coarse(gs, settings, label, plain_reps):
+    """The metaball coarse kernel against its plain version on one grid,
+    then timed (plain, kernel, kernel, plain)."""
+    from tpufluid_torch.ops import render_coarse
+
+    speed = torch.sqrt(gs.vel_x * gs.vel_x + gs.vel_y * gs.vel_y)
+    args = (gs.pos_x, gs.pos_y, speed, gs.occ_row, settings, 2)
+    got = render_coarse.coarse_metaball_fields(*args)
+    want = render_coarse.coarse_metaball_fields_plain(*args)
+    full = torch.ones_like(want[0], dtype=torch.bool)
+    e_rel = max(rel_err(a, b, full) for a, b in zip(got, want))
+    e_abs = max(abs_err(a, b, full) for a, b in zip(got, want))
+    if not (e_rel <= FIELD_TOL and float(want[0].max()) > 1.0):
+        raise AssertionError(f"{label} metaball_coarse: rel err {e_rel} > "
+                             f"{FIELD_TOL}")
+    kern = lambda: render_coarse.coarse_metaball_fields(*args)
+    plain = lambda: render_coarse.coarse_metaball_fields_plain(*args)
+    p1 = time_ms(plain, plain_reps, warm=1)
+    k1 = time_ms(kern, 50)
+    k2 = time_ms(kern, 50)
+    p2 = time_ms(plain, plain_reps, warm=0)
+    pairs = coarse_pairs(gs.pos_x)
+    n_bytes = 3 * grid_bytes(gs.pos_x) + 2 * grid_bytes(want[0])
+    b_ms, b_by = bound(n_bytes, OPS["metaball_coarse"] * pairs)
+    res = dict(max_abs_err=e_abs, max_rel_err=e_rel, ms=(k1 + k2) / 2,
+               plain_ms=(p1 + p2) / 2, bound_ms=b_ms, bound_by=b_by,
+               grid=list(gs.pos_x.shape),
+               max_occupancy=int(gs.occ_row.max()))
+    log(f"{label} metaball_coarse {tuple(gs.pos_x.shape)} (max occupancy "
+        f"{res['max_occupancy']}, {pairs:.4e} pairs): max rel err "
+        f"{e_rel:.3g} (bound {FIELD_TOL}), max abs err {e_abs:.3g}; kernel "
+        f"{res['ms']:.4f} ms ({k1:.4f}, {k2:.4f}), plain "
+        f"{res['plain_ms']:.3f} ms ({p1:.3f}, {p2:.3f}), bound {b_ms:.4f} "
+        f"ms ({b_by})")
+    return res
+
+
+def compare_has_ff(settings, params, field, label):
+    """forces_integrate with an obstacle field against its plain version
+    on the seeded scene_1m state, then timed."""
+    from tpufluid_torch.ops import fused, resident
+
+    gs = resident.from_particles(seeded_state(settings, params.device),
+                                 settings)
+    ffc = resident.forcefield_cells(field, settings)
+    px, py, vx, vy, occ = fused.rebin(gs.pos_x, gs.pos_y, gs.vel_x,
+                                      gs.vel_y, gs.occ_row, params.delta,
+                                      settings)[:5]
+    pres, invr = fused.density(px, py, vx, vy, occ, params.mass,
+                               params.delta, params.pressure_constant,
+                               params.rest_density, settings)
+    fargs = (px, py, vx, vy, pres, invr, occ, params, settings, gs.tick + 1)
+    new = fused.forces_integrate(*fargs, ff_cells=ffc)
+    new_p = fused.forces_integrate_plain(*fargs, ff_cells=ffc)
+    base = fused.forces_integrate(*fargs)
+    live = px < fused.SENTINEL_HALF
+    errs = [rel_err(a, b, live) for a, b in zip(new, new_p)]
+    if not (max(errs[:2]) <= POS_TOL and max(errs[2:]) <= VEL_TOL):
+        raise AssertionError(f"{label} forces_integrate has_ff: rel errs "
+                             f"{errs}")
+    for a, b in zip(new, new_p):
+        if not torch.equal(a[~live], b[~live]):
+            raise AssertionError(f"{label} has_ff: dead slots differ")
+    pushed = int(((new[0] != base[0]) & live).sum())
+    if pushed < 1000:
+        raise AssertionError(f"{label} has_ff: only {pushed} pushed")
+    kern = lambda: fused.forces_integrate(*fargs, ff_cells=ffc)
+    plain = lambda: fused.forces_integrate_plain(*fargs, ff_cells=ffc)
+    p1 = time_ms(plain, 3, warm=1)
+    k1 = time_ms(kern, 50)
+    k2 = time_ms(kern, 50)
+    p2 = time_ms(plain, 3, warm=0)
+    n_bytes = 10 * grid_bytes(px) + 2 * grid_bytes(ffc[0])
+    b_ms, b_by = bound(n_bytes, OPS["forces_integrate"] * stencil_pairs(px))
+    res = dict(max_abs_err=max(abs_err(a, b, live)
+                               for a, b in zip(new, new_p)),
+               ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=b_ms,
+               bound_by=b_by, library_ms=None)
+    log(f"{label} forces_integrate has_ff: {pushed} particles pushed; rel "
+        f"err pos {max(errs[:2]):.3g} (bound {POS_TOL}) vel "
+        f"{max(errs[2:]):.3g} (bound {VEL_TOL}), max abs err "
+        f"{res['max_abs_err']:.3g}; kernel {res['ms']:.4f} ms ({k1:.4f}, "
+        f"{k2:.4f}), plain {res['plain_ms']:.3f} ms ({p1:.3f}, {p2:.3f}), "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    return res
+
+
+def reset_counts():
+    from tpufluid_torch.ops import fused, render_coarse
+
+    for counts in (fused.LAUNCHES, render_coarse.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def read_counts() -> dict:
+    from tpufluid_torch.ops import fused, render_coarse
+
+    return {**fused.LAUNCHES, **render_coarse.LAUNCHES}
+
+
+def render_cli():
+    """The render path through the CLI's parser: the default scene falls
+    onto a circle below it, 16 frames (256 ticks, so the grow policy's loss
+    audit at tick 256 and any regrow-and-replay run before the last frame
+    is shaded) at 960x540. Returns (result dict, launch counts)."""
+    import numpy as np
+    from tpufluid_torch import cli
+    from tpufluid_torch.ops import render as renderops
+    from tpufluid_torch.ops import resident
+    from tpufluid_torch.utils import io as ioutils
+
+    cx, cy, r = CIRCLE_7
+    with tempfile.TemporaryDirectory() as out:
+        args = cli.parser().parse_args([
+            "render", "--device", "cuda", "--neighbor-mode", "resident",
+            "--gravity", "0", "-9.8", "--cell-capacity", "8", "--circle",
+            str(cx), str(cy), str(r), "--frames", "16", "--width", "960",
+            "--height", "540", "--out", out])
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        app = cli.render(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        names = sorted(os.listdir(out))
+        frames = [ioutils.read_png(os.path.join(out, n)) for n in names]
+    m = app.metrics()
+    _, live = resident.to_particles(app.grid_state, app.settings)
+    log(f"render CLI (default scene, circle {CIRCLE_7}, 16 frames 960x540): "
+        f"{len(names)} PNGs, tick {m['tick']}, lost {m['lost_particles']}, "
+        f"live {int(live)}, regrows {m['n_regrows']}, final K "
+        f"{m['cell_capacity']}, wall {wall:.2f} s, "
+        f"{1e3 * wall / 16:.1f} ms/frame; launches {launches}")
+    if not (names == [f"frame_{i:05d}.png" for i in range(16)]
+            and all(f.shape == (540, 960, 4) and f.dtype == np.uint8
+                    for f in frames)):
+        raise AssertionError(f"render CLI frames: {names}")
+    if not (m["tick"] == 256 and m["lost_particles"] == 0
+            and int(live) == 100_000):
+        raise AssertionError(f"render CLI run: {m}, live {int(live)}")
+    if not (launches["metaball_coarse"] == 16
+            and launches["forces_integrate_has_ff"]
+            == launches["forces_integrate"] > 0
+            and launches["rebin"] == launches["density"]
+            == launches["forces_integrate"]):
+        raise AssertionError(f"render CLI launches: {launches}")
+
+    # the hole: every pixel more than 3h inside the circle is background.
+    # The circle lies below the default view (53 x 29.8 around the
+    # origin), so the last state is shaded once more with a camera on it.
+    h = app.settings.smoothing_radius
+    cam = renderops.Camera(center=(cx, cy), view_size=(16.0, 9.0))
+    img = renderops.to_rgba8(app.render_frame(960, 540, camera=cam))
+    img = img.cpu().numpy()
+    pts = cam.pixel_world_coords(960, 540, "cpu").numpy()
+    d = np.hypot(pts[..., 0] - cx, pts[..., 1] - cy)
+    bg = (img[..., :3] == 0).all(axis=-1) & (img[..., 3] == 255)
+    deep = d < r - 3 * h
+    ring = (d > r) & (d < r + 2.0)
+    fluid_near = int((~bg & ring).sum())
+    log(f"obstacle hole: {int(deep.sum())} pixels more than 3h inside the "
+        f"circle, {int((~bg & deep).sum())} of them not background; "
+        f"{fluid_near} fluid pixels within 2 of its rim")
+    if not (deep.sum() > 1000 and bg[deep].all() and fluid_near > 1000):
+        raise AssertionError("render CLI: no clean obstacle hole")
+    return dict(frames=len(names), tick=m["tick"], lost=m["lost_particles"],
+                live=int(live), n_regrows=m["n_regrows"],
+                final_k=m["cell_capacity"], wall_s=wall,
+                ms_per_frame=1e3 * wall / 16), launches
+
+
+def frame_breakdown(app, card):
+    """CUDA-event ms of the render path's parts at 960x540 on the app's
+    grid, and of a 16-tick frame plus its render."""
+    from tpufluid_torch.ops import render as renderops
+    from tpufluid_torch.ops import render_binned, render_coarse, render_grid
+
+    gs, s = app.grid_state, app.settings
+    cam = renderops.Camera(view_size=(s.size[0], s.size[0] * 540 / 960))
+    speed = torch.sqrt(gs.vel_x * gs.vel_x + gs.vel_y * gs.vel_y)
+    coarse = lambda: render_coarse.coarse_metaball_fields(
+        gs.pos_x, gs.pos_y, speed, gs.occ_row, s, 2)
+    fields = coarse()
+    resample = lambda: render_grid.resample_fields(fields, s, 960, 540,
+                                                   cam, 2)
+    dens, velf = resample()
+    out = dict(
+        coarse_ms=time_ms(coarse, 20),
+        resample_ms=time_ms(resample, 20),
+        shade_ms=time_ms(lambda: render_binned.shade_metaball(dens, velf),
+                         20),
+        render_frame_ms=time_ms(lambda: app.render_frame(960, 540), 20))
+    app.run(16)
+    app.render_frame(960, 540)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(5):
+        app.run(16)
+        app.render_frame(960, 540)
+    end.record()
+    torch.cuda.synchronize()
+    out["ms_per_frame"] = start.elapsed_time(end) / 5
+    log(f"scene_1m frame at 960x540: coarse kernel {out['coarse_ms']:.4f} "
+        f"ms, resample (2 x 2 matmuls) {out['resample_ms']:.4f} ms, shading "
+        f"{out['shade_ms']:.4f} ms, render_frame {out['render_frame_ms']:.4f}"
+        f" ms; 16 ticks + render {out['ms_per_frame']:.3f} ms/frame (CUDA "
+        f"events over 5 frames; {card})")
+    return out
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -225,7 +529,7 @@ def main() -> int:
     from tpufluid_torch import _build, cli
     from tpufluid_torch.app import FluidApp
     from tpufluid_torch.models import scenes
-    from tpufluid_torch.ops import fused, resident
+    from tpufluid_torch.ops import resident
 
     dev = torch.device("cuda")
     card = card_line()
@@ -265,15 +569,14 @@ def main() -> int:
     del warm
     app = FluidApp(s8, scene.params, device=dev, neighbor_mode="resident")
     torch.cuda.synchronize()
-    for name in fused.LAUNCHES:
-        fused.LAUNCHES[name] = 0
+    reset_counts()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     app.run(200)
     end.record()
     torch.cuda.synchronize()
-    launches = dict(fused.LAUNCHES)
+    launches = read_counts()
     ms_step = start.elapsed_time(end) / 200
     m = app.metrics()
     ps, live = resident.to_particles(app.grid_state, app.settings)
@@ -288,7 +591,8 @@ def main() -> int:
     if not (m["tick"] == 200 and m["lost_particles"] == 0
             and n_live == s8.particle_count and finite):
         raise AssertionError(f"scene_1m run failed: {m}, live {n_live}")
-    if any(launches[n] != 200 for n in launches):
+    if launches != {"rebin": 200, "density": 200, "forces_integrate": 200,
+                    "forces_integrate_has_ff": 0, "metaball_coarse": 0}:
         raise AssertionError(f"kernel launches in the run: {launches}")
 
     # 4. the reference's default scene through the CLI's run path
@@ -308,17 +612,60 @@ def main() -> int:
             and int(live) == 100_000):
         raise AssertionError(f"default scene failed: {m}, live {int(live)}")
 
+    # 5. the metaball coarse kernel against its plain version: scene_1m at
+    # K=8 and K=32, and phase 4's grid (high occupancy, large K)
+    torch.use_deterministic_algorithms(True)
+    coarse = {}
+    for label, st, reps in (("scene_1m K=8", s8, 3), ("scene_1m K=32", s32, 2)):
+        gs = resident.from_particles(seeded_state(st, dev), st)
+        coarse[label] = compare_coarse(gs, st, label, reps)
+    coarse["default scene"] = compare_coarse(
+        app100.grid_state, app100.settings,
+        f"default scene after 512 steps (K={app100.settings.cell_capacity})",
+        1)
+    del app100
+
+    # 6. the obstacle variant: forces_integrate with ff_cells at scene_1m,
+    # then 20 synced obstacle steps
+    from tpufluid_torch.ops import forcefield
+    field = forcefield.obstacle_force_field(
+        forcefield.Objects.from_list(OBSTACLES_1M, dev), s8)
+    has_ff = compare_has_ff(s8, scene.params, field, "scene_1m K=8")
+    synced_steps(s8, scene.params, 20, field)
+    torch.use_deterministic_algorithms(False)
+    del field
+
+    # 7. the render path through the CLI (its own launch counts)
+    render_res, render_launches = render_cli()
+
+    # 8. the frame at full size on phase 3's scene_1m state
+    frame = frame_breakdown(app, card)
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        kernels.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=res[name]["max_abs_err"],
-            ms=res[name]["ms"], plain_ms=res[name]["plain_ms"],
-            k32=dict(max_abs_err=res32[name]["max_abs_err"],
-                     ms=res32[name]["ms"],
-                     plain_ms=res32[name]["plain_ms"])))
+        if name == "metaball_coarse":
+            c8 = coarse["scene_1m K=8"]
+            entry = dict(launches=render_launches[name], **{
+                k: c8[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by")},
+                library_ms=None, k32=coarse["scene_1m K=32"],
+                default_scene=coarse["default scene"])
+        else:
+            entry = dict(launches=launches[name],
+                         render_path_launches=render_launches[name], **{
+                             k: res[name][k] for k in (
+                                 "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by")},
+                         library_ms=None, k32=res32[name])
+        if name == "forces_integrate":
+            entry["has_ff"] = dict(
+                launches=render_launches["forces_integrate_has_ff"],
+                **has_ff)
+        kernels.append(dict(name=name, route="cuda", source=source,
+                            replaces=replaces, **entry))
     print(card)
-    print(json.dumps({"kernels": kernels, "ms_per_step": ms_step}))
+    print(json.dumps({"kernels": kernels, "ms_per_step": ms_step,
+                      "render": render_res, "frame": frame}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

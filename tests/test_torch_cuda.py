@@ -1,6 +1,7 @@
-"""PyTorch port on the card: each CUDA kernel of the resident engine
-against its plain PyTorch version on the same CUDA tensors, and the kernel
-step against the plain step. Marked ``cuda``; every test skips without a
+"""PyTorch port on the card: each CUDA kernel (the resident engine's three,
+forces with an obstacle field, the metaball coarse fields) against its
+plain PyTorch version on the same CUDA tensors, and the kernel step against
+the plain step. Marked ``cuda``; every test skips without a
 CUDA device. This file imports no JAX, so it also runs where JAX is not
 installed:
 
@@ -8,7 +9,8 @@ installed:
 
 Rebin must be bitwise; density and forces within BASELINE.md's per-step
 bounds (|drho| <= 9.2e-5, |dpos| <= 4.8e-7, |dvel| <= 3.8e-5, relative
-where the value exceeds 1) on live slots, with dead slots exact.
+where the value exceeds 1) on live slots, with dead slots exact; the
+metaball fields within 1e-5 * max(1, |plain|).
 """
 
 import dataclasses
@@ -85,7 +87,8 @@ def test_kernels_match_plain(cuda, k):
         assert torch.equal(a[~live], b[~live])
     torch.cuda.synchronize()
     assert {n: fused.LAUNCHES[n] - before[n] for n in before} == {
-        "rebin": 1, "density": 1, "forces_integrate": 1}
+        "rebin": 1, "density": 1, "forces_integrate": 1,
+        "forces_integrate_has_ff": 0}
 
 
 def test_kernel_step_matches_plain_step(cuda):
@@ -115,3 +118,75 @@ def test_wrappers_check_their_inputs(cuda):
     with pytest.raises(ValueError):
         fused.density(gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y,
                       gs.occ_row.long(), 1.0, 0.01, 50.0, 0.0, s)
+
+
+def _scene_1m_state(cuda, k, seed):
+    """scene_1m's grid (512 x 523 cells) at capacity ``k``, holding the
+    spawn lattice jittered by up to half a spacing, random velocities."""
+    from tpufluid_torch.models import scenes
+
+    scene = scenes.scene_1m(cuda)
+    s = dataclasses.replace(scene.settings, cell_capacity=k)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    st = tt.init_state(s, "cpu")
+    pos = st.position + (torch.rand(st.position.shape, generator=g) - 0.5) \
+        * 0.1
+    vel = torch.randn(st.position.shape, generator=g) * 2.0
+    st = dataclasses.replace(st, position=pos.to(cuda),
+                             predicted=pos.to(cuda), velocity=vel.to(cuda),
+                             density=st.density.to(cuda),
+                             cell=st.cell.to(cuda), tick=st.tick.to(cuda))
+    return s, scene.params, resident.from_particles(st, s)
+
+
+@pytest.mark.parametrize("k", [8, 32])
+def test_coarse_metaball_matches_plain(cuda, k):
+    """The metaball coarse-field kernel against its plain version at
+    scene_1m, within 1e-5 * max(1, |plain|)."""
+    from tpufluid_torch.ops import render_coarse
+
+    s, _, gs = _scene_1m_state(cuda, k, 3)
+    speed = torch.sqrt(gs.vel_x * gs.vel_x + gs.vel_y * gs.vel_y)
+    args = (gs.pos_x, gs.pos_y, speed, gs.occ_row, s, 2)
+    before = render_coarse.LAUNCHES["metaball_coarse"]
+    got = render_coarse.coarse_metaball_fields(*args)
+    want = render_coarse.coarse_metaball_fields_plain(*args)
+    torch.cuda.synchronize()
+    assert render_coarse.LAUNCHES["metaball_coarse"] == before + 1
+    for a, b in zip(got, want):
+        assert a.shape == (2 * 524, 2 * 512)
+        full = torch.ones_like(b, dtype=torch.bool)
+        assert _rel(a, b, full) <= 1e-5
+    assert float(want[0].max()) > 1.0
+
+
+def test_forces_has_ff_matches_plain(cuda):
+    """forces_integrate with an obstacle field (three circles and a
+    rotated rect at texture 1024) against its plain version at scene_1m."""
+    from tpufluid_torch.ops import forcefield
+
+    s, p, gs = _scene_1m_state(cuda, 8, 5)
+    objs = forcefield.Objects.from_list(
+        [("circle", (0.0, 0.0), 6.0), ("circle", (-20.0, 10.0), 4.0),
+         ("circle", (15.0, -12.0), 3.0), ("rect", (5.0, 20.0), (12.0, 5.0),
+                                          0.5)], cuda)
+    field = forcefield.obstacle_force_field(objs, s)
+    ffc = resident.forcefield_cells(field, s)
+    args = (gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, gs.occ_row, p.delta, s)
+    px, py, vx, vy, occ = fused.rebin(*args)[:5]
+    pres, invr = fused.density(px, py, vx, vy, occ, p.mass, p.delta,
+                               p.pressure_constant, p.rest_density, s)
+    fargs = (px, py, vx, vy, pres, invr, occ, p, s, gs.tick + 1)
+    before = dict(fused.LAUNCHES)
+    new = fused.forces_integrate(*fargs, ff_cells=ffc)
+    new_p = fused.forces_integrate_plain(*fargs, ff_cells=ffc)
+    base = fused.forces_integrate(*fargs)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["forces_integrate"] == before["forces_integrate"] + 2
+    assert (fused.LAUNCHES["forces_integrate_has_ff"]
+            == before["forces_integrate_has_ff"] + 1)
+    live = px < fused.SENTINEL_HALF
+    for a, b, tol in zip(new, new_p, [POS_TOL, POS_TOL, VEL_TOL, VEL_TOL]):
+        assert _rel(a, b, live) <= tol
+        assert torch.equal(a[~live], b[~live])
+    assert int(((new[0] != base[0]) & live).sum()) > 1000  # pushed

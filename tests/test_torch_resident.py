@@ -219,7 +219,7 @@ def test_strict_policy_refuses_undersized_scene():
 @pytest.mark.parametrize("kw", [
     dict(neighbor_mode="dense"), dict(x_boundary="wrap"),
     dict(surface_tension=True), dict(adaptive_subsampling=True),
-    dict(objects=[("circle", (0.0, 0.0), 1.0)]),
+    dict(neighbor_mode="naive"),
 ])
 def test_unported_paths_raise(kw):
     s = tt.SimSettings(particle_count=64, size=(3.2, 3.2))
@@ -236,6 +236,6 @@ def test_cli_run_on_cpu(capsys):
     assert "done: 8 steps" in capsys.readouterr().out
     assert cli.main(["info"]) == 0
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(args[:-4] + ["--steps", "1", "--circle", "0", "0", "1"])
+        cli.main(args[:-4] + ["--steps", "1", "--video-field", "v.npy"])
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cli.main(["run", "--device", "cpu", "--steps", "1"])  # dense engine

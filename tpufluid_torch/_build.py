@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of ``tpufluid_torch/csrc``.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` into one shared library
-with a plain C interface, for Hopper (``sm_90a``), which is then loaded with
-``ctypes``. The library lands in ``tpufluid_torch/_build/<hash>/``, keyed by
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` for Hopper
+(``sm_90a``), one process per source, all started together, and links the
+objects into one shared library with a plain C interface, which is then
+loaded with ``ctypes``. The library lands in ``tpufluid_torch/_build/<hash>/``, keyed by
 a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads at once. A failed build raises with the compiler's
 output; nothing falls back.
@@ -24,8 +25,7 @@ LIB_NAME = "libtpufluid_kernels.so"
 # -fmad=false: every f32 op rounds on its own, as in the plain versions.
 # -Xptxas -v: registers / spills of each kernel, kept in build.log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,7 +35,9 @@ _SIGNATURES = {
     "tf_rebin": [_P] * 6 + [_P] * 4 + [_P] * 3 + [_I] * 3 + [_F] * 3
     + [_I] * 2 + [_P],
     "tf_density": [_P] * 6 + [_P] * 2 + [_I] * 3 + [_F] * 4 + [_P],
-    "tf_forces": [_P] * 9 + [_P] * 4 + [_I] * 3 + [_F] * 9 + [_P],
+    "tf_forces": [_P] * 9 + [_P] * 2 + [_P] * 4 + [_I] * 3 + [_F] * 11
+    + [_P],
+    "tf_metaball_coarse": [_P] * 6 + [_I] * 5 + [_F] * 4 + [_P],
 }
 
 _lib = None
@@ -65,22 +67,39 @@ def build_dir() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
+def _run_all(cmds):
+    """Run the commands side by side; (cmd, returncode, output) each."""
+    procs = [(c, subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True))
+             for c in cmds]
+    outs = [p.communicate()[0] for _, p in procs]
+    return [(c, p.returncode, out) for (c, p), out in zip(procs, outs)]
+
+
 def _build(out_dir: Path) -> Path:
     global build_seconds
     out_dir.mkdir(parents=True, exist_ok=True)
     lib = out_dir / LIB_NAME
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    objs = [out_dir / f"{src.stem}.{tag}.o"
+            for src in sorted(CSRC.glob("*.cu"))]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    results = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                        for src, o in zip(sorted(CSRC.glob("*.cu")), objs)])
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
+    if all(rc == 0 for _, rc, _ in results):
+        results += _run_all([[nvcc, "-shared", "-o", str(tmp),
+                              *(str(o) for o in objs)]])
     build_seconds = time.perf_counter() - t0
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    log = "".join(" ".join(c) + "\n" + out for c, _, out in results)
+    (out_dir / "build.log").write_text(log)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    failed = [(c, rc) for c, rc, _ in results if rc != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"nvcc failed ({failed[0][1]}):\n{log}")
     os.replace(tmp, lib)
     return lib
 

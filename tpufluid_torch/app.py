@@ -1,22 +1,33 @@
 """Headless app shell, resident engine (port of ``tpufluid.app.FluidApp``).
 
-Ticks and burst ``run()``, and the capacity policies with the resident
-engine's loss audit and regrow-and-replay. Only
-``neighbor_mode="resident"`` with the base variant is ported; the rest
-raises ``NotImplementedError`` naming its ROADMAP item.
+The reference's event loop as a Python API (src/main.rs:20-318): the
+Running/Render/Step/Stopped state machine with its fixed-timestep
+accumulator, ticks and burst ``run()``, obstacles, the capacity policies
+with the resident engine's loss audit and regrow-and-replay, the offline
+render mode (16 ticks per frame, src/main.rs:153-216) and checkpoints.
+Only ``neighbor_mode="resident"`` is ported, with the bounce boundary and
+no surface tension or adaptive subsampling; the rest raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import enum
+import os
+import time
 import warnings
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from .params import SimSettings, TickParams, suggest_cell_capacity
 from .state import init_state
+from .ops import forcefield as ff
+from .ops import render as renderops
+from .ops import render_binned, render_grid
 from .ops import resident as residentops
+from .utils import io as ioutils
 from .utils.profiling import StepTimer
 
 
@@ -24,8 +35,21 @@ def _unported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md {item}")
 
 
+class SimState(enum.Enum):
+    RUNNING = "running"
+    RENDER = "render"
+    STEP = "step"
+    STOPPED = "stopped"
+
+
 class FluidApp:
-    """Owns settings, tick params and the resident step on one device."""
+    """Owns settings, tick params, obstacles and the resident step on one
+    device."""
+
+    # frame-drop bailout threshold (src/main.rs:143-146)
+    FRAME_BUDGET = 1.0 / 90.0
+    # offline render cadence (src/main.rs:199-201)
+    TICKS_PER_RENDER_FRAME = 16
 
     # ticks between runtime mass-loss audits (one device->host sync each)
     LOSS_CHECK_EVERY = 256
@@ -41,7 +65,8 @@ class FluidApp:
     _BURST_SIZES = (64, 16, 4, 1)
 
     def __init__(self, settings: SimSettings = SimSettings(),
-                 params: Optional[TickParams] = None, objects=None,
+                 params: Optional[TickParams] = None,
+                 objects: Optional[ff.Objects] = None,
                  capacity_policy: str = "grow", *,
                  device, neighbor_mode: str = "resident",
                  x_boundary: Optional[str] = None,
@@ -54,8 +79,6 @@ class FluidApp:
         if neighbor_mode != "resident":
             _unported(f"neighbor_mode={neighbor_mode!r}",
                       "queue 1, grid and naive engines")
-        if objects is not None:
-            _unported("obstacles", "queue 1, forcefield.py")
         self.device = torch.device(device)
         self.settings = settings
         self.params = params or TickParams.default(self.device)
@@ -83,18 +106,58 @@ class FluidApp:
         self._step_kw = dict(x_boundary=x_boundary or "bounce",
                              surface_tension=surface_tension,
                              adaptive_subsampling=adaptive_subsampling)
-        self._step = residentops.make_grid_step(self.settings, **self._step_kw)
+        self.set_objects(objects if objects is not None
+                         else ff.Objects.empty(self.device))
         self.n_regrows = 0
         self._shrink_streak = 0
         self.state = init_state(self.settings, self.device)
+        self.sim_state = SimState.STOPPED
+        self.accumulator = 0.0
+        self.dropped_frames = 0
         self.timer = StepTimer(self.device)
+
+    # ---------------------------------------------------------------- control
+
+    def toggle_running(self) -> None:  # Space (src/main.rs:246-254)
+        if self.sim_state is SimState.STOPPED:
+            self.accumulator = 0.0
+            self.sim_state = SimState.RUNNING
+        else:
+            self.sim_state = SimState.STOPPED
+
+    def request_step(self) -> None:  # N key (src/main.rs:255-257)
+        self.sim_state = SimState.STEP
+
+    def start_render(self) -> None:  # Enter key (src/main.rs:261-269)
+        self.restart()
+        self.sim_state = SimState.RENDER
 
     def restart(self) -> None:  # egui restart button (src/renderer.rs:873-875)
         self.state = init_state(self.settings, self.device)
+        self.accumulator = 0.0
         self.n_regrows = 0
 
+    def set_objects(self, objects: ff.Objects) -> None:
+        """Replace the obstacle set and recompute its push-out field on the
+        device; the step is rebuilt when obstacles appear or disappear."""
+        self.objects = objects.to(self.device)
+        has = len(self.objects) > 0
+        self._forcefield = (ff.obstacle_force_field(self.objects,
+                                                    self.settings)
+                            if has else None)
+        self._rebuild_step()
+
+    def set_video_field(self, frames) -> None:
+        _unported("video force fields", "queue 1, video force fields")
+
     def _rebuild_step(self) -> None:
-        self._step = residentops.make_grid_step(self.settings, **self._step_kw)
+        self._step = residentops.make_grid_step(
+            self.settings, has_force_field=self._forcefield is not None,
+            **self._step_kw)
+
+    def _ff_args(self) -> tuple:
+        """The step's extra argument: the push-out field, if any."""
+        return () if self._forcefield is None else (self._forcefield,)
 
     # ------------------------------------------------------------------ state
 
@@ -138,7 +201,8 @@ class FluidApp:
     # ------------------------------------------------------------------- tick
 
     def tick(self) -> None:
-        self._grid_state = self._step(self._grid_state, self.params)
+        self._grid_state = self._step(self._grid_state, self.params,
+                                      *self._ff_args())
         self._state_dirty = True
         self.timer.lap()
         self._ticks_since_snapshot += 1
@@ -161,9 +225,12 @@ class FluidApp:
             b = next(s for s in self._BURST_SIZES
                      if s <= max_burst and s <= remaining
                      and s <= max(room, 1))
-            run_fn = residentops.make_grid_multi_step(self.settings, b,
-                                                      **self._step_kw)
-            self._grid_state = run_fn(self._grid_state, self.params)
+            run_fn = residentops.make_grid_multi_step(
+                self.settings, b,
+                has_force_field=self._forcefield is not None,
+                **self._step_kw)
+            self._grid_state = run_fn(self._grid_state, self.params,
+                                      *self._ff_args())
             self._state_dirty = True
             self.timer.laps(b)
             self._ticks_since_snapshot += b
@@ -241,7 +308,8 @@ class FluidApp:
             self._grid_state = residentops.grow_capacity(self._snapshot, new_k)
             # replay with the current params
             for _ in range(replay):
-                self._grid_state = self._step(self._grid_state, self.params)
+                self._grid_state = self._step(self._grid_state, self.params,
+                                              *self._ff_args())
             self._state_dirty = True
             lost = int(self._grid_state.lost)
             if lost <= lost0:
@@ -250,33 +318,110 @@ class FluidApp:
                 self._ticks_since_snapshot = 0
                 return
 
+    def advance(self, wall_dt: float) -> int:
+        """Fixed-timestep accumulator: run as many ticks as wall time owes,
+        bailing out when the burst overruns the frame budget
+        (src/main.rs:137-147). Returns the ticks run."""
+        if self.sim_state is SimState.STOPPED:
+            return 0
+        if self.sim_state is SimState.STEP:
+            self.tick()
+            self.sim_state = SimState.STOPPED
+            return 1
+        delta = float(self.params.delta)
+        if delta == 0.0:
+            return 0
+        self.accumulator += wall_dt
+        ticks = 0
+        start = time.perf_counter()
+        while self.accumulator > delta:
+            self.tick()
+            self.accumulator -= delta
+            ticks += 1
+            if time.perf_counter() - start > self.FRAME_BUDGET:
+                self.dropped_frames += int(self.accumulator / delta)
+                self.accumulator = 0.0
+                break
+        return ticks
+
+    # ----------------------------------------------------------------- render
+
+    def render_frame(self, width: int = 960, height: int = 540,
+                     camera: Optional[renderops.Camera] = None,
+                     mode: str = "metaball") -> torch.Tensor:
+        """rgba f32[H, W, 4] on the app's device. ``metaball``: the fluid
+        surface shaded straight off the slot grid (``ops.render_grid``);
+        ``metaball_exact``: the per-pixel binned renderer; ``particles``:
+        point sprites."""
+        cam = camera or renderops.Camera(view_size=(
+            self.settings.size[0], self.settings.size[0] * height / width))
+        if mode == "metaball":
+            return render_grid.render_metaball_grid(
+                self._grid_state, self.settings, width, height, cam)
+        if mode == "metaball_exact":
+            return render_binned.render_metaball_binned(
+                self.state, self.settings, width, height, cam)
+        if mode == "particles":
+            return render_binned.render_particles_binned(
+                self.state, self.settings, width, height, cam)
+        raise ValueError(f"unknown render mode {mode!r}")
+
+    def iter_frames(self, frames: int, width: int = 960, height: int = 540,
+                    mode: str = "metaball",
+                    progress: Optional[Callable[[int], None]] = None):
+        """The offline render mode (src/main.rs:153-216) as a generator:
+        16 ticks per frame, then one u8[H, W, 4] numpy frame."""
+        self.sim_state = SimState.RENDER
+        for i in range(frames):
+            self.run(self.TICKS_PER_RENDER_FRAME)
+            frame = self.render_frame(width, height, mode=mode)
+            yield renderops.to_rgba8(frame).cpu().numpy()
+            if progress:
+                progress(i)
+        self.sim_state = SimState.STOPPED
+
+    def render_sequence(self, out_dir: str, frames: int, width: int = 960,
+                        height: int = 540, mode: str = "metaball",
+                        progress: Optional[Callable[[int], None]] = None):
+        """Offline render to PNGs ``out_dir/frame_00000.png``, ...; returns
+        the paths."""
+        os.makedirs(out_dir, exist_ok=True)
+        paths = []
+        for i, rgba8 in enumerate(self.iter_frames(frames, width, height,
+                                                   mode, progress)):
+            path = os.path.join(out_dir, f"frame_{i:05d}.png")
+            paths.append(ioutils.write_png(path, rgba8))
+        return paths
+
+    def render_mp4(self, path: str, frames: int, width: int = 960,
+                   height: int = 540, mode: str = "metaball", fps: int = 30,
+                   progress: Optional[Callable[[int], None]] = None) -> str:
+        """Offline render straight to an mp4 (needs an ffmpeg binary: the
+        check comes before any frame is rendered)."""
+        return ioutils.save_mp4(
+            path, self.iter_frames(frames, width, height, mode, progress),
+            fps=fps)
+
     # -------------------------------------------------------------- metrics
 
     def metrics(self) -> dict:
         """Tick, steps/s, loss and capacity counters (two device reads)."""
         return dict(
             tick=int(self._grid_state.tick),
+            sim_state=self.sim_state.value,
             steps_per_sec=self.timer.last_rate,
             particle_steps_per_sec=(self.timer.last_rate
                                     * self.settings.particle_count),
+            dropped_frames=self.dropped_frames,
             lost_particles=int(self._grid_state.lost),
             n_regrows=self.n_regrows,
             cell_capacity=self.settings.cell_capacity,
         )
 
-    # ------------------------------------------------------ not ported yet
-
-    def render_frame(self, *args, **kwargs):
-        _unported("rendering", "queue 1, render")
-
-    def set_objects(self, objects) -> None:
-        _unported("obstacles", "queue 1, forcefield.py")
-
-    def set_video_field(self, frames) -> None:
-        _unported("video force fields", "queue 1, forcefield.py")
+    # ------------------------------------------------------------ checkpoint
 
     def save(self, path: str) -> None:
-        _unported("checkpoints", "queue 1, utils/io.py checkpoints")
+        ioutils.save_checkpoint(path, self.state)
 
     def load(self, path: str) -> None:
-        _unported("checkpoints", "queue 1, utils/io.py checkpoints")
+        self.state = ioutils.load_checkpoint(path, self.device)

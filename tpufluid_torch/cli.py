@@ -1,14 +1,15 @@
-"""Command line: ``python -m tpufluid_torch <run|info>``.
+"""Command line: ``python -m tpufluid_torch <run|render|info>``.
 
 The flags of ``python -m tpufluid``, plus ``--device`` (default ``cuda``).
-Only the resident engine is ported: other engines and the obstacle, video,
-checkpoint and variant flags raise ``NotImplementedError``.
+Only the resident engine is ported: other engines, video force fields and
+the variant flags raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -48,11 +49,14 @@ def _add_common(p):
     p.add_argument("--x-boundary", choices=("bounce", "wrap"),
                    default="bounce")
     p.add_argument("--adaptive-subsampling", action="store_true")
-    p.add_argument("--checkpoint", type=str, default=None)
+    p.add_argument("--checkpoint", type=str, default=None,
+                   help="resume from (if it exists) and save to this .npz")
     p.add_argument("--circle", type=float, nargs=3, action="append",
-                   default=[], metavar=("X", "Y", "R"))
+                   default=[], metavar=("X", "Y", "R"),
+                   help="add a circle obstacle (repeatable)")
     p.add_argument("--rect", type=float, nargs=5, action="append",
-                   default=[], metavar=("X", "Y", "W", "H", "ROT"))
+                   default=[], metavar=("X", "Y", "W", "H", "ROT"),
+                   help="add a rotated rect obstacle (repeatable)")
     p.add_argument("--video-field", type=str, default=None)
 
 
@@ -65,18 +69,13 @@ def _device(name: str) -> torch.device:
 
 def build_app(args):
     from .app import FluidApp
+    from .ops.forcefield import Objects
     from .params import SimSettings, TickParams
 
-    if args.circle or args.rect:
-        raise NotImplementedError(
-            "obstacles are not ported yet: ROADMAP.md queue 1, forcefield.py")
     if args.video_field:
         raise NotImplementedError(
             "video force fields are not ported yet: ROADMAP.md queue 1, "
-            "forcefield.py")
-    if args.checkpoint:
-        raise NotImplementedError(
-            "checkpoints are not ported yet: ROADMAP.md queue 1, utils/io.py")
+            "video force fields")
     device = _device(args.device)
     settings = SimSettings(
         particle_count=args.particles, particle_spacing=args.spacing,
@@ -89,12 +88,18 @@ def build_app(args):
         pressure_constant=args.pressure, rest_density=args.rest_density,
         damping_factor=args.damping, viscosity_coefficient=args.viscosity,
     )
+    objs = [("circle", (x, y), r) for x, y, r in args.circle]
+    objs += [("rect", (x, y), (w, h), rot) for x, y, w, h, rot in args.rect]
+    objects = Objects.from_list(objs, device) if objs else None
     policy = "fixed" if args.no_strict_capacity else args.capacity_policy
-    return FluidApp(settings, params, capacity_policy=policy,
-                    device=device, neighbor_mode=args.neighbor_mode,
-                    x_boundary=args.x_boundary,
-                    surface_tension=args.surface_tension,
-                    adaptive_subsampling=args.adaptive_subsampling)
+    app = FluidApp(settings, params, objects, capacity_policy=policy,
+                   device=device, neighbor_mode=args.neighbor_mode,
+                   x_boundary=args.x_boundary,
+                   surface_tension=args.surface_tension,
+                   adaptive_subsampling=args.adaptive_subsampling)
+    if args.checkpoint and os.path.exists(args.checkpoint):
+        app.load(args.checkpoint)
+    return app
 
 
 def run(args):
@@ -117,6 +122,43 @@ def run(args):
     dt = time.perf_counter() - t0
     print(f"done: {args.steps} steps in {dt:.2f}s "
           f"({args.steps / dt:.1f} steps/s)")
+    if args.checkpoint:
+        app.save(args.checkpoint)
+        print(f"checkpoint -> {args.checkpoint}")
+    return app
+
+
+def render(args):
+    """The ``render`` command: the offline render mode, 16 ticks per frame,
+    to PNGs in ``--out`` and/or an mp4. Returns the app."""
+    from .utils import io as ioutils
+
+    app = build_app(args)
+    t0 = time.perf_counter()
+
+    def progress(i):
+        elapsed = time.perf_counter() - t0
+        eta = elapsed / (i + 1) * (args.frames - i - 1)
+        print(f"saved frame {i + 1}/{args.frames}, elapsed {elapsed:.1f}s, "
+              f"eta {eta:.1f}s")
+
+    if args.mp4 and args.out is None:
+        # no PNGs: frames stream straight into the encoder
+        app.render_mp4(args.mp4, args.frames, args.width, args.height,
+                       mode=args.mode, fps=args.fps, progress=progress)
+        print(f"encoded {args.mp4}")
+    else:
+        out = args.out or "output"
+        paths = app.render_sequence(out, args.frames, args.width,
+                                    args.height, mode=args.mode,
+                                    progress=progress)
+        print(f"wrote {len(paths)} frames to {out}/")
+        if args.mp4:
+            ioutils.save_mp4(args.mp4, (ioutils.read_png(p) for p in paths),
+                             fps=args.fps)
+            print(f"encoded {args.mp4}")
+    if args.checkpoint:
+        app.save(args.checkpoint)
     return app
 
 
@@ -127,6 +169,22 @@ def parser() -> argparse.ArgumentParser:
     _add_common(run_p)
     run_p.add_argument("--steps", type=int, default=1200)
     run_p.add_argument("--report-every", type=int, default=120)
+    render_p = sub.add_parser("render", help="offline render mode")
+    _add_common(render_p)
+    render_p.add_argument("--frames", type=int, default=60)
+    render_p.add_argument("--out", type=str, default=None,
+                          help="PNG output dir (default 'output'; omitted "
+                               "when --mp4 is given: frames stream straight "
+                               "to the encoder)")
+    render_p.add_argument("--width", type=int, default=960)
+    render_p.add_argument("--height", type=int, default=540)
+    render_p.add_argument("--mode",
+                          choices=("metaball", "metaball_exact", "particles"),
+                          default="metaball")
+    render_p.add_argument("--mp4", type=str, default=None,
+                          help="also encode the frames to this mp4 (needs "
+                               "an ffmpeg binary)")
+    render_p.add_argument("--fps", type=int, default=30)
     sub.add_parser("info", help="print torch / device info")
     return p
 
@@ -143,7 +201,7 @@ def main(argv=None) -> int:
                      for i in range(torch.cuda.device_count())] if cuda else [],
         ), indent=2))
         return 0
-    run(args)
+    (render if args.cmd == "render" else run)(args)
     return 0
 
 

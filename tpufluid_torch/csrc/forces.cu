@@ -2,7 +2,7 @@
 // 3x3 cell stencil, fused with the full integration step.
 //
 // Replaces tpufluid/ops/pallas/fused.py:forces_integrate with its base
-// flags (_forces_kernel -> _forces_one_row, _forces_cand_block,
+// flags and has_ff (_forces_kernel -> _forces_one_row, _forces_cand_block,
 // _forces_one_cand, _forces_integrate_sub). The TPU kernel folded the
 // slot axis into 8-slot sublane sub-blocks, lane-rolled six candidate
 // fields per (row, dx) block and carried per-target sums in VMEM scratch.
@@ -23,19 +23,27 @@
 // xorshift tie-break direction, rotated by pair order and prior draws
 // (compute.wgsl:211-215). Empty candidates contribute nothing and are
 // skipped; empty targets write SENTINEL / 0, so every output is written.
+// has_ff (ffx/ffy not null): after the move, a target whose cell holds a
+// nonzero pixel-space push-out vector is pushed by it (scaled to world
+// units per axis) and has its normal velocity reflected with
+// (1 - damping), fused.py:1000-1023. The flag is a template parameter, so
+// the base instantiation carries none of the epilogue's code or registers
+// (a runtime branch cost the base launch ~12% on the H100).
 #include "common.cuh"
 
+template <bool HAS_FF>
 __global__ void __launch_bounds__(TF_BLOCK)
 forces_kernel(const float* __restrict__ px, const float* __restrict__ py,
               const float* __restrict__ vx, const float* __restrict__ vy,
               const float* __restrict__ pres, const float* __restrict__ invr,
               const int* __restrict__ occ_row, const float* __restrict__ sc,
               const long long* __restrict__ frame_p,
+              const float* __restrict__ ffx, const float* __restrict__ ffy,
               float* __restrict__ npx, float* __restrict__ npy,
               float* __restrict__ nvx, float* __restrict__ nvy, int gy, int K,
               int gx, float h, float sqr_radius, float c_spiky,
               float visc_norm, float c_r3, float c_r2, float c_inv,
-              float half_x, float half_y) {
+              float half_x, float half_y, float ff_sx, float ff_sy) {
     const int x = blockIdx.x * TF_BLOCK + threadIdx.x;
     const int k = blockIdx.y;
     const int y = blockIdx.z;
@@ -190,6 +198,23 @@ forces_kernel(const float* __restrict__ px, const float* __restrict__ py,
 
     float pxn = pos_x0 + vxn * dt;
     float pyn = pos_y0 + vyn * dt;
+    if (HAS_FF) {  // obstacle push-out (fused.py:1000-1023)
+        const size_t fi = (size_t)y * gx + x;
+        const float fx = ffx[fi];
+        const float fy = ffy[fi];
+        if (fx != 0.0f || fy != 0.0f) {
+            const float fn = sqrtf(fx * fx + fy * fy);
+            const float fsafe = fn == 0.0f ? 1.0f : fn;
+            const float nhx = fx / fsafe;
+            const float nhy = fy / fsafe;
+            pxn = pxn + fx * ff_sx;
+            pyn = pyn + fy * ff_sy;
+            const float vn = vxn * nhx + vyn * nhy;
+            const float refl = 1.0f - damping;
+            vxn = vxn - refl * vn * nhx;
+            vyn = vyn - refl * vn * nhy;
+        }
+    }
     if (fabsf(pxn) > half_x) {  // bounce (compute.wgsl:143-153)
         pxn = copysignf(half_x, pxn);
         vxn = vxn * -damping;
@@ -207,17 +232,21 @@ forces_kernel(const float* __restrict__ px, const float* __restrict__ py,
 extern "C" int tf_forces(const float* px, const float* py, const float* vx,
                          const float* vy, const float* pres, const float* invr,
                          const int* occ_row, const float* sc,
-                         const long long* frame, float* npx, float* npy,
+                         const long long* frame, const float* ffx,
+                         const float* ffy, float* npx, float* npy,
                          float* nvx, float* nvy, int gy, int K, int gx,
                          float h, float sqr_radius, float c_spiky,
                          float visc_norm, float c_r3, float c_r2, float c_inv,
-                         float half_x, float half_y, cudaStream_t stream) {
-    if (gx % TF_BLOCK != 0 || gy <= 0 || K <= 0 || gy > 65535 || K > 65535)
+                         float half_x, float half_y, float ff_sx, float ff_sy,
+                         cudaStream_t stream) {
+    if (gx % TF_BLOCK != 0 || gy <= 0 || K <= 0 || gy > 65535 || K > 65535 ||
+        (ffx == nullptr) != (ffy == nullptr))
         return (int)cudaErrorInvalidValue;
     dim3 grid(gx / TF_BLOCK, K, gy);
-    forces_kernel<<<grid, TF_BLOCK, 0, stream>>>(
-        px, py, vx, vy, pres, invr, occ_row, sc, frame, npx, npy, nvx, nvy, gy,
-        K, gx, h, sqr_radius, c_spiky, visc_norm, c_r3, c_r2, c_inv, half_x,
-        half_y);
+    auto kernel = ffx != nullptr ? forces_kernel<true> : forces_kernel<false>;
+    kernel<<<grid, TF_BLOCK, 0, stream>>>(
+        px, py, vx, vy, pres, invr, occ_row, sc, frame, ffx, ffy, npx, npy,
+        nvx, nvy, gy, K, gx, h, sqr_radius, c_spiky, visc_norm, c_r3, c_r2,
+        c_inv, half_x, half_y, ff_sx, ff_sy);
     return (int)cudaGetLastError();
 }

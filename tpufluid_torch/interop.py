@@ -15,12 +15,14 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from .ops.forcefield import Objects
 from .ops.resident import GridState
 from .params import SimSettings, TickParams
 from .state import ParticleState
 
 _GRID_FIELDS = ("pos_x", "pos_y", "vel_x", "vel_y", "occ_row", "tick", "lost")
 _STATE_FIELDS = ("position", "predicted", "velocity", "density", "cell", "tick")
+_OBJECT_FIELDS = ("kind", "position", "radius", "extents", "rotation")
 
 
 def _get(obj: Any, name: str) -> np.ndarray:
@@ -72,3 +74,17 @@ def grid_state_to_numpy(gs: GridState) -> Dict[str, np.ndarray]:
     out = {n: getattr(gs, n).cpu().numpy() for n in _GRID_FIELDS}
     out["tick"] = out["tick"].astype(np.uint32)
     return out
+
+
+def objects_from(obj: Any, device) -> Objects:
+    """Objects on ``device`` from the JAX package's (same fields)."""
+    v = {n: torch.from_numpy(_get(obj, n)).to(device) for n in _OBJECT_FIELDS}
+    v["kind"] = v["kind"].to(torch.int32)
+    for n in _OBJECT_FIELDS[1:]:
+        v[n] = v[n].to(torch.float32)
+    return Objects(**v)
+
+
+def forcefield_from_numpy(field: Any, device) -> torch.Tensor:
+    """A push-out field f32[H, W, 2] on ``device``."""
+    return torch.from_numpy(np.array(field, dtype=np.float32)).to(device)

@@ -1,7 +1,7 @@
 """The resident engine's three kernels: rebin, density, forces + integrate.
 
 Port of ``tpufluid.ops.pallas.fused`` (``rebin``, ``density``,
-``forces_integrate`` with the base flags). Each function keeps the JAX
+``forces_integrate`` with the base flags and the obstacle ``has_ff``). Each function keeps the JAX
 signature and layout: slot grids f32[Gy, K, Gxp] (empty slots hold
 ``pos = SENTINEL``), ``occ_row`` i32[Gy] = the per-row max packed
 occupancy. Arrivals fill slots 0..count-1 of a cell, so every slot at or
@@ -39,8 +39,10 @@ SENTINEL = 1.0e9
 SENTINEL_HALF = 5.0e8
 MAX_SPEED = 500.0  # compute.wgsl:118-122
 
-# kernel launches per wrapper (CUDA tensors only)
-LAUNCHES = {"rebin": 0, "density": 0, "forces_integrate": 0}
+# kernel launches per wrapper (CUDA tensors only); forces_integrate_has_ff
+# counts the forces_integrate launches that took the obstacle epilogue
+LAUNCHES = {"rebin": 0, "density": 0, "forces_integrate": 0,
+            "forces_integrate_has_ff": 0}
 
 
 def _f32(x: float) -> float:
@@ -124,11 +126,12 @@ def _stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def _launched(name: str, err: int) -> None:
+def _launched(name: str, err: int, launches=LAUNCHES) -> None:
+    """Raise on a nonzero CUDA error of a launch, else count it."""
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{_build.error_string(err)}")
-    LAUNCHES[name] += 1
+    launches[name] += 1
 
 
 # ----------------------------------------------------------------- rebin
@@ -326,13 +329,14 @@ def _forces_consts(settings: SimSettings):
         c_inv=_f32(h / 2.0),
         half_x=_f32(float(settings.size[0]) * 0.5),
         half_y=_f32(float(settings.size[1]) * 0.5),
+        # obstacle push: pixel -> world scale, (bounds * 2) / texture size
+        ff_sx=_f32(2.0 * settings.size[0] / settings.texture_size[0]),
+        ff_sy=_f32(2.0 * settings.size[1] / settings.texture_size[1]),
     )
 
 
-def _check_variant(ff_cells, x_boundary, surface_tension,
-                   adaptive_subsampling):
-    for on, flag in ((ff_cells is not None, "has_ff"),
-                     (x_boundary != "bounce", "wrap_x"),
+def _check_variant(x_boundary, surface_tension, adaptive_subsampling):
+    for on, flag in ((x_boundary != "bounce", "wrap_x"),
                      (surface_tension, "surface_tension"),
                      (adaptive_subsampling, "adaptive")):
         if on:
@@ -355,9 +359,19 @@ def _tie_directions(prx, pry, frame):
     return rx * inv, ry * inv
 
 
+def _check_ff(ff_cells, gy: int, gx: int):
+    for f in ff_cells:
+        if (f.shape != (gy, gx) or f.dtype != torch.float32
+                or not f.is_contiguous()):
+            raise ValueError(f"ff_cells must be contiguous f32[{gy}, {gx}], "
+                             f"got {f.dtype}{list(f.shape)}")
+
+
 def forces_integrate_plain(pos_x, pos_y, vel_x, vel_y, pres, invr, occ_row,
-                           params, settings: SimSettings, frame):
-    """Plain PyTorch version of :func:`forces_integrate` (base flags)."""
+                           params, settings: SimSettings, frame,
+                           ff_cells=None):
+    """Plain PyTorch version of :func:`forces_integrate` (base flags and
+    ``has_ff``)."""
     gy, k, gx = pos_x.shape
     dev = pos_x.device
     c = _forces_consts(settings)
@@ -474,6 +488,23 @@ def forces_integrate_plain(pos_x, pos_y, vel_x, vel_y, pres, invr, occ_row,
     px = pos_x + vx * dt
     py = pos_y + vy * dt
     damping = params.damping_factor
+    if ff_cells is not None:
+        # obstacle push-out per target cell (fused.py:1000-1023): the
+        # field is in pixels; the normal is normalised in pixel space, the
+        # push scaled to world units per axis, the normal velocity
+        # reflected with (1 - damping)
+        ffx, ffy = (f[:, None, :] for f in ff_cells)
+        hit = (ffx != 0.0) | (ffy != 0.0)
+        fn = torch.sqrt(ffx * ffx + ffy * ffy)
+        fsafe = torch.where(fn == 0.0, 1.0, fn)
+        nhx = ffx / fsafe
+        nhy = ffy / fsafe
+        px = torch.where(hit, px + ffx * c["ff_sx"], px)
+        py = torch.where(hit, py + ffy * c["ff_sy"], py)
+        vn = vx * nhx + vy * nhy
+        refl = 1.0 - damping
+        vx = torch.where(hit, vx - refl * vn * nhx, vx)
+        vy = torch.where(hit, vy - refl * vn * nhy, vy)
     outx = torch.abs(px) > half_x
     outy = torch.abs(py) > half_y
     px = torch.where(outx, half_x * torch.sign(px), px)
@@ -493,16 +524,21 @@ def forces_integrate(pos_x, pos_y, vel_x, vel_y, pres, invr, occ_row,
     """Symmetrised spiky pressure and viscosity over the 3x3 stencil,
     fused with the full integration (gravity, mouse impulse, NaN reset,
     speed clamp, bounce). Returns (pos_x', pos_y', vel_x', vel_y').
-    ``frame`` seeds the coincident-pair tie-break. Only the base flags are
-    ported; the variants raise ``NotImplementedError``."""
-    _check_variant(ff_cells, x_boundary, surface_tension,
-                   adaptive_subsampling)
-    if not _on_cuda(pos_x, pos_y, vel_x, vel_y, pres, invr, occ_row):
+    ``frame`` seeds the coincident-pair tie-break. ``ff_cells``: optional
+    (ffx, ffy) f32[Gy, Gxp] pixel-space obstacle push-out per target cell
+    (``resident.forcefield_cells``). The base flags and ``has_ff`` are
+    ported; the other variants raise ``NotImplementedError``."""
+    _check_variant(x_boundary, surface_tension, adaptive_subsampling)
+    ffs = () if ff_cells is None else tuple(ff_cells)
+    if not _on_cuda(pos_x, pos_y, vel_x, vel_y, pres, invr, occ_row, *ffs):
         return forces_integrate_plain(pos_x, pos_y, vel_x, vel_y, pres, invr,
-                                      occ_row, params, settings, frame)
+                                      occ_row, params, settings, frame,
+                                      ff_cells)
     gy, k, gx = pos_x.shape
     _check_grids((gy, k, gx), pos_x, pos_y, vel_x, vel_y, pres, invr)
     _check_occ(occ_row, gy)
+    if ffs:
+        _check_ff(ffs, gy, gx)
     dev = pos_x.device
     f32 = torch.float32
     sc = torch.cat([
@@ -518,9 +554,12 @@ def forces_integrate(pos_x, pos_y, vel_x, vel_y, pres, invr, occ_row,
     err = lib.tf_forces(
         _ptr(pos_x), _ptr(pos_y), _ptr(vel_x), _ptr(vel_y), _ptr(pres),
         _ptr(invr), _ptr(occ_row), _ptr(sc), _ptr(fr),
+        *([_ptr(f) for f in ffs] if ffs else [None, None]),
         *(_ptr(o) for o in outs), gy, k, gx,
         c["h"], c["sqr_radius"], c["c_spiky"], c["visc_norm"],
         c["c_r3"], c["c_r2"], c["c_inv"], c["half_x"], c["half_y"],
-        _stream(dev))
+        c["ff_sx"], c["ff_sy"], _stream(dev))
     _launched("forces_integrate", err)
+    if ffs:
+        LAUNCHES["forces_integrate_has_ff"] += 1
     return tuple(outs)

@@ -49,3 +49,46 @@ def bin_particles(cells: torch.Tensor, settings: SimSettings) -> Binning:
     cell_start = torch.searchsorted(sorted_cells, all_cells,
                                     side="left").to(torch.int32)
     return Binning(perm=perm, sorted_cells=sorted_cells, cell_start=cell_start)
+
+
+class NeighborWindows(NamedTuple):
+    """Fixed-shape neighbour candidates, in sorted-array order.
+
+    idx: i64[..., R, W] candidate slots into the sorted arrays, clamped;
+    valid: bool[..., R, W] the slot is a real particle of the stencil row.
+    R = 2r+1 stencil rows, W = (2r+1) * capacity.
+    """
+
+    idx: torch.Tensor
+    valid: torch.Tensor
+
+
+def neighbor_windows(sorted_cells, cell_start, settings: SimSettings,
+                     radius_cells: int = 1,
+                     capacity: int | None = None) -> NeighborWindows:
+    """Candidate windows for a (2r+1)x(2r+1) cell stencil around each
+    sorted particle."""
+    return point_windows(sorted_cells, cell_start, settings, radius_cells,
+                         capacity)
+
+
+def point_windows(point_cells, cell_start, settings: SimSettings,
+                  radius_cells: int = 1,
+                  capacity: int | None = None) -> NeighborWindows:
+    """Neighbour windows for arbitrary query cell ids (particles or render
+    pixels). Cells are row-major, so each of the 2r+1 stencil rows is one
+    contiguous run of 2r+1 cells in the sorted array."""
+    r = radius_cells
+    cap = settings.cell_capacity if capacity is None else capacity
+    width = (2 * r + 1) * cap
+    dev = point_cells.device
+    dys = torch.arange(-r, r + 1, dtype=torch.int64, device=dev)
+    base = point_cells.to(torch.int64)[..., None] + dys * settings.grid_w - r
+    base = base.clamp(0, settings.num_cells - (2 * r + 1))
+    cs = cell_start.to(torch.int64)
+    start = cs[base]
+    end = cs[base + (2 * r + 1)]
+    idx = start[..., None] + torch.arange(width, dtype=torch.int64, device=dev)
+    valid = idx < end[..., None]
+    idx = torch.minimum(idx, cs[-1] - 1).clamp(min=0)
+    return NeighborWindows(idx=idx, valid=valid)

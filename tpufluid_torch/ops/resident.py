@@ -9,7 +9,9 @@ shapes, so the two engines' states compare one to one). One step:
   2. far movers (> 1 cell in one step, rare) re-insert through plain
      tensor code, only when the rebin counted any;
   3. density -> (pressure, 1/rho) (``fused.density``);
-  4. forces fused with the integration (``fused.forces_integrate``).
+  4. forces fused with the integration (``fused.forces_integrate``), with
+     the per-cell obstacle push-out when the step is built with
+     ``has_force_field=True``.
 
 Arrivals beyond ``cell_capacity`` and far movers beyond ``far_capacity``
 are dropped and counted in ``GridState.lost``, never silently.
@@ -210,6 +212,38 @@ def _reinsert_far(gs: GridState, px, py, vx, vy, n_far, dt,
     return px, py, vx, vy, occ_row_of(px), dropped
 
 
+def forcefield_cells(forcefield: torch.Tensor, settings: SimSettings):
+    """Sample the [H, W, 2] pixel push-out field at the grid-cell centres.
+
+    Returns (ffx, ffy) f32[Gy, Gxp] (state rows and padded columns) of
+    pixel-space vectors: the forces kernel normalises in pixel space and
+    scales the position push to world units. The sentinel ring and the
+    pad rows and columns are zero."""
+    gy, gw = settings.grid_h, settings.grid_w
+    n_rows, gxp = _rows(settings), _gxp(settings)
+    dev = forcefield.device
+    f32 = torch.float32
+    h = settings.smoothing_radius
+    half = torch.tensor(settings.size, dtype=f32, device=dev) * 0.5
+    tex_w, tex_h = settings.texture_size
+    # cell c covers [(c-1)h - half, c h - half) (grid.cell_xy's inverse)
+    rows = torch.arange(n_rows, dtype=torch.int32, device=dev)
+    wx = (torch.arange(gxp, dtype=f32, device=dev) - 0.5) * h - half[0]
+    wy = (rows.to(f32) - 0.5) * h - half[1]
+    # the texel as step.sample_force_field picks it: uv = p / size + 0.5;
+    # .to(int32) truncates toward zero, as JAX's astype does
+    tx = ((wx / (2.0 * half[0]) + 0.5) * tex_w).to(torch.int32)
+    ty = ((wy / (2.0 * half[1]) + 0.5) * tex_h).to(torch.int32)
+    tx = tx.clamp(0, tex_w - 1).long()
+    ty = ty.clamp(0, tex_h - 1).long()
+    f = forcefield[ty[:, None], tx[None, :]]  # [n_rows, Gxp, 2]
+    cols = torch.arange(gxp, device=dev)
+    in_x = (cols >= 1) & (cols <= gw - 2)
+    in_y = (rows >= 1) & (rows <= gy - 2)
+    mask = (in_y[:, None] & in_x[None, :]).to(f32)
+    return ((f[..., 0] * mask).contiguous(), (f[..., 1] * mask).contiguous())
+
+
 def _unported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md {item}")
 
@@ -220,40 +254,42 @@ def make_grid_step(settings: SimSettings, far_capacity: int | None = None,
                    surface_tension: bool = False,
                    adaptive_subsampling: bool = False,
                    n_worlds: int = 1):
-    """Resident step ``step(gs, params) -> GridState``, memoised on its
-    arguments. The step runs where ``gs`` lies: the CUDA kernels on a
-    CUDA device, their plain versions on the CPU."""
+    """Resident step, memoised on its arguments: ``step(gs, params)``, or
+    ``step(gs, params, forcefield)`` with ``has_force_field`` (forcefield:
+    the f32[H, W, 2] push-out field of ``forcefield.obstacle_force_field``).
+    The step runs where ``gs`` lies: the CUDA kernels on a CUDA device,
+    their plain versions on the CPU."""
     if x_boundary not in ("bounce", "wrap"):
         raise ValueError(f"unknown x_boundary {x_boundary!r}")
     if x_boundary == "wrap":
         _unported("x_boundary='wrap'", "queue 2, forces_integrate wrap_x")
-    if has_force_field:
-        _unported("obstacle force fields", "queue 1, forcefield.py")
     if surface_tension:
         _unported("surface tension", "queue 2, forces_integrate surface_tension")
     if adaptive_subsampling:
         _unported("adaptive subsampling", "queue 2, forces_integrate adaptive")
     if n_worlds != 1:
         _unported("batched worlds", "queue 1, batched worlds")
-    key = (settings, far_capacity)
+    key = (settings, far_capacity, has_force_field)
     hit = _STEP_CACHE.get(key)
     if hit is None:
         hit = _STEP_CACHE[key] = _make_step(
-            settings, far_capacity, fused.rebin, fused.density,
-            fused.forces_integrate)
+            settings, far_capacity, has_force_field, fused.rebin,
+            fused.density, fused.forces_integrate)
     return hit
 
 
 def make_plain_grid_step(settings: SimSettings,
-                         far_capacity: int | None = None):
+                         far_capacity: int | None = None,
+                         has_force_field: bool = False):
     """The resident step built on the kernels' plain PyTorch versions, on
     any device: the reference that the CUDA step is held to on the card."""
-    return _make_step(settings, far_capacity, fused.rebin_plain,
-                      fused.density_plain, fused.forces_integrate_plain)
+    return _make_step(settings, far_capacity, has_force_field,
+                      fused.rebin_plain, fused.density_plain,
+                      fused.forces_integrate_plain)
 
 
-def _make_step(settings: SimSettings, far_capacity, rebin, density,
-               forces_integrate):
+def _make_step(settings: SimSettings, far_capacity, has_force_field: bool,
+               rebin, density, forces_integrate):
     settings = pad_capacity(settings)
     k = settings.cell_capacity
     gy_p = _rows(settings)
@@ -262,7 +298,21 @@ def _make_step(settings: SimSettings, far_capacity, rebin, density,
         # impact phases can fling thousands of >1-cell movers in one step
         far_capacity = max(4096, (gy_p * k * gxp) // 128)
 
-    def step(gs: GridState, params) -> GridState:
+    # the field's cell samples, kept while the same field tensor comes
+    # back: sampling once per field instead of once per step gives the
+    # same numbers (a field is replaced, never written in place)
+    ff_memo = [None, None]
+
+    def cells_of(forcefield):
+        if forcefield is None:
+            raise ValueError("step built with has_force_field=True needs a "
+                             "forcefield argument")
+        if ff_memo[0] is not forcefield:
+            ff_memo[:] = [forcefield, forcefield_cells(forcefield, settings)]
+        return ff_memo[1]
+
+    def step(gs: GridState, params, forcefield=None) -> GridState:
+        ff_cells = cells_of(forcefield) if has_force_field else None
         if gs.pos_x.shape != (gy_p, k, gxp):
             raise ValueError(f"state shape {tuple(gs.pos_x.shape)} does not "
                              f"match settings {(gy_p, k, gxp)}")
@@ -280,7 +330,8 @@ def _make_step(settings: SimSettings, far_capacity, rebin, density,
             px, py, vx, vy, occ_row, params.mass, dt,
             params.pressure_constant, params.rest_density, settings)
         npx, npy, nvx, nvy = forces_integrate(
-            px, py, vx, vy, pres, invr, occ_row, params, settings, frame)
+            px, py, vx, vy, pres, invr, occ_row, params, settings, frame,
+            ff_cells=ff_cells)
         return GridState(pos_x=npx, pos_y=npy, vel_x=nvx, vel_y=nvy,
                          occ_row=occ_row, tick=frame, lost=lost)
 
@@ -291,12 +342,13 @@ _STEP_CACHE: dict = {}
 
 
 def make_grid_multi_step(settings: SimSettings, n_steps: int, **kw):
-    """``run(gs, params)``: ``n_steps`` resident steps in a Python loop."""
+    """``run(gs, params[, forcefield])``: ``n_steps`` resident steps in a
+    Python loop."""
     step = make_grid_step(settings, **kw)
 
-    def run(gs: GridState, params) -> GridState:
+    def run(gs: GridState, params, *forcefield) -> GridState:
         for _ in range(n_steps):
-            gs = step(gs, params)
+            gs = step(gs, params, *forcefield)
         return gs
 
     return run

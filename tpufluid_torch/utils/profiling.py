@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -22,7 +22,7 @@ class StepTimer:
     after each dispatch of ``n`` steps; it waits for the device only when
     a report is due, so the queue stays full in between."""
 
-    device: torch.device = field(default_factory=lambda: torch.device("cpu"))
+    device: torch.device
     report_every: int = 120
     _count: int = 0
     _t0: Optional[float] = None
