@@ -18,7 +18,17 @@ Builds the CUDA kernels from ``tpufluid_torch/csrc`` and runs, in order:
    at scene_1m, and 20 synced obstacle steps, kernel step against plain;
 7. the render path through the CLI's parser: 16 frames at 960x540 of the
    default scene falling onto a circle, counters reset just before it;
-8. the frame breakdown at scene_1m, 960x540.
+8. the frame breakdown at scene_1m, 960x540;
+9. the dense engine's two kernels (sph_density, sph_forces) against their
+   plain versions on the slot grid of a seeded scene_1m state (K=8, K=32),
+   the surface-tension variant on an h = 1.5 scene of 65,536 particles and
+   the adaptive variant on scene_1m with a clump above density 200, timed;
+10. 20 synced pallas-mode steps at scene_1m, kernel step against plain step;
+11. ``FluidApp(scene_1m, neighbor_mode="pallas", device="cuda").run(200)``
+    with the launch counters reset just before it;
+12. engine parity on bench.py's parity scene (grid, dense and pallas, 10
+    steps), and the CLI's default ``run`` (the dense engine) on the
+    reference's default scene for 64 steps.
 
 Any failed phase raises and the script exits non-zero. Output: progress
 lines, then the card's name and power limit, then one JSON line of
@@ -39,6 +49,8 @@ import time
 
 import torch
 
+# f32 machine epsilon, the density floor (funcs.wgsl:55)
+EPSILON = 1.19209290e-07
 # BASELINE.md's measured cross-backend per-step bounds, relative where the
 # value exceeds 1: what the kernels must meet against the plain versions
 POS_TOL, VEL_TOL, RHO_TOL = 4.8e-7, 3.8e-5, 9.2e-5
@@ -55,6 +67,17 @@ PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 # (metaball_coarse: distance 5, scale 1, exp 1, sums 3)
 OPS = {"rebin": 14, "density": 18, "forces_integrate": 43,
        "metaball_coarse": 10}
+# the dense engine's kernels, per (target, live candidate) pair of the 3x3
+# stencil: (the distance test, the rest of an in-range pair), counted from
+# csrc/sph_density.cu (test 6: 2 sub, 2 mul, add, compare; in range 6:
+# sub, 4 mul, add) and csrc/sph_forces.cu (test 6; in range 38: sqrt, 2
+# div, 22 mul/add/sub of the pressure and viscosity terms, 6 of the sums,
+# 7 compares and selects). sph_density has a value at every slot, so every
+# slot is a target; sph_forces only live slots.
+OPS_SPH = {"sph_density": (6, 6), "sph_forces": (6, 38)}
+# bytes per slot: each input read once, each output written once
+# (f32 fields, the bool valid mask)
+BYTES_SPH = {"sph_density": 2 * 4 + 1 + 4, "sph_forces": 5 * 4 + 1 + 4 * 4}
 KERNELS = {
     "rebin": ("tpufluid_torch/csrc/rebin.cu",
               "tpufluid/ops/pallas/fused.py:396"),
@@ -64,7 +87,13 @@ KERNELS = {
                          "tpufluid/ops/pallas/fused.py:1702"),
     "metaball_coarse": ("tpufluid_torch/csrc/metaball_coarse.cu",
                         "tpufluid/ops/pallas/render.py:103"),
+    "sph_density": ("tpufluid_torch/csrc/sph_density.cu",
+                    "tpufluid/ops/pallas/sph.py:104"),
+    "sph_forces": ("tpufluid_torch/csrc/sph_forces.cu",
+                   "tpufluid/ops/pallas/sph.py:350"),
 }
+# bench.py:run_parity's scene and its check (PARITY.json)
+PARITY_N, PARITY_TOL = 16384, 1e-4
 # obstacles of phases 6 and 7 (scene_1m world: 101.95 x 104.1)
 OBSTACLES_1M = [("circle", (0.0, 0.0), 6.0), ("circle", (-20.0, 10.0), 4.0),
                 ("circle", (15.0, -12.0), 3.0),
@@ -397,17 +426,17 @@ def compare_has_ff(settings, params, field, label):
 
 
 def reset_counts():
-    from tpufluid_torch.ops import fused, render_coarse
+    from tpufluid_torch.ops import fused, render_coarse, sph
 
-    for counts in (fused.LAUNCHES, render_coarse.LAUNCHES):
+    for counts in (fused.LAUNCHES, render_coarse.LAUNCHES, sph.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
 
 def read_counts() -> dict:
-    from tpufluid_torch.ops import fused, render_coarse
+    from tpufluid_torch.ops import fused, render_coarse, sph
 
-    return {**fused.LAUNCHES, **render_coarse.LAUNCHES}
+    return {**fused.LAUNCHES, **render_coarse.LAUNCHES, **sph.LAUNCHES}
 
 
 def render_cli():
@@ -455,7 +484,8 @@ def render_cli():
             and launches["forces_integrate_has_ff"]
             == launches["forces_integrate"] > 0
             and launches["rebin"] == launches["density"]
-            == launches["forces_integrate"]):
+            == launches["forces_integrate"]
+            and launches["sph_density"] == launches["sph_forces"] == 0):
         raise AssertionError(f"render CLI launches: {launches}")
 
     # the hole: every pixel more than 3h inside the circle is background.
@@ -521,6 +551,271 @@ def frame_breakdown(app, card):
         f" ms; 16 ticks + render {out['ms_per_frame']:.3f} ms/frame (CUDA "
         f"events over 5 frames; {card})")
     return out
+
+
+# ------------------------------------------------ the dense engine (9-12)
+
+def dense_grid_of(state, settings, params):
+    """The pallas-mode step's slot grid of a state: predicted positions,
+    binned and packed by cell (``ops.dense.build_grid``)."""
+    from tpufluid_torch import step as tstep
+    from tpufluid_torch.ops import dense, grid
+
+    pred = tstep.predict_positions(state.position, state.velocity,
+                                   params.delta, settings)
+    b = grid.bin_particles(grid.cell_id(pred, settings), settings)
+    return dense.build_grid(pred[b.perm], state.velocity[b.perm],
+                            b.sorted_cells, settings)
+
+
+def sph_pairs(g, settings) -> dict:
+    """(target, live candidate) pairs of the 3x3 stencil (rows clamped,
+    columns wrapped, as the kernels walk it), and those in range: for
+    sph_density every slot is a target (r^2 < h^2), for sph_forces the
+    live slots (r^2 <= h^2)."""
+    from tpufluid_torch.ops import sph
+
+    h2 = sph._f32(settings.sqr_radius)
+    out = dict(density_pairs=0, density_in=0, forces_pairs=0, forces_in=0)
+    live = g.valid
+    for cx, cy, cv in zip(sph._rows3(g.px), sph._rows3(g.py),
+                          sph._rows3(g.valid)):
+        for dx in (-1, 0, 1):
+            nx, ny, nv = (sph._roll_x(a, dx) for a in (cx, cy, cv))
+            for kp in range(g.px.shape[1]):
+                v = nv[:, kp:kp + 1]
+                if not bool(v.any()):
+                    continue
+                ddx = nx[:, kp:kp + 1] - g.px
+                ddy = ny[:, kp:kp + 1] - g.py
+                r2 = ddx * ddx + ddy * ddy
+                out["density_pairs"] += int(v.sum()) * g.px.shape[1]
+                out["density_in"] += int((v & (r2 < h2)).sum())
+                out["forces_pairs"] += int((v & live).sum())
+                out["forces_in"] += int((v & live & (r2 <= h2)).sum())
+    return out
+
+
+def sph_bound(name, g, pairs):
+    n_test, n_in = OPS_SPH[name]
+    key = "density" if name == "sph_density" else "forces"
+    n_ops = n_test * pairs[f"{key}_pairs"] + n_in * pairs[f"{key}_in"]
+    return bound(BYTES_SPH[name] * g.px.numel(), n_ops)
+
+
+def compare_sph(state, settings, params, label, flags=None):
+    """sph_density and sph_forces (with ``flags``) against their plain
+    versions on a state's slot grid, over the whole grid: density within
+    RHO_TOL relative, forces as the velocity increment f * dt / rho within
+    VEL_TOL, empty target slots bitwise. Returns per-kernel dicts and the
+    calls for ``time_kernels``."""
+    from tpufluid_torch.ops import sph
+
+    flags = flags or {}
+    g = dense_grid_of(state, settings, params)
+    h, n = settings.smoothing_radius, settings.kernel_norms()
+    rho = sph.density(g, params.mass, h)
+    rho_p = sph.density_plain(g, params.mass, h)
+    full = torch.ones_like(g.valid)
+    e_rho = rel_err(rho, rho_p, full)
+    if not e_rho <= RHO_TOL:
+        raise AssertionError(f"{label} sph_density: rel err {e_rho}")
+    d = torch.clamp(torch.clamp(rho_p, min=EPSILON), min=0.1)
+    fargs = (g, d, params, h, settings.sqr_radius, n.spiky_derivative,
+             n.viscosity, torch.tensor(9, device=d.device))
+    got = sph.forces(*fargs, **flags)
+    want = sph.forces_plain(*fargs, **flags)
+    dv = params.delta / d
+    e_f = max(rel_err(a * dv, b * dv, full) for a, b in zip(got, want))
+    dead = ~g.valid
+    if not (e_f <= VEL_TOL and all(torch.equal(a[dead], b[dead])
+                                   for a, b in zip(got, want))):
+        raise AssertionError(f"{label} sph_forces {flags}: rel err (f dt / "
+                             f"rho) {e_f}")
+    if flags:  # the flag changes the forces
+        base = sph.forces(*fargs)
+        changed = int(((base[0] != got[0]) & g.valid).sum())
+        if changed == 0:
+            raise AssertionError(f"{label}: {flags} changed no force")
+        log(f"{label}: {flags} changes fx at {changed} live slots")
+    pairs = sph_pairs(g, settings)
+    out = {"sph_density": dict(max_abs_err=abs_err(rho, rho_p, full)),
+           "sph_forces": dict(max_abs_err=max(abs_err(a, b, full)
+                                              for a, b in zip(got, want)))}
+    for name in out:
+        out[name]["bound_ms"], out[name]["bound_by"] = sph_bound(name, g,
+                                                                 pairs)
+    live = g.valid
+    strides = {f"stride_{k}": int(v) for k, v in (
+        (1, (live & (d < 150.0)).sum()),
+        (5, (live & (d >= 150.0) & (d < 200.0)).sum()),
+        (13, (live & (d >= 200.0)).sum()))}
+    out["sph_forces"].update(strides)
+    log(f"{label} {tuple(g.px.shape)} {flags or 'base'}: {int(live.sum())} "
+        f"live slots (dropped {int(g.n_dropped)}), max density "
+        f"{float(d[live].max()):.1f}, slots per stride {strides}, "
+        f"{pairs}; sph_density rel err {e_rho:.3g} (bound {RHO_TOL}), max "
+        f"abs err {out['sph_density']['max_abs_err']:.3g}; sph_forces rel err "
+        f"(f dt / rho) {e_f:.3g} (bound {VEL_TOL}), max abs err "
+        f"{out['sph_forces']['max_abs_err']:.3g}")
+    calls = {
+        "sph_density": (lambda: sph.density(g, params.mass, h),
+                        lambda: sph.density_plain(g, params.mass, h)),
+        "sph_forces": (lambda: sph.forces(*fargs, **flags),
+                       lambda: sph.forces_plain(*fargs, **flags)),
+    }
+    return out, calls, want
+
+
+def clumped_state(settings, device):
+    """The seeded scene_1m state with the particles of a 12 x 12 square at
+    the centre pulled to 0.6 of their distance from it: ~2.8x the rest
+    density, above 200, with a rim between 150 and 200."""
+    st = seeded_state(settings, device)
+    pos = st.position.clone()
+    inner = (pos.abs() < 6.0).all(dim=1)
+    pos[inner] = pos[inner] * 0.6
+    return dataclasses.replace(st, position=pos, predicted=pos.clone())
+
+
+def synced_pallas_steps(settings, params, n_steps: int) -> None:
+    """The pallas-mode kernel step against the same step on the plain
+    versions, each step from the plain step's state: cells and tick
+    bitwise, floats within the per-step bounds."""
+    from tpufluid_torch.step import make_plain_step, make_step
+
+    kstep = make_step(settings, neighbor_mode="pallas")
+    pstep = make_plain_step(settings)
+    st = seeded_state(settings, params.device)
+    worst = dict(position=0.0, velocity=0.0, density=0.0)
+    for i in range(n_steps):
+        k, p = kstep(st, params), pstep(st, params)
+        if not (torch.equal(k.cell, p.cell) and torch.equal(k.tick, p.tick)):
+            raise AssertionError(f"synced pallas step {i}: cell/tick differ")
+        for f, tol in (("position", POS_TOL), ("velocity", VEL_TOL),
+                       ("density", RHO_TOL)):
+            want = getattr(p, f)
+            e = rel_err(getattr(k, f), want,
+                        torch.ones_like(want, dtype=torch.bool))
+            if e > tol:
+                raise AssertionError(f"synced pallas step {i}: {f} rel err "
+                                     f"{e} > {tol}")
+            worst[f] = max(worst[f], e)
+        st = p
+    log(f"synced {n_steps} pallas steps at scene_1m (K="
+        f"{settings.cell_capacity}): cells and tick bitwise; worst rel err "
+        f"pos {worst['position']:.3g} vel {worst['velocity']:.3g} rho "
+        f"{worst['density']:.3g}")
+
+
+def profile_steps(app, n_steps: int, label: str):
+    """Device time by kernel, launches and the device's busy share over
+    ``app.run(n_steps)`` (torch.profiler; the busy share is the union of
+    the kernels' spans over the span from the first kernel's start to the
+    last one's end). Returns None, and says "not measured", when the
+    profiler sees no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            app.run(n_steps)
+            torch.cuda.synchronize()
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    except Exception as exc:  # the profile is a reading, not a gate
+        log(f"{label} profile: not measured ({type(exc).__name__}: {exc})")
+        return None
+    if not kern:
+        log(f"{label} profile: the profiler saw no device time; busy share "
+            f"not measured")
+        return None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo, hi = busy + (hi - lo), a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    window = spans[-1][1] - spans[0][0]
+    by_name = {}
+    for e in kern:
+        key = e.name[:60]
+        by_name[key] = by_name.get(key, 0.0) + (e.time_range.end
+                                                - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    out = dict(launches_per_step=len(kern) / n_steps,
+               busy_ms_per_step=busy / 1e3 / n_steps,
+               window_ms_per_step=window / 1e3 / n_steps,
+               busy_share=busy / window if window > 0 else None,
+               top_ms_per_step={k: v / 1e3 / n_steps for k, v in top})
+    log(f"{label} profile over {n_steps} steps: {out['launches_per_step']:.0f}"
+        f" kernel launches/step, device busy {out['busy_ms_per_step']:.4f} "
+        f"of {out['window_ms_per_step']:.4f} ms/step (busy share "
+        f"{out['busy_share']:.3f}); top kernels ms/step "
+        + ", ".join(f"{k} {v:.4f}" for k, v in out["top_ms_per_step"].items()))
+    return out
+
+
+def engine_parity(dev):
+    """bench.py:run_parity's short horizon: 16,384 particles, 26 x 26,
+    K=32, g -3, 10 steps through grid, dense and pallas; sorted positions
+    of grid and pallas within 1e-4 of dense (PARITY.json's checks)."""
+    import tpufluid_torch as tt
+
+    s = tt.SimSettings(particle_count=PARITY_N, particle_spacing=0.1,
+                       smoothing_radius=0.2, size=(26.0, 26.0),
+                       cell_capacity=32)
+    params = tt.TickParams.default(dev, gravity=(0.0, -3.0))
+    out, ms = {}, {}
+    for mode in ("grid", "dense", "pallas"):
+        run = tt.make_multi_step(s, 10, neighbor_mode=mode)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = run(tt.init_state(s, dev), params)
+        torch.cuda.synchronize()
+        ms[mode] = 1e3 * (time.perf_counter() - t0) / 10
+        if not torch.isfinite(st.position).all():
+            raise AssertionError(f"parity {mode}: not finite")
+        out[mode] = torch.sort(st.position, dim=0).values
+    d = {m: float((out[m] - out["dense"]).abs().max())
+         for m in ("grid", "pallas")}
+    log(f"engine parity ({PARITY_N}, 26x26, K=32, g -3, 10 steps): max |dpos| "
+        f"sorted vs dense: grid {d['grid']:.3g}, pallas {d['pallas']:.3g} "
+        f"(bound {PARITY_TOL}); wall ms/step grid {ms['grid']:.2f}, dense "
+        f"{ms['dense']:.2f}, pallas {ms['pallas']:.2f}")
+    if not max(d.values()) < PARITY_TOL:
+        raise AssertionError(f"engine parity: {d}")
+    return dict(max_dpos=d, ms_per_step=ms)
+
+
+def cli_default_run():
+    """The CLI's ``run`` with no --neighbor-mode (the dense engine) on the
+    reference's default scene, 64 steps."""
+    from tpufluid_torch import cli
+
+    args = cli.parser().parse_args(["run", "--device", "cuda", "--steps",
+                                    "64", "--report-every", "32"])
+    if args.neighbor_mode != "dense":
+        raise AssertionError(f"CLI default engine {args.neighbor_mode}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    app = cli.run(args)
+    wall = time.perf_counter() - t0
+    m = app.metrics(deep=True)
+    log(f"CLI default run (dense, 100k, 53x53, K={app.settings.cell_capacity}"
+        f"), 64 steps: wall {wall:.2f} s, {1e3 * wall / 64:.1f} ms/step; "
+        f"tick {m['tick']}, NaN {m['nan_positions']}, max occupancy "
+        f"{m['max_cell_occupancy']}")
+    if not (m["tick"] == 64 and m["nan_positions"] == 0
+            and not m["capacity_exceeded"]):
+        raise AssertionError(f"CLI default run: {m}")
+    return dict(wall_s=wall, ms_per_step=1e3 * wall / 64,
+                cell_capacity=app.settings.cell_capacity,
+                profile=profile_steps(app, 2, "CLI default dense"))
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -592,7 +887,8 @@ def main() -> int:
             and n_live == s8.particle_count and finite):
         raise AssertionError(f"scene_1m run failed: {m}, live {n_live}")
     if launches != {"rebin": 200, "density": 200, "forces_integrate": 200,
-                    "forces_integrate_has_ff": 0, "metaball_coarse": 0}:
+                    "forces_integrate_has_ff": 0, "metaball_coarse": 0,
+                    "sph_density": 0, "sph_forces": 0}:
         raise AssertionError(f"kernel launches in the run: {launches}")
 
     # 4. the reference's default scene through the CLI's run path
@@ -640,6 +936,80 @@ def main() -> int:
 
     # 8. the frame at full size on phase 3's scene_1m state
     frame = frame_breakdown(app, card)
+    del app
+
+    # 9. the dense engine's kernels against their plain versions: scene_1m
+    # at K=8 (the main path's shapes) and K=32, surface tension at h = 1.5,
+    # adaptive subsampling on a clump above density 200
+    import tpufluid_torch as tt
+    torch.use_deterministic_algorithms(True)
+    sph_res, sph_calls, _ = compare_sph(seeded_state(s8, dev), s8,
+                                        scene.params, "scene_1m K=8")
+    sph32, sph32_calls, _ = compare_sph(seeded_state(s32, dev), s32,
+                                        scene.params, "scene_1m K=32")
+    s_st = tt.SimSettings(particle_count=65536, particle_spacing=0.75,
+                          smoothing_radius=1.5, size=(200.0, 200.0),
+                          cell_capacity=8)
+    p_st = tt.TickParams.default(dev, surface_tension_threshold=0.05,
+                                 surface_tension_coefficient=5.0)
+    st_res, st_calls, _ = compare_sph(seeded_state(s_st, dev), s_st, p_st,
+                                      "h=1.5 65536", dict(surface_tension=True))
+    s16 = dataclasses.replace(s8, cell_capacity=16)
+    ad_res, ad_calls, _ = compare_sph(clumped_state(s16, dev), s16,
+                                      scene.params, "scene_1m clump K=16",
+                                      dict(adaptive_subsampling=True))
+
+    # 10. synced pallas-mode steps, kernel step against plain step
+    synced_pallas_steps(s8, scene.params, 20)
+    torch.use_deterministic_algorithms(False)
+    time_kernels(sph_calls, sph_res, "scene_1m K=8")
+    time_kernels(sph32_calls, sph32, "scene_1m K=32")
+    for label, calls, vres in (("h=1.5 65536 surface_tension", st_calls,
+                                st_res),
+                               ("scene_1m clump K=16 adaptive", ad_calls,
+                                ad_res)):
+        time_kernels({"sph_forces": calls["sph_forces"]}, vres, label)
+    del sph_calls, sph32_calls, st_calls, ad_calls
+
+    # 11. the slice's main path: FluidApp(scene_1m, pallas, cuda).run(200)
+    warm = FluidApp(s8, scenes.scene_1m(dev).params, device=dev,
+                    neighbor_mode="pallas")
+    warm.run(20)
+    torch.cuda.synchronize()
+    del warm
+    papp = FluidApp(s8, scene.params, device=dev, neighbor_mode="pallas")
+    torch.cuda.synchronize()
+    reset_counts()
+    start.record()
+    papp.run(200)
+    end.record()
+    torch.cuda.synchronize()
+    p_launches = read_counts()
+    ms_pallas = start.elapsed_time(end) / 200
+    m = papp.metrics(deep=True)
+    finite = bool(torch.isfinite(papp.state.position).all()
+                  and torch.isfinite(papp.state.velocity).all())
+    log(f"scene_1m FluidApp(pallas).run(200): tick {m['tick']}, K "
+        f"{papp.settings.cell_capacity}, finite {finite}, NaN "
+        f"{m['nan_positions']}, out of bounds {m['out_of_bounds']}, max "
+        f"occupancy {m['max_cell_occupancy']} (capacity exceeded "
+        f"{m['capacity_exceeded']}), launches {p_launches}")
+    log(f"scene_1m pallas: {ms_pallas:.4f} ms/step, "
+        f"{1e3 * s8.particle_count / ms_pallas:.4e} particle-steps/s (CUDA "
+        f"events over 200 steps after a 20-step warm-up; {card})")
+    if not (m["tick"] == 200 and finite and m["nan_positions"] == 0
+            and not m["capacity_exceeded"]):
+        raise AssertionError(f"scene_1m pallas run failed: {m}")
+    if p_launches != {"rebin": 0, "density": 0, "forces_integrate": 0,
+                      "forces_integrate_has_ff": 0, "metaball_coarse": 0,
+                      "sph_density": 200, "sph_forces": 200}:
+        raise AssertionError(f"pallas run launches: {p_launches}")
+    pallas_prof = profile_steps(papp, 16, "scene_1m pallas")
+    del papp
+
+    # 12. engine parity, and the CLI's default run (the dense engine)
+    parity = engine_parity(dev)
+    cli_res = cli_default_run()
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -650,6 +1020,14 @@ def main() -> int:
                                    "bound_ms", "bound_by")},
                 library_ms=None, k32=coarse["scene_1m K=32"],
                 default_scene=coarse["default scene"])
+        elif name.startswith("sph_"):
+            entry = dict(launches=p_launches[name],
+                         resident_path_launches=launches[name],
+                         render_path_launches=render_launches[name], **{
+                             k: sph_res[name][k] for k in (
+                                 "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by")},
+                         library_ms=None, k32=sph32[name])
         else:
             entry = dict(launches=launches[name],
                          render_path_launches=render_launches[name], **{
@@ -661,11 +1039,18 @@ def main() -> int:
             entry["has_ff"] = dict(
                 launches=render_launches["forces_integrate_has_ff"],
                 **has_ff)
+        if name == "sph_forces":
+            entry["surface_tension"] = st_res[name]
+            entry["adaptive"] = ad_res[name]
+        entry["pallas_path_launches"] = p_launches[name]
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, **entry))
     print(card)
     print(json.dumps({"kernels": kernels, "ms_per_step": ms_step,
-                      "render": render_res, "frame": frame}))
+                      "pallas_ms_per_step": ms_pallas,
+                      "pallas_profile": pallas_prof, "render": render_res,
+                      "frame": frame, "parity": parity,
+                      "cli_default": cli_res}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

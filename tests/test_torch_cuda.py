@@ -1,16 +1,18 @@
 """PyTorch port on the card: each CUDA kernel (the resident engine's three,
-forces with an obstacle field, the metaball coarse fields) against its
-plain PyTorch version on the same CUDA tensors, and the kernel step against
-the plain step. Marked ``cuda``; every test skips without a
-CUDA device. This file imports no JAX, so it also runs where JAX is not
-installed:
+forces with an obstacle field, the metaball coarse fields, the dense
+engine's density and forces with both variant flags) against its plain
+PyTorch version on the same CUDA tensors, and the kernel step against the
+plain step. Marked ``cuda``; every test skips without a CUDA device. This
+file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 
 Rebin must be bitwise; density and forces within BASELINE.md's per-step
 bounds (|drho| <= 9.2e-5, |dpos| <= 4.8e-7, |dvel| <= 3.8e-5, relative
 where the value exceeds 1) on live slots, with dead slots exact; the
-metaball fields within 1e-5 * max(1, |plain|).
+metaball fields within 1e-5 * max(1, |plain|). The dense engine's grids
+are compared whole: density within 9.2e-5, forces as the velocity
+increment f * dt / rho within 3.8e-5 (see tests/test_torch_sph.py).
 """
 
 import dataclasses
@@ -20,7 +22,7 @@ import pytest
 import torch
 
 import tpufluid_torch as tt
-from tpufluid_torch.ops import fused, resident
+from tpufluid_torch.ops import dense, fused, grid, resident, sph
 
 pytestmark = pytest.mark.cuda
 
@@ -65,7 +67,7 @@ def test_kernels_match_plain(cuda, k):
     p = tt.TickParams.default(cuda, gravity=(0.0, -9.8), mouse_state=1,
                               mouse_pos=(0.5, 0.5), mouse_force_radius=2.0)
     gs = _state(s, cuda, k)
-    before = dict(fused.LAUNCHES)
+    before = {**fused.LAUNCHES, **sph.LAUNCHES}
     rargs = (gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, gs.occ_row, p.delta, s)
     got, want = fused.rebin(*rargs), fused.rebin_plain(*rargs)
     for a, b in zip(got, want):
@@ -86,9 +88,10 @@ def test_kernels_match_plain(cuda, k):
         assert _rel(a, b, live) <= tol
         assert torch.equal(a[~live], b[~live])
     torch.cuda.synchronize()
-    assert {n: fused.LAUNCHES[n] - before[n] for n in before} == {
+    after = {**fused.LAUNCHES, **sph.LAUNCHES}
+    assert {n: after[n] - before[n] for n in before} == {
         "rebin": 1, "density": 1, "forces_integrate": 1,
-        "forces_integrate_has_ff": 0}
+        "forces_integrate_has_ff": 0, "sph_density": 0, "sph_forces": 0}
 
 
 def test_kernel_step_matches_plain_step(cuda):
@@ -190,3 +193,68 @@ def test_forces_has_ff_matches_plain(cuda):
         assert _rel(a, b, live) <= tol
         assert torch.equal(a[~live], b[~live])
     assert int(((new[0] != base[0]) & live).sum()) > 1000  # pushed
+
+
+def _dense_grid(cuda, k, case):
+    """(settings, params, DenseGrid, floored density) on the card: random
+    particles with coincident pairs and an over-full cell ("base"), the
+    h = 1.5 surface-tension scene ("st"), or a clump above density 200
+    ("clump")."""
+    rng = np.random.default_rng(k)
+    if case == "st":
+        s = tt.SimSettings(particle_count=400, particle_spacing=0.75,
+                           smoothing_radius=1.5, size=(30.0, 30.0),
+                           cell_capacity=k)
+        pos = rng.uniform(-8.0, 8.0, (400, 2)).astype(np.float32)
+    elif case == "clump":
+        s = tt.SimSettings(particle_count=600, size=(9.0, 8.0),
+                           cell_capacity=k)
+        pos = rng.uniform(-4.0, 4.0, (600, 2)).astype(np.float32)
+        pos[:40] = rng.uniform(-0.1, 0.1, (40, 2))
+    else:
+        s = tt.SimSettings(particle_count=3000, size=(9.0, 8.0),
+                           cell_capacity=k)
+        pos = rng.uniform(-4.5, 4.0, (3000, 2)).astype(np.float32)
+        pos[16:32] = pos[32:48]
+        pos[100:140] = (1.05, 1.05) + rng.uniform(0, 0.1, (40, 2))
+    p = tt.TickParams.default(cuda, surface_tension_threshold=0.05,
+                              surface_tension_coefficient=5.0)
+    vel = rng.normal(size=pos.shape).astype(np.float32)
+    pos, vel = torch.from_numpy(pos).to(cuda), torch.from_numpy(vel).to(cuda)
+    b = grid.bin_particles(grid.cell_id(pos, s), s)
+    g = dense.build_grid(pos[b.perm], vel[b.perm], b.sorted_cells, s)
+    d = dense.density_pass(g, p.mass, s.smoothing_radius)
+    return s, p, g, torch.clamp(torch.clamp(d, min=tt.EPSILON), min=0.1)
+
+
+@pytest.mark.parametrize("case", ["k8", "k32", "surface_tension",
+                                  "adaptive_subsampling"])
+def test_sph_kernels_match_plain(cuda, case):
+    """sph_density and sph_forces against their plain versions over the
+    whole grid, base flags at K=8 and K=32 and each variant flag."""
+    k = 32 if case == "k32" else 8
+    scene = {"surface_tension": "st", "adaptive_subsampling": "clump"}
+    s, p, g, d = _dense_grid(cuda, k, scene.get(case, "base"))
+    h, n = s.smoothing_radius, s.kernel_norms()
+    before = dict(sph.LAUNCHES)
+    rho = sph.density(g, p.mass, h)
+    rho_p = sph.density_plain(g, p.mass, h)
+    full = torch.ones_like(g.valid)
+    assert _rel(rho, rho_p, full) <= RHO_TOL
+    flags = {case: True} if case in scene else {}
+    args = (g, d, p, h, s.sqr_radius, n.spiky_derivative, n.viscosity,
+            torch.tensor(9, device=cuda))
+    got = sph.forces(*args, **flags)
+    want = sph.forces_plain(*args, **flags)
+    torch.cuda.synchronize()
+    assert {n_: sph.LAUNCHES[n_] - before[n_] for n_ in before} == {
+        "sph_density": 1, "sph_forces": 1}
+    dv = p.delta / d
+    for a, b_ in zip(got, want):
+        assert _rel(a * dv, b_ * dv, full) <= VEL_TOL
+        assert torch.equal(a[~g.valid], b_[~g.valid])
+    if flags:
+        base = sph.forces_plain(*args)
+        assert not torch.equal(want[0][g.valid], base[0][g.valid])
+    if case == "adaptive_subsampling":
+        assert float(d[g.valid].max()) > 200.0

@@ -33,6 +33,18 @@ from tpufluid_torch.ops import forcefield as tff
 from tpufluid_torch.ops import fused as tfused
 from tpufluid_torch.ops import resident as tresident
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread per test: the test lane runs several workers on
+    the same cores, where torch's OpenMP pools oversubscribe them and each
+    small op waits for descheduled threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 POS_TOL, VEL_TOL = 4.8e-7, 3.8e-5
 GRID_FIELDS = ("pos_x", "pos_y", "vel_x", "vel_y", "occ_row", "tick", "lost")
 OBJECTS = [("circle", (0.3, -0.4), 0.7), ("rect", (-1.2, 0.9), (1.1, 0.5), 0.6),

@@ -29,6 +29,17 @@ from tpufluid_torch.ops import prng as tprng
 from tpufluid_torch.ops import resident as tresident
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread per test: the test lane runs several workers on
+    the same cores, where torch's OpenMP pools oversubscribe them and each
+    small op waits for descheduled threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _eq(got, want):
     """Bitwise equality of a torch result and a JAX/numpy reference."""
     got = got.cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)

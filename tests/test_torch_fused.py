@@ -31,6 +31,18 @@ from tpufluid.state import ParticleState as JParticleState
 from tpufluid_torch import interop
 from tpufluid_torch.ops import fused as tfused
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread per test: the test lane runs several workers on
+    the same cores, where torch's OpenMP pools oversubscribe them and each
+    small op waits for descheduled threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 POS_TOL, VEL_TOL, RHO_TOL = 4.8e-7, 3.8e-5, 9.2e-5
 H = 0.2
 HALF = 2.4

@@ -23,6 +23,18 @@ from tpufluid_torch.app import FluidApp, SimState
 from tpufluid_torch.ops.forcefield import Objects
 from tpufluid_torch.utils import io as tio
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread per test: the test lane runs several workers on
+    the same cores, where torch's OpenMP pools oversubscribe them and each
+    small op waits for descheduled threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

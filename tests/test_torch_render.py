@@ -41,6 +41,18 @@ from tpufluid_torch.ops import render_grid as trgrid
 from tpufluid_torch.ops import resident as tresident
 from tpufluid_torch.utils import io as tio
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread per test: the test lane runs several workers on
+    the same cores, where torch's OpenMP pools oversubscribe them and each
+    small op waits for descheduled threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FIELD_TOL = 1e-5
 PIXEL_FRAC = 1e-3
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")

@@ -26,6 +26,18 @@ from tpufluid_torch.app import FluidApp
 from tpufluid_torch.ops import fused as tfused
 from tpufluid_torch.ops import resident as tresident
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread per test: the test lane runs several workers on
+    the same cores, where torch's OpenMP pools oversubscribe them and each
+    small op waits for descheduled threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 POS_TOL, VEL_TOL = 4.8e-7, 3.8e-5
 GRID_FIELDS = ("pos_x", "pos_y", "vel_x", "vel_y", "occ_row", "tick", "lost")
 
@@ -217,14 +229,16 @@ def test_strict_policy_refuses_undersized_scene():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(neighbor_mode="dense"), dict(x_boundary="wrap"),
+    dict(x_boundary="wrap", surface_tension=True), dict(x_boundary="wrap"),
     dict(surface_tension=True), dict(adaptive_subsampling=True),
-    dict(neighbor_mode="naive"),
+    dict(adaptive_subsampling=True, x_boundary="wrap"),
 ])
 def test_unported_paths_raise(kw):
+    """The resident engine's variants (the per-step engines run them all,
+    tests/test_torch_step.py)."""
     s = tt.SimSettings(particle_count=64, size=(3.2, 3.2))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        FluidApp(s, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2 item 1"):
+        FluidApp(s, device="cpu", neighbor_mode="resident", **kw)
 
 
 def test_cli_run_on_cpu(capsys):
@@ -237,5 +251,6 @@ def test_cli_run_on_cpu(capsys):
     assert cli.main(["info"]) == 0
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cli.main(args[:-4] + ["--steps", "1", "--video-field", "v.npy"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(["run", "--device", "cpu", "--steps", "1"])  # dense engine
+    # the default engine (dense) runs
+    assert cli.main(["run", "--device", "cpu", "--particles", "64",
+                     "--size", "1.6", "1.6", "--steps", "1"]) == 0

@@ -38,6 +38,9 @@ _SIGNATURES = {
     "tf_forces": [_P] * 9 + [_P] * 2 + [_P] * 4 + [_I] * 3 + [_F] * 11
     + [_P],
     "tf_metaball_coarse": [_P] * 6 + [_I] * 5 + [_F] * 4 + [_P],
+    "tf_sph_density": [_P] * 5 + [_I] * 3 + [_F] * 2 + [_P],
+    "tf_sph_forces": [_P] * 8 + [_P] * 4 + [_I] * 3 + [_I] * 2 + [_F] * 11
+    + [_P],
 }
 
 _lib = None

@@ -1,13 +1,15 @@
-"""Headless app shell, resident engine (port of ``tpufluid.app.FluidApp``).
+"""Headless app shell (port of ``tpufluid.app.FluidApp``).
 
 The reference's event loop as a Python API (src/main.rs:20-318): the
 Running/Render/Step/Stopped state machine with its fixed-timestep
-accumulator, ticks and burst ``run()``, obstacles, the capacity policies
-with the resident engine's loss audit and regrow-and-replay, the offline
-render mode (16 ticks per frame, src/main.rs:153-216) and checkpoints.
-Only ``neighbor_mode="resident"`` is ported, with the bounce boundary and
-no surface tension or adaptive subsampling; the rest raises
-``NotImplementedError`` naming its ROADMAP item.
+accumulator, ticks and burst ``run()``, obstacles, the capacity policies,
+the offline render mode (16 ticks per frame, src/main.rs:153-216) and
+checkpoints. Engines: ``"resident"`` (the slot grid kept between steps,
+with the loss audit and regrow-and-replay; bounce boundary only, no
+surface tension or adaptive subsampling yet) and the per-step engines of
+``step.make_step``: ``"grid"``, ``"naive"``, ``"dense"`` and ``"pallas"``
+(every variant). What is not ported raises ``NotImplementedError`` naming
+its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -23,12 +25,13 @@ import torch
 
 from .params import SimSettings, TickParams, suggest_cell_capacity
 from .state import init_state
+from .step import NEIGHBOR_MODES, make_multi_step, make_step
 from .ops import forcefield as ff
 from .ops import render as renderops
 from .ops import render_binned, render_grid
 from .ops import resident as residentops
 from .utils import io as ioutils
-from .utils.profiling import StepTimer
+from .utils.profiling import StepTimer, health_check
 
 
 def _unported(what: str, item: str):
@@ -43,8 +46,7 @@ class SimState(enum.Enum):
 
 
 class FluidApp:
-    """Owns settings, tick params, obstacles and the resident step on one
-    device."""
+    """Owns settings, tick params, obstacles and the step on one device."""
 
     # frame-drop bailout threshold (src/main.rs:143-146)
     FRAME_BUDGET = 1.0 / 90.0
@@ -72,27 +74,35 @@ class FluidApp:
                  x_boundary: Optional[str] = None,
                  surface_tension: bool = False,
                  adaptive_subsampling: bool = False):
-        """capacity_policy: ``"grow"`` (default) sizes the capacity for the
-        spawn lattice and regrows + replays on any counted loss;
-        ``"strict"`` refuses undersized scenes and raises on loss;
-        ``"fixed"`` keeps the capacity and warns on loss."""
-        if neighbor_mode != "resident":
-            _unported(f"neighbor_mode={neighbor_mode!r}",
-                      "queue 1, grid and naive engines")
+        """capacity_policy, for the engines with a cell capacity
+        (resident, dense, pallas): ``"grow"`` (default) sizes the capacity
+        up front (resident: for the spawn lattice, then regrows + replays
+        on any counted loss; dense/pallas: for the modelled compression
+        peak, having no runtime regrow); ``"strict"`` refuses undersized
+        scenes (and the resident engine raises on loss); ``"fixed"`` keeps
+        the capacity (the resident engine warns on loss). grid and naive
+        are not sized."""
+        if neighbor_mode not in ("resident",) + NEIGHBOR_MODES:
+            raise ValueError(f"unknown neighbor_mode {neighbor_mode!r}")
+        self._resident = neighbor_mode == "resident"
+        self.neighbor_mode = neighbor_mode
         self.device = torch.device(device)
         self.settings = settings
         self.params = params or TickParams.default(self.device)
         if capacity_policy not in ("grow", "strict", "fixed"):
             raise ValueError(f"unknown capacity_policy {capacity_policy!r}")
         self._capacity_policy = capacity_policy
-        if capacity_policy == "grow":
-            # start lean (rest occupancy); the loss audit + regrow-and-replay
-            # is the backstop
-            rec = suggest_cell_capacity(self.settings)
+        bounded = neighbor_mode in ("resident", "dense", "pallas")
+        if bounded and capacity_policy == "grow":
+            # resident starts lean (rest occupancy): the loss audit +
+            # regrow-and-replay is the backstop; dense/pallas have none,
+            # so they are sized for the compression peak
+            rec = (suggest_cell_capacity(self.settings) if self._resident
+                   else suggest_cell_capacity(self.settings, self.params))
             if settings.cell_capacity < rec:
                 self.settings = dataclasses.replace(settings,
                                                     cell_capacity=rec)
-        elif capacity_policy == "strict":
+        elif bounded and capacity_policy == "strict":
             raw = suggest_cell_capacity(self.settings, self.params,
                                         safety=1.0, rounded=False)
             if settings.cell_capacity < raw:
@@ -100,9 +110,10 @@ class FluidApp:
                 raise ValueError(
                     f"cell_capacity={settings.cell_capacity} is undersized "
                     f"for this scene: gravity/EOS compression needs ~{rec} "
-                    f"(suggest_cell_capacity). Raise cell_capacity, or pass "
-                    f"capacity_policy='grow' (auto-size + regrow) / 'fixed' "
-                    f"(accept counted mass loss, GridState.lost).")
+                    f"(suggest_cell_capacity). Raise cell_capacity, use "
+                    f"neighbor_mode='grid', or pass capacity_policy='grow' "
+                    f"(auto-size) / 'fixed' (accept counted mass loss: "
+                    f"GridState.lost, health_check).")
         self._step_kw = dict(x_boundary=x_boundary or "bounce",
                              surface_tension=surface_tension,
                              adaptive_subsampling=adaptive_subsampling)
@@ -151,9 +162,14 @@ class FluidApp:
         _unported("video force fields", "queue 1, video force fields")
 
     def _rebuild_step(self) -> None:
-        self._step = residentops.make_grid_step(
-            self.settings, has_force_field=self._forcefield is not None,
-            **self._step_kw)
+        has_ff = self._forcefield is not None
+        if self._resident:
+            self._step = residentops.make_grid_step(
+                self.settings, has_force_field=has_ff, **self._step_kw)
+        else:
+            self._step = make_step(self.settings,
+                                   neighbor_mode=self.neighbor_mode,
+                                   has_force_field=has_ff, **self._step_kw)
 
     def _ff_args(self) -> tuple:
         """The step's extra argument: the push-out field, if any."""
@@ -163,8 +179,9 @@ class FluidApp:
 
     @property
     def state(self):
-        """ParticleState view, materialised from the grid on access."""
-        if self._state_dirty:
+        """The ParticleState; in resident mode materialised from the grid
+        on access."""
+        if self._resident and self._state_dirty:
             self._state, _ = residentops.to_particles(self._grid_state,
                                                       self.settings)
             self._state_dirty = False
@@ -174,6 +191,8 @@ class FluidApp:
     def state(self, value):
         self._state = value
         self._state_dirty = False
+        if not self._resident:
+            return
         self._grid_state = residentops.from_particles(value, self.settings)
         if self._capacity_policy == "grow":
             # binning drops regrow at once: the source particles are still
@@ -201,6 +220,11 @@ class FluidApp:
     # ------------------------------------------------------------------- tick
 
     def tick(self) -> None:
+        if not self._resident:
+            self._state = self._step(self._state, self.params,
+                                     *self._ff_args())
+            self.timer.lap()
+            return
         self._grid_state = self._step(self._grid_state, self.params,
                                       *self._ff_args())
         self._state_dirty = True
@@ -212,14 +236,28 @@ class FluidApp:
             self._audit_loss()
 
     def run(self, n_steps: int, max_burst: int = 64) -> None:
-        """Advance ``n_steps`` ticks in bursts of at most ``max_burst``;
-        the loss audit runs every <= LOSS_CHECK_EVERY ticks, at a burst
-        boundary, and live tuning applies at burst boundaries."""
+        """Advance ``n_steps`` ticks in bursts of at most ``max_burst``,
+        queued without a host sync; live tuning applies at burst
+        boundaries, and in resident mode the loss audit runs every <=
+        LOSS_CHECK_EVERY ticks, at a burst boundary."""
         if n_steps <= 0:
             return
         if max_burst < 1:
             raise ValueError("max_burst must be >= 1")
         remaining = n_steps
+        if not self._resident:
+            while remaining:
+                b = next(s for s in self._BURST_SIZES
+                         if s <= max_burst and s <= remaining)
+                run_fn = make_multi_step(
+                    self.settings, b, neighbor_mode=self.neighbor_mode,
+                    has_force_field=self._forcefield is not None,
+                    **self._step_kw)
+                self._state = run_fn(self._state, self.params,
+                                     *self._ff_args())
+                self.timer.laps(b)
+                remaining -= b
+            return
         while remaining:
             room = self.LOSS_CHECK_EVERY - self._ticks_since_audit
             b = next(s for s in self._BURST_SIZES
@@ -350,15 +388,16 @@ class FluidApp:
                      camera: Optional[renderops.Camera] = None,
                      mode: str = "metaball") -> torch.Tensor:
         """rgba f32[H, W, 4] on the app's device. ``metaball``: the fluid
-        surface shaded straight off the slot grid (``ops.render_grid``);
-        ``metaball_exact``: the per-pixel binned renderer; ``particles``:
-        point sprites."""
+        surface, in resident mode shaded straight off the slot grid
+        (``ops.render_grid``), else by the per-pixel binned renderer;
+        ``metaball_exact``: the binned renderer; ``particles``: point
+        sprites."""
         cam = camera or renderops.Camera(view_size=(
             self.settings.size[0], self.settings.size[0] * height / width))
-        if mode == "metaball":
+        if mode == "metaball" and self._resident:
             return render_grid.render_metaball_grid(
                 self._grid_state, self.settings, width, height, cam)
-        if mode == "metaball_exact":
+        if mode in ("metaball", "metaball_exact"):
             return render_binned.render_metaball_binned(
                 self.state, self.settings, width, height, cam)
         if mode == "particles":
@@ -404,19 +443,28 @@ class FluidApp:
 
     # -------------------------------------------------------------- metrics
 
-    def metrics(self) -> dict:
-        """Tick, steps/s, loss and capacity counters (two device reads)."""
-        return dict(
-            tick=int(self._grid_state.tick),
+    def metrics(self, deep: bool = False) -> dict:
+        """Tick, steps/s and drop counters; in resident mode also the loss
+        and capacity counters (one or two device reads). ``deep=True``
+        adds ``health_check`` (NaN counts, bounds, peak cell occupancy
+        against the capacity, top speed), which reads the whole state
+        back and re-bins it: for debugging, not the hot loop."""
+        src = self._grid_state if self._resident else self._state
+        out = dict(
+            tick=int(src.tick),
             sim_state=self.sim_state.value,
             steps_per_sec=self.timer.last_rate,
             particle_steps_per_sec=(self.timer.last_rate
                                     * self.settings.particle_count),
             dropped_frames=self.dropped_frames,
-            lost_particles=int(self._grid_state.lost),
-            n_regrows=self.n_regrows,
-            cell_capacity=self.settings.cell_capacity,
         )
+        if self._resident:
+            out.update(lost_particles=int(self._grid_state.lost),
+                       n_regrows=self.n_regrows,
+                       cell_capacity=self.settings.cell_capacity)
+        if deep:
+            out.update(health_check(self.state, self.settings))
+        return out
 
     # ------------------------------------------------------------ checkpoint
 

@@ -1,8 +1,9 @@
 """Command line: ``python -m tpufluid_torch <run|render|info>``.
 
 The flags of ``python -m tpufluid``, plus ``--device`` (default ``cuda``).
-Only the resident engine is ported: other engines, video force fields and
-the variant flags raise ``NotImplementedError``.
+Every engine runs (``--neighbor-mode``, default ``dense``), the per-step
+ones with every variant flag; the resident engine's variants and video
+force fields raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -45,7 +46,11 @@ def _add_common(p):
     p.add_argument("--neighbor-mode",
                    choices=("resident", "grid", "dense", "pallas", "naive"),
                    default="dense",
-                   help="engine; only resident is ported")
+                   help="engine: resident keeps the slot grid between "
+                        "steps; grid/naive/dense rebuild their neighbours "
+                        "every step in plain PyTorch; pallas runs dense's "
+                        "two passes as the CUDA kernels (their plain "
+                        "versions on the CPU). Default dense")
     p.add_argument("--x-boundary", choices=("bounce", "wrap"),
                    default="bounce")
     p.add_argument("--adaptive-subsampling", action="store_true")

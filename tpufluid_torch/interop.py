@@ -15,6 +15,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from .ops.dense import DenseGrid
 from .ops.forcefield import Objects
 from .ops.resident import GridState
 from .params import SimSettings, TickParams
@@ -66,6 +67,19 @@ def grid_state_from_numpy(obj: Any, device) -> GridState:
         occ_row=torch.from_numpy(v["occ_row"].astype(np.int32)).to(device),
         tick=torch.tensor(int(v["tick"]), dtype=torch.int64, device=device),
         lost=torch.tensor(int(v["lost"]), dtype=torch.int32, device=device),
+    )
+
+
+def dense_grid_from_numpy(obj: Any, device) -> DenseGrid:
+    """DenseGrid on ``device`` from the JAX package's DenseGrid fields
+    (flat slots widened to i64)."""
+    f32 = lambda n: torch.from_numpy(_get(obj, n).astype(np.float32)).to(device)
+    return DenseGrid(
+        flat=torch.from_numpy(_get(obj, "flat").astype(np.int64)).to(device),
+        px=f32("px"), py=f32("py"), vx=f32("vx"), vy=f32("vy"),
+        valid=torch.from_numpy(_get(obj, "valid").astype(bool)).to(device),
+        n_dropped=torch.tensor(int(_get(obj, "n_dropped")),
+                               dtype=torch.int32, device=device),
     )
 
 

@@ -1,12 +1,21 @@
-"""Dense slot-grid construction (the part of ``tpufluid.ops.dense`` that
-the resident engine's boundary conversion needs).
+"""Dense cell-grid neighbour passes (port of ``tpufluid.ops.dense``).
 
 Particles sorted by cell are scattered into a ``[Gy, K, Gxp]`` slot grid
 (K = cell_capacity, Gxp = grid width padded to a multiple of 128), slot =
-the particle's rank within its cell. Scatters go into a buffer one element
-longer than the grid: particles beyond capacity all land on that spare
-slot, which is sliced off, so every kept index is unique and the result is
-deterministic.
+the particle's rank within its cell, so each cell's particles fill a prefix
+of its K slots. Scatters go into a buffer one element longer than the grid:
+particles beyond capacity all land on that spare slot, which is sliced off,
+so every kept index is unique and the result is deterministic.
+
+The stencil passes (``density_pass``, ``force_pass``) are the XLA roll
+formulation of the JAX package: each of the nine (dy, dx) neighbour blocks
+is the whole grid rolled, and each candidate slot kp is a [Gy, 1, Gxp]
+slice broadcast against the [Gy, K, Gxp] targets. Rolls wrap through the
+empty sentinel ring and pad columns. In plain PyTorch this is some
+thousands of small launches per step; ``dense_forces_cols(pallas=True)``
+runs the two passes as the hand-written kernels of ``ops.sph`` instead.
+Particles beyond capacity keep their state but leave the neighbour sums for
+the step, and read back the density floor and zero force.
 """
 
 from __future__ import annotations
@@ -15,7 +24,10 @@ from typing import NamedTuple
 
 import torch
 
-from ..params import SimSettings
+from ..params import EPSILON, SimSettings
+from . import kernels
+from .prng import U32, position_seed, rand_unit_vector
+from .pairs import ORDINAL_SALT, PAIR_ORDER_SALT
 
 
 class DenseGrid(NamedTuple):
@@ -67,3 +79,201 @@ def build_grid_cols(pxs, pys, vxs, vys, sorted_cells: torch.Tensor,
         valid=scat(torch.ones_like(keep), torch.bool),
         n_dropped=(~keep).sum().to(torch.int32),
     )
+
+
+def build_grid(pred_s, vel_s, sorted_cells, settings: SimSettings,
+               dims=None) -> DenseGrid:
+    """``build_grid_cols`` from [N, 2] predicted positions and velocities."""
+    return build_grid_cols(pred_s[:, 0], pred_s[:, 1], vel_s[:, 0],
+                           vel_s[:, 1], sorted_cells, settings, dims=dims)
+
+
+_OFFSETS = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
+
+
+def _roll(a, dy: int, dx: int):
+    """nb[y, :, x] = a[y + dy, :, x + dx], wrapping."""
+    return torch.roll(a, (-dy, -dx), dims=(0, 2))
+
+
+def density_pass(grid: DenseGrid, mass, h: float):
+    """rho[Gy, K, Gxp]: m * poly6 summed over the 3x3 stencil, self
+    included (funcs.wgsl:157-203); every slot gets a value."""
+    k = grid.px.shape[1]
+    dens = torch.zeros_like(grid.px)
+    for dy, dx in _OFFSETS:
+        nx = _roll(grid.px, dy, dx)
+        ny = _roll(grid.py, dy, dx)
+        nv = _roll(grid.valid, dy, dx)
+        for kp in range(k):
+            ddx = nx[:, kp:kp + 1] - grid.px
+            ddy = ny[:, kp:kp + 1] - grid.py
+            w = kernels.poly6(h, ddx * ddx + ddy * ddy)
+            dens = dens + torch.where(nv[:, kp:kp + 1], mass * w, 0.0)
+    return dens
+
+
+def force_pass(grid: DenseGrid, dens_g, params, h: float, sqr_radius: float,
+               spiky_norm: float, visc_norm: float, frame,
+               surface_tension: bool = False,
+               adaptive_subsampling: bool = False):
+    """(fx, fy, gx, gy)[Gy, K, Gxp]: the pressure force f and the viscosity
+    force g (compute.wgsl:160-299), with the tie-break contract of
+    ``ops.pairs.pressure_force``.
+
+    * ``surface_tension``: the colour-field force (self pair included, as
+      ``pairs.surface_tension``) folded into (fx, fy).
+    * ``adaptive_subsampling``: pressure candidates strided by 1/5/13 as
+      the target's density crosses 150/200; the slot index is the rank in
+      the cell run, so the stride is ``kp % inc == 0``
+      (shaders/compute.wgsl:170-174,195).
+    """
+    k = grid.px.shape[1]
+    dev = grid.px.device
+    sq = kernels._f32(sqr_radius)
+    p_self = kernels.pressure_eos(dens_g, params.pressure_constant,
+                                  params.rest_density)
+    frame = frame.to(torch.int64)
+    seed_self = (position_seed(torch.stack([grid.px, grid.py], dim=-1))
+                 + frame * 69) & U32
+    k_self = torch.arange(k, device=dev)[None, :, None]
+    zero = torch.zeros_like(grid.px)
+    fx, fy, gx_, gy_ = zero, zero, zero, zero
+    coinc_count = torch.zeros(grid.px.shape, dtype=torch.int64, device=dev)
+    if adaptive_subsampling:
+        inc = (1 + torch.where(dens_g >= 150.0, 4, 0)
+               + torch.where(dens_g >= 200.0, 8, 0))
+    if surface_tension:
+        # seed per compute.wgsl:406 (WGSL u32(f32) saturates negatives to 0)
+        st_i = torch.clamp(grid.px, min=0.0).to(torch.int32).to(torch.int64)
+        st_dir = rand_unit_vector((st_i * 324 + frame * 5632) & U32)
+        cgx, cgy, clap = zero, zero, zero
+    mass = params.mass
+
+    for dy, dx in _OFFSETS:
+        nx, ny, nvx, nvy, nv, ndens = (
+            _roll(a, dy, dx) for a in (grid.px, grid.py, grid.vx, grid.vy,
+                                       grid.valid, dens_g))
+        np_nb = kernels.pressure_eos(ndens, params.pressure_constant,
+                                     params.rest_density)
+        is_center = dy == 0 and dx == 0
+        before = dy < 0 or (dy == 0 and dx < 0)
+        for kp in range(k):
+            sl = slice(kp, kp + 1)
+            ddx = nx[:, sl] - grid.px
+            ddy = ny[:, sl] - grid.py
+            r2 = ddx * ddx + ddy * ddy
+            dst = torch.sqrt(r2)
+            ok = nv[:, sl] & grid.valid
+            if is_center:
+                ok = ok & (k_self != kp)
+            in_range = ok & (r2 <= sq)
+            safe = torch.where(dst == 0.0, 1.0, dst)
+            dirx = ddx / safe
+            diry = ddy / safe
+
+            coincident = in_range & (dst == 0.0)
+            eff_seed = seed_self + torch.clamp(coinc_count, max=1) * ORDINAL_SALT
+            if is_center:
+                eff_seed = eff_seed + torch.where(kp < k_self,
+                                                  PAIR_ORDER_SALT, 0)
+            elif before:
+                eff_seed = eff_seed + PAIR_ORDER_SALT
+            rdir = rand_unit_vector(eff_seed & U32)
+            dirx = torch.where(coincident, rdir[..., 0], dirx)
+            diry = torch.where(coincident, rdir[..., 1], diry)
+            coinc_count = coinc_count + coincident
+
+            ndk = ndens[:, sl]
+            shared_p = (p_self + np_nb[:, sl]) * 0.5
+            kern_p = kernels.spiky_derivative(h, dst, spiky_norm)
+            safe_rho = torch.where(ndk == 0.0, 1.0, ndk)
+            scale_p = kern_p * shared_p / safe_rho
+            in_range_p = in_range
+            if adaptive_subsampling:
+                in_range_p = in_range & (kp % inc == 0)
+            fx = fx + torch.where(in_range_p, dirx * scale_p, 0.0)
+            fy = fy + torch.where(in_range_p, diry * scale_p, 0.0)
+
+            scale_v = kernels.viscosity(h, dst, visc_norm) / safe_rho
+            gx_ = gx_ + torch.where(in_range, (nvx[:, sl] - grid.vx) * scale_v,
+                                    0.0)
+            gy_ = gy_ + torch.where(in_range, (nvy[:, sl] - grid.vy) * scale_v,
+                                    0.0)
+
+            if surface_tension:
+                # self pair INCLUDED (pairs.color_field_* contract)
+                ok_st = nv[:, sl] & grid.valid & (r2 <= sq)
+                co_st = ok_st & (dst == 0.0)
+                sdx = torch.where(co_st, st_dir[..., 0], dirx)
+                sdy = torch.where(co_st, st_dir[..., 1], diry)
+                gxs, gys = kernels.poly6_gradient(h, sdx, sdy)
+                m_rho = mass / safe_rho
+                cgx = cgx + torch.where(ok_st, m_rho * gxs, 0.0)
+                cgy = cgy + torch.where(ok_st, m_rho * gys, 0.0)
+                lap = kernels.poly6_laplacian(h, dst)
+                clap = clap + torch.where(ok_st, m_rho * lap, 0.0)
+
+    if surface_tension:
+        # pairs.surface_tension composition (compute.wgsl:303-315)
+        n_len = torch.sqrt(cgx * cgx + cgy * cgy)
+        safe_len = torch.where(n_len == 0.0, 1.0, n_len)
+        k_st = (-clap) / (n_len + 1e-6)
+        coef = params.surface_tension_coefficient
+        apply_st = n_len > params.surface_tension_threshold
+        fx = fx + torch.where(apply_st, -coef * k_st * (cgx / safe_len), 0.0)
+        fy = fy + torch.where(apply_st, -coef * k_st * (cgy / safe_len), 0.0)
+
+    mu = params.viscosity_coefficient
+    return fx, fy, gx_ * mu, gy_ * mu
+
+
+def dense_neighbor_forces(pred_s, vel_s, sorted_cells, settings: SimSettings,
+                          params, norms, frame, pallas: bool = False,
+                          dims=None, **variant_kw):
+    """The dense pipeline on [N, 2] sorted arrays: (density [N],
+    pressure force [N, 2], viscosity force [N, 2], n_dropped)."""
+    d, fpx, fpy, fvx, fvy, nd = dense_forces_cols(
+        pred_s[:, 0], pred_s[:, 1], vel_s[:, 0], vel_s[:, 1], sorted_cells,
+        settings, params, norms, frame, pallas=pallas, dims=dims,
+        **variant_kw)
+    return d, torch.stack([fpx, fpy], -1), torch.stack([fvx, fvy], -1), nd
+
+
+def dense_forces_cols(pxs, pys, vxs, vys, sorted_cells,
+                      settings: SimSettings, params, norms, frame,
+                      pallas: bool = False, dims=None,
+                      surface_tension: bool = False,
+                      adaptive_subsampling: bool = False, passes=None):
+    """The dense pipeline on sorted columns: build the slot grid, density
+    (floored at EPSILON and 0.1), forces, and read each particle's values
+    back from its slot. ``pallas=True`` runs the two passes through
+    ``ops.sph`` (the CUDA kernels on a CUDA device); ``passes``, a
+    (density, forces) pair of the same signatures, replaces them. Returns
+    (density, f_pressure_x, f_pressure_y, f_visc_x, f_visc_y, n_dropped),
+    each [N]."""
+    from . import sph
+
+    if passes is None:
+        passes = ((sph.density, sph.forces) if pallas
+                  else (density_pass, force_pass))
+    density_fn, forces_fn = passes
+    h = float(settings.smoothing_radius)
+    grid = build_grid_cols(pxs, pys, vxs, vys, sorted_cells, settings,
+                           dims=dims)
+    dens_g = density_fn(grid, params.mass, h)
+    dens_g = torch.clamp(torch.clamp(dens_g, min=EPSILON), min=0.1)
+    args = (grid, dens_g, params, h, settings.sqr_radius,
+            norms.spiky_derivative, norms.viscosity, frame)
+    flags = dict(surface_tension=surface_tension,
+                 adaptive_subsampling=adaptive_subsampling)
+    fx, fy, gx_, gy_ = forces_fn(*args, **flags)
+
+    stack = torch.stack([a.reshape(-1) for a in (dens_g, fx, fy, gx_, gy_)],
+                        dim=1)
+    fill = torch.zeros((1, 5), dtype=torch.float32, device=stack.device)
+    fill[:, 0] = 0.1  # what a particle beyond capacity reads back
+    stack = torch.cat([stack, fill])
+    out = stack[torch.clamp(grid.flat, max=stack.shape[0] - 1)]
+    return (out[:, 0], out[:, 1], out[:, 2], out[:, 3], out[:, 4],
+            grid.n_dropped)

@@ -7,6 +7,7 @@ stays empty even when size/h divides exactly in f32.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -15,15 +16,23 @@ import torch
 from ..params import SimSettings
 
 
+@functools.lru_cache(maxsize=None)
+def _cell_consts(settings: SimSettings, device: torch.device):
+    """(half-bounds, h, lowest and highest interior cell) on ``device``,
+    made once: a host-to-device copy waits for the device's queue."""
+    half = torch.tensor(np.asarray(settings.size, np.float32) * np.float32(0.5),
+                        device=device)
+    h = torch.tensor(np.float32(settings.smoothing_radius), device=device)
+    lo = torch.ones(2, dtype=torch.int32, device=device)
+    hi = torch.tensor([settings.grid_w - 2, settings.grid_h - 2],
+                      dtype=torch.int32, device=device)
+    return half, h, lo, hi
+
+
 def cell_xy(point: torch.Tensor, settings: SimSettings) -> torch.Tensor:
     """Integer (x, y) cell coords of world points f32[..., 2] -> i32[..., 2]."""
-    half = torch.tensor(np.asarray(settings.size, np.float32) * np.float32(0.5),
-                        device=point.device)
-    h = torch.tensor(np.float32(settings.smoothing_radius), device=point.device)
+    half, h, lo, hi = _cell_consts(settings, point.device)
     xy = torch.floor((point + half) / h).to(torch.int32) + 1
-    lo = torch.ones(2, dtype=torch.int32, device=point.device)
-    hi = torch.tensor([settings.grid_w - 2, settings.grid_h - 2],
-                      dtype=torch.int32, device=point.device)
     return torch.minimum(torch.maximum(xy, lo), hi)
 
 
@@ -92,3 +101,9 @@ def point_windows(point_cells, cell_start, settings: SimSettings,
     valid = idx < end[..., None]
     idx = torch.minimum(idx, cs[-1] - 1).clamp(min=0)
     return NeighborWindows(idx=idx, valid=valid)
+
+
+def max_cell_occupancy(cell_start: torch.Tensor) -> torch.Tensor:
+    """The largest per-cell particle count (a diagnostic against
+    cell_capacity)."""
+    return (cell_start[1:] - cell_start[:-1]).max()

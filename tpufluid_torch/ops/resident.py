@@ -262,11 +262,14 @@ def make_grid_step(settings: SimSettings, far_capacity: int | None = None,
     if x_boundary not in ("bounce", "wrap"):
         raise ValueError(f"unknown x_boundary {x_boundary!r}")
     if x_boundary == "wrap":
-        _unported("x_boundary='wrap'", "queue 2, forces_integrate wrap_x")
+        _unported("x_boundary='wrap' in the resident engine",
+                  "queue 2 item 1, forces_integrate wrap_x")
     if surface_tension:
-        _unported("surface tension", "queue 2, forces_integrate surface_tension")
+        _unported("surface tension in the resident engine",
+                  "queue 2 item 1, forces_integrate surface_tension")
     if adaptive_subsampling:
-        _unported("adaptive subsampling", "queue 2, forces_integrate adaptive")
+        _unported("adaptive subsampling in the resident engine",
+                  "queue 2 item 1, forces_integrate adaptive")
     if n_worlds != 1:
         _unported("batched worlds", "queue 1, batched worlds")
     key = (settings, far_capacity, has_force_field)

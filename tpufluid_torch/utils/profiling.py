@@ -1,4 +1,5 @@
-"""Step timing (port of ``tpufluid.utils.profiling.StepTimer``)."""
+"""Step timing and the health snapshot (port of ``StepTimer`` and
+``health_check`` of ``tpufluid.utils.profiling``)."""
 
 from __future__ import annotations
 
@@ -45,3 +46,29 @@ class StepTimer:
         self._count = 0
         self._t0 = now
         return self.last_rate
+
+
+def health_check(state, settings) -> dict:
+    """Host-side snapshot of a ParticleState: NaN counts, particles out of
+    bounds, the peak cell occupancy against the capacity, the top speed.
+    Cells come from the predicted positions (a fresh state's ``cell`` is
+    all zeros). Reads the whole state back: not for the hot loop."""
+    from ..ops import grid as gridops
+
+    pos = state.position.detach().cpu().double()
+    vel = state.velocity.detach().cpu().double()
+    cells = gridops.cell_id(state.predicted, settings)
+    occ = int(gridops.max_cell_occupancy(
+        gridops.bin_particles(cells, settings).cell_start))
+    half = torch.tensor(settings.size, dtype=torch.float64) * 0.5
+    speed = torch.sqrt((vel * vel).sum(dim=1))
+    return dict(
+        nan_positions=int(torch.isnan(pos).sum()),
+        nan_velocities=int(torch.isnan(vel).sum()),
+        out_of_bounds=int((pos.abs() > half + 1e-4).any(dim=1).sum()),
+        max_cell_occupancy=occ,
+        cell_capacity=settings.cell_capacity,
+        capacity_exceeded=occ > settings.cell_capacity,
+        max_speed=float(speed.max()) if len(speed) else 0.0,
+        tick=int(state.tick),
+    )
