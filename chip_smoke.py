@@ -28,7 +28,23 @@ Builds the CUDA kernels from ``tpufluid_torch/csrc`` and runs, in order:
     with the launch counters reset just before it;
 12. engine parity on bench.py's parity scene (grid, dense and pallas, 10
     steps), and the CLI's default ``run`` (the dense engine) on the
-    reference's default scene for 64 steps.
+    reference's default scene for 64 steps;
+13. forces_integrate's variants against their plain versions, bitwise:
+    x wrap at scene_1m with movers across the x walls, surface tension at
+    scene_1m (and at h = 1.5, where it acts), adaptive subsampling on the
+    clumped K=16 state, timed; then 200 steps of
+    ``FluidApp(scene_1m, resident, wrap, surface tension, adaptive)``;
+14. BASELINE config 4 (eight 131,072-particle worlds stacked to
+    ``[544, 8, 512]``): rebin with row_shift, density and forces with wid
+    against their plain versions, bitwise, timed; 10 batched steps
+    against 8 single-world runs, bitwise; ms/step of
+    ``make_grid_multi_step(n_worlds=8)`` over 200 steps;
+15. the fused physics kernel against the split kernel pair, bitwise, at
+    scene_1m K=8 and K=32, on phase 4's K=192 grid, with has_ff, with the
+    three variant flags and with wid on config 4's stack; timed against
+    the pair; resident ms/step split vs fused at scene_1m;
+16. the CLI's ``run --neighbor-mode resident`` with ``--x-boundary wrap
+    --surface-tension --adaptive-subsampling`` on the default scene.
 
 Any failed phase raises and the script exits non-zero. Output: progress
 lines, then the card's name and power limit, then one JSON line of
@@ -67,6 +83,12 @@ PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 # (metaball_coarse: distance 5, scale 1, exp 1, sums 3)
 OPS = {"rebin": 14, "density": 18, "forces_integrate": 43,
        "metaball_coarse": 10}
+# forces_integrate's variants: f32 operations per live pair beyond the
+# base 43, counted from csrc/resident_math.cuh (surface tension: direction
+# 2, length 4, gradient weight 5, mass / rho 1, two gradient sums 6, the
+# Laplacian 6, its sum 3; adaptive: the stride factor's multiply). The
+# wrap changes only the per-particle wall test.
+OPS_VARIANT = {"wrap": 0, "surface_tension": 27, "adaptive": 1}
 # the dense engine's kernels, per (target, live candidate) pair of the 3x3
 # stencil: (the distance test, the rest of an in-range pair), counted from
 # csrc/sph_density.cu (test 6: 2 sub, 2 mul, add, compare; in range 6:
@@ -85,6 +107,8 @@ KERNELS = {
                 "tpufluid/ops/pallas/fused.py:627"),
     "forces_integrate": ("tpufluid_torch/csrc/forces.cu",
                          "tpufluid/ops/pallas/fused.py:1702"),
+    "physics": ("tpufluid_torch/csrc/physics.cu",
+                "tpufluid/ops/pallas/fused.py:1608"),
     "metaball_coarse": ("tpufluid_torch/csrc/metaball_coarse.cu",
                         "tpufluid/ops/pallas/render.py:103"),
     "sph_density": ("tpufluid_torch/csrc/sph_density.cu",
@@ -99,6 +123,12 @@ OBSTACLES_1M = [("circle", (0.0, 0.0), 6.0), ("circle", (-20.0, 10.0), 4.0),
                 ("circle", (15.0, -12.0), 3.0),
                 ("rect", (5.0, 20.0), (12.0, 5.0), 0.5)]
 CIRCLE_7 = (0.0, -20.0, 4.0)
+# BASELINE config 4 (bench.py): eight 128k worlds, gravity -linspace(0, 2),
+# viscosity linspace(5, 40)
+CONFIG4_WORLDS = 8
+# surface tension's parameters in the JAX package's tests
+ST_PARAMS = dict(surface_tension_threshold=0.05,
+                 surface_tension_coefficient=5.0)
 
 
 def log(msg: str) -> None:
@@ -141,14 +171,14 @@ def time_ms(fn, reps: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def seeded_state(settings, device):
+def seeded_state(settings, device, seed=SEED):
     """The spawn lattice with seeded random velocities, 256 far movers
     (up to 12 cells a step) and 256 coincident pairs."""
     from tpufluid_torch.state import init_state
 
     st = init_state(settings, "cpu")
     n = settings.particle_count
-    g = torch.Generator().manual_seed(SEED)
+    g = torch.Generator().manual_seed(seed)
     vel = torch.randn((n, 2), generator=g) * 2.0
     far = torch.randperm(n, generator=g)[:256]
     vel[far] = (torch.rand((256, 2), generator=g) * 2.0 - 1.0) * 300.0
@@ -817,6 +847,345 @@ def cli_default_run():
                 profile=profile_steps(app, 2, "CLI default dense"))
 
 
+# ------------------------------- the resident engine's rest (13-16)
+
+VARIANT_NAMES = {"x_boundary": "wrap", "surface_tension": "surface_tension",
+                 "adaptive_subsampling": "adaptive"}
+
+
+def timed_pair(kern, plain, plain_reps=3):
+    """(kernel ms, plain ms, the four readings) in the order plain,
+    kernel, kernel, plain."""
+    p1 = time_ms(plain, plain_reps, warm=1)
+    k1 = time_ms(kern, 50)
+    k2 = time_ms(kern, 50)
+    p2 = time_ms(plain, plain_reps, warm=0)
+    return (k1 + k2) / 2, (p1 + p2) / 2, (k1, k2, p1, p2)
+
+
+def bitwise(got, want, what) -> None:
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: output {i} differs in "
+                                 f"{int((a != b).sum())} elements")
+
+
+def wall_state(settings, device):
+    """The seeded state with every particle within 0.85 of an x wall (at
+    scene_1m the lattice's three outer columns, six particles a cell)
+    moved to 0.05 from it and
+    moving out at 60 (half a unit a step): each stays in its cell (the
+    rebin keeps it) and crosses the wall in the move."""
+    st = seeded_state(settings, device)
+    pos, vel = st.position.clone(), st.velocity.clone()
+    half = settings.size[0] / 2
+    edge = pos[:, 0].abs() > half - 0.85
+    side = torch.sign(pos[edge, 0])
+    pos[edge, 0] = side * (half - 0.05)
+    vel[edge, 0] = side * 60.0
+    return dataclasses.replace(st, position=pos, predicted=pos.clone(),
+                               velocity=vel), int(edge.sum())
+
+
+def rebinned(gs, settings, params, **kw):
+    """The kernel rebin's grids (pos_x, pos_y, vel_x, vel_y, occ_row) of a
+    GridState."""
+    from tpufluid_torch.ops import fused
+
+    return fused.rebin(gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, gs.occ_row,
+                       params.delta, settings, **kw)[:5]
+
+
+def compare_variant(gs, settings, params, flags, label, timed=True):
+    """forces_integrate with variant flags against its plain version,
+    bitwise, then timed; the bound adds the variant's operations."""
+    from tpufluid_torch.ops import fused
+
+    px, py, vx, vy, occ = rebinned(gs, settings, params)
+    pres, invr = fused.density(px, py, vx, vy, occ, params.mass,
+                               params.delta, params.pressure_constant,
+                               params.rest_density, settings)
+    fargs = (px, py, vx, vy, pres, invr, occ, params, settings, gs.tick + 1)
+    torch.use_deterministic_algorithms(True)
+    got = fused.forces_integrate(*fargs, **flags)
+    want = fused.forces_integrate_plain(*fargs, **flags)
+    torch.use_deterministic_algorithms(False)
+    bitwise(got, want, f"{label} forces_integrate {flags}")
+    base = fused.forces_integrate(*fargs)
+    live = px < fused.SENTINEL_HALF
+    rho = 1.0 / invr[live]
+    res = dict(
+        max_abs_err=0.0, grid=list(px.shape),
+        changed=int((((got[2] != base[2]) | (got[3] != base[3])) & live)
+                    .sum()),
+        wrapped=int(((got[0] * base[0] < 0) & live).sum()),
+        rho_max=float(rho.max()), rho_150_200=int(
+            ((rho >= 150.0) & (rho < 200.0)).sum()),
+        rho_200=int((rho >= 200.0).sum()))
+    if timed:
+        pairs = stencil_pairs(px)
+        extra = sum(OPS_VARIANT[VARIANT_NAMES[f]] for f in flags)
+        res["bound_ms"], res["bound_by"] = bound(
+            10 * grid_bytes(px), (OPS["forces_integrate"] + extra) * pairs)
+        res["ms"], res["plain_ms"], raw = timed_pair(
+            lambda: fused.forces_integrate(*fargs, **flags),
+            lambda: fused.forces_integrate_plain(*fargs, **flags))
+        res["library_ms"] = None
+        times = (f"; kernel {res['ms']:.4f} ms ({raw[0]:.4f}, {raw[1]:.4f}), "
+                 f"plain {res['plain_ms']:.3f} ms ({raw[2]:.3f}, "
+                 f"{raw[3]:.3f}), bound {res['bound_ms']:.4f} ms "
+                 f"({res['bound_by']})")
+    else:
+        times = ""
+    log(f"{label} forces_integrate {flags} {tuple(px.shape)}: bitwise equal "
+        f"to plain; the flag changes the velocity of {res['changed']} live "
+        f"slots ({res['wrapped']} wrapped); rho max {res['rho_max']:.1f}, "
+        f"{res['rho_150_200']} in [150, 200), {res['rho_200']} >= 200"
+        + times)
+    return res
+
+
+def stacked(worlds):
+    """One row stack of single-world GridStates."""
+    from tpufluid_torch.ops import resident
+
+    cat = lambda f: torch.cat([getattr(w, f) for w in worlds]).contiguous()
+    return resident.GridState(
+        pos_x=cat("pos_x"), pos_y=cat("pos_y"), vel_x=cat("vel_x"),
+        vel_y=cat("vel_y"), occ_row=cat("occ_row"), tick=worlds[0].tick,
+        lost=worlds[0].lost)
+
+
+def config4(dev):
+    """BASELINE config 4's settings and per-world params (bench.py)."""
+    import numpy as np
+    import tpufluid_torch as tt
+
+    bs = tt.SimSettings(particle_count=131072, particle_spacing=0.1,
+                        smoothing_radius=0.2, size=(101.95, 13.1),
+                        cell_capacity=8, spawn_columns=1008)
+    plist = [tt.TickParams.default(dev, gravity=(0.0, -float(g)),
+                                   viscosity_coefficient=float(v))
+             for g, v in zip(np.linspace(0.0, 2.0, CONFIG4_WORLDS),
+                             np.linspace(5.0, 40.0, CONFIG4_WORLDS))]
+    return bs, plist
+
+
+def compare_batched(bs, bp, dev):
+    """rebin (row_shift), density and forces_integrate (wid) against their
+    plain versions on config 4's stack of seeded worlds, bitwise, timed.
+    Returns (results, the rebinned stack, wid)."""
+    from tpufluid_torch.ops import fused, resident
+
+    gs = stacked([resident.from_particles(seeded_state(bs, dev, SEED + w),
+                                          bs)
+                  for w in range(CONFIG4_WORLDS)])
+    rows = resident._rows(bs)
+    wid = torch.arange(CONFIG4_WORLDS, dtype=torch.int32,
+                       device=dev).repeat_interleave(rows)
+    shift = -(wid * rows)
+    rargs = (gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, gs.occ_row, bp.delta, bs)
+    torch.use_deterministic_algorithms(True)
+    got = fused.rebin(*rargs, row_shift=shift)
+    bitwise(got, fused.rebin_plain(*rargs, row_shift=shift),
+            "config 4 rebin row_shift")
+    px, py, vx, vy, occ = got[:5]
+    dargs = (px, py, vx, vy, occ, bp.mass, bp.delta, bp.pressure_constant,
+             bp.rest_density, bs)
+    pres, invr = fused.density(*dargs, wid=wid)
+    bitwise((pres, invr), fused.density_plain(*dargs, wid=wid),
+            "config 4 density wid")
+    fargs = (px, py, vx, vy, pres, invr, occ, bp, bs, gs.tick + 1)
+    new = fused.forces_integrate(*fargs, wid=wid)
+    bitwise(new, fused.forces_integrate_plain(*fargs, wid=wid),
+            "config 4 forces_integrate wid")
+    torch.use_deterministic_algorithms(False)
+    g = grid_bytes(px)
+    n_live = float(live_per_cell(gs.pos_x).sum())
+    pairs = stencil_pairs(px)
+    calls = {
+        "rebin": (8 * g + 4 * rows * CONFIG4_WORLDS, OPS["rebin"] * n_live,
+                  lambda: fused.rebin(*rargs, row_shift=shift),
+                  lambda: fused.rebin_plain(*rargs, row_shift=shift)),
+        "density": (6 * g + 4 * rows * CONFIG4_WORLDS,
+                    OPS["density"] * pairs,
+                    lambda: fused.density(*dargs, wid=wid),
+                    lambda: fused.density_plain(*dargs, wid=wid)),
+        "forces_integrate": (10 * g + 4 * rows * CONFIG4_WORLDS,
+                             OPS["forces_integrate"] * pairs,
+                             lambda: fused.forces_integrate(*fargs, wid=wid),
+                             lambda: fused.forces_integrate_plain(*fargs,
+                                                                  wid=wid)),
+    }
+    out = {}
+    for name, (n_bytes, n_ops, kern, plain) in calls.items():
+        b_ms, b_by = bound(n_bytes, n_ops)
+        ms, plain_ms, raw = timed_pair(kern, plain, 2)
+        out[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        log(f"config 4 {name} ({'row_shift' if name == 'rebin' else 'wid'}, "
+            f"{tuple(px.shape)}): bitwise equal to plain; kernel {ms:.4f} ms "
+            f"({raw[0]:.4f}, {raw[1]:.4f}), plain {plain_ms:.3f} ms "
+            f"({raw[2]:.3f}, {raw[3]:.3f}), bound {b_ms:.4f} ms ({b_by})")
+    log(f"config 4 stack: {n_live:.0f} live particles, {pairs:.4e} stencil "
+        f"pairs, far movers {int(got[5].sum())}, over {int(got[6].sum())}")
+    return out, (px, py, vx, vy, occ, gs.tick + 1), wid
+
+
+def batched_vs_single(bs, plist, bp, dev, n_steps: int) -> None:
+    """``n_steps`` batched steps against the same steps of each world on
+    its own, bitwise world by world."""
+    from tpufluid_torch.ops import resident
+
+    gs = resident.init_batched_grid_state(bs, CONFIG4_WORLDS, dev)
+    bstep = resident.make_grid_step(bs, n_worlds=CONFIG4_WORLDS)
+    for _ in range(n_steps):
+        gs = bstep(gs, bp)
+    single = resident.make_grid_step(bs)
+    for w, p in enumerate(plist):
+        ref = resident.init_grid_state(bs, dev)
+        for _ in range(n_steps):
+            ref = single(ref, p)
+        got = resident.world_state(gs, bs, w)
+        for f in ("pos_x", "pos_y", "vel_x", "vel_y", "occ_row"):
+            if not torch.equal(getattr(got, f), getattr(ref, f)):
+                raise AssertionError(f"config 4 world {w}: {f} differs from "
+                                     f"the single-world run")
+    log(f"config 4: {n_steps} batched steps bitwise equal, world by world, "
+        f"to {CONFIG4_WORLDS} single-world runs (lost {int(gs.lost)})")
+
+
+def loss_probe(bs, bp, dev, marks=(28, 41, 70)):
+    """The batched stack's cumulative lost count at steps ``marks`` from
+    the spawn lattice (BASELINE.md records 13-15 drops for the JAX engine
+    over 70 steps, in steps 28-41)."""
+    from tpufluid_torch.ops import resident
+
+    step = resident.make_grid_step(bs, n_worlds=CONFIG4_WORLDS)
+    gs = resident.init_batched_grid_state(bs, CONFIG4_WORLDS, dev)
+    out = {}
+    for i in range(1, max(marks) + 1):
+        gs = step(gs, bp)
+        if i in marks:
+            out[i] = int(gs.lost)
+    log(f"config 4 lost from the spawn lattice at steps {out}")
+    return out
+
+
+def compare_physics(grids, settings, params, label, ff_cells=None,
+                    wid=None, plain=True, **flags):
+    """The physics kernel against the split kernel pair (and against
+    physics_plain), bitwise."""
+    from tpufluid_torch.ops import fused
+
+    px, py, vx, vy, occ, frame = grids
+    got = fused.physics(px, py, vx, vy, occ, params, settings, frame,
+                        ff_cells=ff_cells, wid=wid, **flags)
+    pres, invr = fused.density(px, py, vx, vy, occ, params.mass,
+                               params.delta, params.pressure_constant,
+                               params.rest_density, settings, wid=wid)
+    split = fused.forces_integrate(px, py, vx, vy, pres, invr, occ, params,
+                                   settings, frame, ff_cells=ff_cells,
+                                   wid=wid, **flags)
+    bitwise(got, split, f"{label} physics vs split")
+    if plain:
+        torch.use_deterministic_algorithms(True)
+        bitwise(got, fused.physics_plain(px, py, vx, vy, occ, params,
+                                         settings, frame, ff_cells=ff_cells,
+                                         wid=wid, **flags),
+                f"{label} physics vs plain")
+        torch.use_deterministic_algorithms(False)
+    rows, cols = fused.physics_tile(px.shape[1])
+    log(f"{label} physics {tuple(px.shape)} (tile {rows} x {cols}, "
+        f"{fused.physics_smem_bytes(px.shape[1], rows, cols)} B shared) "
+        f"{'has_ff ' if ff_cells is not None else ''}"
+        f"{'wid ' if wid is not None else ''}{flags or ''}: bitwise equal "
+        f"to the split pair{' and to plain' if plain else ''}")
+    return got
+
+
+def time_physics(grids, settings, params):
+    """The physics kernel, its plain version and the split kernel pair,
+    in turns (plain, kernel, split, kernel, split, plain)."""
+    from tpufluid_torch.ops import fused
+
+    px, py, vx, vy, occ, frame = grids
+    kern = lambda: fused.physics(px, py, vx, vy, occ, params, settings, frame)
+    plain = lambda: fused.physics_plain(px, py, vx, vy, occ, params,
+                                        settings, frame)
+
+    def split():
+        pres, invr = fused.density(px, py, vx, vy, occ, params.mass,
+                                   params.delta, params.pressure_constant,
+                                   params.rest_density, settings)
+        fused.forces_integrate(px, py, vx, vy, pres, invr, occ, params,
+                               settings, frame)
+
+    p1 = time_ms(plain, 2, warm=1)
+    k1, s1 = time_ms(kern, 50), time_ms(split, 50)
+    k2, s2 = time_ms(kern, 50), time_ms(split, 50)
+    p2 = time_ms(plain, 2, warm=0)
+    g = grid_bytes(px)
+    pairs = stencil_pairs(px)
+    b_ms, b_by = bound(8 * g, (OPS["density"] + OPS["forces_integrate"])
+                       * pairs)
+    res = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+               split_ms=(s1 + s2) / 2, bound_ms=b_ms, bound_by=b_by,
+               library_ms=None, max_abs_err=0.0)
+    log(f"scene_1m K={px.shape[1]} physics: kernel {res['ms']:.4f} ms "
+        f"({k1:.4f}, {k2:.4f}), split pair {res['split_ms']:.4f} ms "
+        f"({s1:.4f}, {s2:.4f}), plain {res['plain_ms']:.3f} ms ({p1:.3f}, "
+        f"{p2:.3f}), bound {b_ms:.4f} ms ({b_by})")
+    return res
+
+
+def resident_run(settings, params, fused_physics: bool, n_steps: int, dev):
+    """ms/step of ``make_grid_multi_step`` from the spawn lattice (CUDA
+    events, after a 20-step warm-up), the launches and the end state,
+    with the split pair or the fused physics kernel."""
+    from tpufluid_torch.ops import resident
+
+    os.environ["TPUFLUID_FUSED_PHYSICS"] = "1" if fused_physics else ""
+    try:
+        warm = resident.make_grid_multi_step(settings, 20)
+        run = resident.make_grid_multi_step(settings, n_steps)
+        gs = resident.init_grid_state(settings, dev)
+        warm(gs, params)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        reset_counts()
+        start.record()
+        out = run(gs, params)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n_steps, read_counts(), out
+    finally:
+        os.environ.pop("TPUFLUID_FUSED_PHYSICS")
+
+
+def cli_variant_run():
+    """``python -m tpufluid_torch run --neighbor-mode resident`` with the
+    three variant flags on the default scene, 64 steps, in its own
+    process: it must exit 0."""
+    args = [sys.executable, "-m", "tpufluid_torch", "run", "--device", "cuda",
+            "--neighbor-mode", "resident", "--x-boundary", "wrap",
+            "--surface-tension", "--adaptive-subsampling", "--steps", "64",
+            "--report-every", "32"]
+    t0 = time.perf_counter()
+    out = subprocess.run(args, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    tail = (out.stdout + out.stderr).strip().splitlines()[-3:]
+    log(f"CLI run --neighbor-mode resident --x-boundary wrap "
+        f"--surface-tension --adaptive-subsampling (default scene, 64 "
+        f"steps): exit {out.returncode}, wall {wall:.2f} s; "
+        + " | ".join(tail))
+    if out.returncode != 0 or "done: 64 steps" not in out.stdout:
+        raise AssertionError(f"CLI variant run: exit {out.returncode}\n"
+                             f"{out.stdout}\n{out.stderr}")
+    return dict(exit=out.returncode, wall_s=wall)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -886,9 +1255,8 @@ def main() -> int:
     if not (m["tick"] == 200 and m["lost_particles"] == 0
             and n_live == s8.particle_count and finite):
         raise AssertionError(f"scene_1m run failed: {m}, live {n_live}")
-    if launches != {"rebin": 200, "density": 200, "forces_integrate": 200,
-                    "forces_integrate_has_ff": 0, "metaball_coarse": 0,
-                    "sph_density": 0, "sph_forces": 0}:
+    if launches != {**dict.fromkeys(launches, 0), "rebin": 200,
+                    "density": 200, "forces_integrate": 200}:
         raise AssertionError(f"kernel launches in the run: {launches}")
 
     # 4. the reference's default scene through the CLI's run path
@@ -919,6 +1287,7 @@ def main() -> int:
         app100.grid_state, app100.settings,
         f"default scene after 512 steps (K={app100.settings.cell_capacity})",
         1)
+    gs192, s192 = app100.grid_state, app100.settings  # phase 15
     del app100
 
     # 6. the obstacle variant: forces_integrate with ff_cells at scene_1m,
@@ -1000,9 +1369,8 @@ def main() -> int:
     if not (m["tick"] == 200 and finite and m["nan_positions"] == 0
             and not m["capacity_exceeded"]):
         raise AssertionError(f"scene_1m pallas run failed: {m}")
-    if p_launches != {"rebin": 0, "density": 0, "forces_integrate": 0,
-                      "forces_integrate_has_ff": 0, "metaball_coarse": 0,
-                      "sph_density": 200, "sph_forces": 200}:
+    if p_launches != {**dict.fromkeys(p_launches, 0), "sph_density": 200,
+                      "sph_forces": 200}:
         raise AssertionError(f"pallas run launches: {p_launches}")
     pallas_prof = profile_steps(papp, 16, "scene_1m pallas")
     del papp
@@ -1010,6 +1378,154 @@ def main() -> int:
     # 12. engine parity, and the CLI's default run (the dense engine)
     parity = engine_parity(dev)
     cli_res = cli_default_run()
+
+    # 13. forces_integrate's variants at scene_1m, then the app with all
+    # three
+    variants = {}
+    wst, n_edge = wall_state(s8, dev)
+    log(f"scene_1m wall movers: {n_edge} particles at 0.05 from an x wall "
+        f"moving out at 60")
+    variants["wrap"] = compare_variant(
+        resident.from_particles(wst, s8), s8, scene.params,
+        dict(x_boundary="wrap"), "scene_1m K=8")
+    if variants["wrap"]["wrapped"] < n_edge // 2:
+        raise AssertionError(f"wrap: {variants['wrap']['wrapped']} wrapped")
+    p_st = tt.TickParams.default(dev, **ST_PARAMS)
+    variants["surface_tension"] = compare_variant(
+        resident.from_particles(seeded_state(s8, dev), s8), s8, p_st,
+        dict(surface_tension=True), "scene_1m K=8")
+    st_acts = compare_variant(
+        resident.from_particles(seeded_state(s_st, dev), s_st), s_st, p_st,
+        dict(surface_tension=True), "h=1.5 65536", timed=False)
+    if st_acts["changed"] < 1000:
+        raise AssertionError(f"surface tension at h 1.5: {st_acts}")
+    variants["adaptive"] = compare_variant(
+        resident.from_particles(clumped_state(s16, dev), s16), s16,
+        scene.params, dict(adaptive_subsampling=True), "scene_1m clump K=16")
+    if not (variants["adaptive"]["rho_200"] > 0
+            and variants["adaptive"]["rho_150_200"] > 0
+            and variants["adaptive"]["changed"] > 0):
+        raise AssertionError(f"adaptive: {variants['adaptive']}")
+    vkw = dict(x_boundary="wrap", surface_tension=True,
+               adaptive_subsampling=True)
+    vapp = FluidApp(s8, tt.TickParams.default(dev, **ST_PARAMS), device=dev,
+                    neighbor_mode="resident", **vkw)
+    vapp.run(16)
+    vstep = resident.make_grid_step(vapp.settings, **vkw)
+    far0 = vstep.far_steps
+    torch.cuda.synchronize()
+    reset_counts()
+    start.record()
+    vapp.run(200)
+    end.record()
+    torch.cuda.synchronize()
+    v_launches = read_counts()
+    ms_variants = start.elapsed_time(end) / 200
+    far_steps = vstep.far_steps - far0
+    m = vapp.metrics()
+    ps, live = resident.to_particles(vapp.grid_state, vapp.settings)
+    finite = bool(torch.isfinite(ps.position[:int(live)]).all()
+                  and torch.isfinite(ps.velocity[:int(live)]).all())
+    log(f"scene_1m FluidApp(resident, wrap, surface tension, adaptive).run("
+        f"200) after 16: tick {m['tick']}, lost {m['lost_particles']}, live "
+        f"{int(live)}, finite {finite}, K {m['cell_capacity']}, far-mover "
+        f"path in {far_steps} of 200 steps; {ms_variants:.4f} ms/step (CUDA "
+        f"events; {card}); launches {v_launches}")
+    if not (m["tick"] == 216 and finite
+            and v_launches == {**dict.fromkeys(v_launches, 0),
+                               **dict.fromkeys(
+                                   ("rebin", "density", "forces_integrate",
+                                    "forces_integrate_wrap",
+                                    "forces_integrate_surface_tension",
+                                    "forces_integrate_adaptive"), 200)}):
+        raise AssertionError(f"variant run: {m}, launches {v_launches}")
+    del vapp
+
+    # 14. BASELINE config 4: eight 128k worlds in one row stack
+    bs, plist = config4(dev)
+    bp = resident.batched_params(plist)
+    batched, c4_grids, c4_wid = compare_batched(bs, bp, dev)
+    batched_vs_single(bs, plist, bp, dev, 10)
+    c4_lost = loss_probe(bs, bp, dev)
+    warm = resident.make_grid_multi_step(bs, 20, n_worlds=CONFIG4_WORLDS)
+    brun = resident.make_grid_multi_step(bs, 200, n_worlds=CONFIG4_WORLDS)
+    gsb = resident.init_batched_grid_state(bs, CONFIG4_WORLDS, dev)
+    if tuple(gsb.pos_x.shape) != (544, 8, 512):
+        raise AssertionError(f"config 4 stack {tuple(gsb.pos_x.shape)}")
+    warm(gsb, bp)
+    bfar0 = brun.step.far_steps
+    torch.cuda.synchronize()
+    reset_counts()
+    start.record()
+    gsb = brun(gsb, bp)
+    end.record()
+    torch.cuda.synchronize()
+    b_launches = read_counts()
+    ms_c4 = start.elapsed_time(end) / 200
+    c4_stats = resident.batched_world_stats(gsb, bs, CONFIG4_WORLDS)
+    c4_finite = bool(torch.isfinite(
+        gsb.pos_x[gsb.pos_x < 5e8]).all())
+    log(f"config 4 (8 x 131072, [544, 8, 512]): {ms_c4:.4f} ms/step, "
+        f"{1e3 * CONFIG4_WORLDS * bs.particle_count / ms_c4:.4e} "
+        f"particle-steps/s (CUDA events over 200 steps after a 20-step "
+        f"warm-up; {card}); lost {int(gsb.lost)}, far-mover path in "
+        f"{brun.step.far_steps - bfar0} steps, finite {c4_finite}; world "
+        f"stats {c4_stats}; launches {b_launches}")
+    if not (c4_finite and b_launches == {
+            **dict.fromkeys(b_launches, 0), **dict.fromkeys(
+                ("rebin", "rebin_row_shift", "density", "density_wid",
+                 "forces_integrate", "forces_integrate_wid"), 200)}):
+        raise AssertionError(f"config 4 run: launches {b_launches}")
+
+    # 15. the fused physics kernel against the split pair
+    from tpufluid_torch.ops import forcefield
+    g8 = resident.from_particles(seeded_state(s8, dev), s8)
+    grids8 = (*rebinned(g8, s8, scene.params), g8.tick + 1)
+    compare_physics(grids8, s8, scene.params, "scene_1m K=8")
+    g32 = resident.from_particles(seeded_state(s32, dev), s32)
+    compare_physics((*rebinned(g32, s32, scene.params), g32.tick + 1), s32,
+                    scene.params, "scene_1m K=32")
+    compare_physics((gs192.pos_x, gs192.pos_y, gs192.vel_x, gs192.vel_y,
+                     gs192.occ_row, gs192.tick + 1), s192,
+                    tt.TickParams.default(dev, gravity=(0.0, -9.8)),
+                    "default scene after 512 steps", plain=False)
+    del gs192
+    field = forcefield.obstacle_force_field(
+        forcefield.Objects.from_list(OBSTACLES_1M, dev), s8)
+    compare_physics(grids8, s8, scene.params, "scene_1m K=8",
+                    ff_cells=resident.forcefield_cells(field, s8))
+    del field
+    gcl = resident.from_particles(clumped_state(s16, dev), s16)
+    compare_physics((*rebinned(gcl, s16, p_st), gcl.tick + 1), s16, p_st,
+                    "scene_1m clump K=16", **vkw)
+    compare_physics(c4_grids, bs, bp, "config 4", wid=c4_wid)
+    physics_res = time_physics(grids8, s8, scene.params)
+    ms_split1, l_split, end_split = resident_run(s8, scene.params, False,
+                                                 200, dev)
+    ms_fused1, l_fused, end_fused = resident_run(s8, scene.params, True,
+                                                 200, dev)
+    ms_fused2, _, _ = resident_run(s8, scene.params, True, 200, dev)
+    ms_split2, _, _ = resident_run(s8, scene.params, False, 200, dev)
+    for f in ("pos_x", "pos_y", "vel_x", "vel_y", "occ_row", "lost"):
+        if not torch.equal(getattr(end_split, f), getattr(end_fused, f)):
+            raise AssertionError(f"resident run: split and fused {f} differ")
+    if not (l_fused == {**dict.fromkeys(l_fused, 0), "rebin": 200,
+                        "physics": 200}
+            and l_split["physics"] == 0 and l_split["density"] == 200):
+        raise AssertionError(f"physics launches: split {l_split}, fused "
+                             f"{l_fused}")
+    resident_physics = dict(split_ms_per_step=(ms_split1 + ms_split2) / 2,
+                            fused_ms_per_step=(ms_fused1 + ms_fused2) / 2,
+                            readings=[ms_split1, ms_fused1, ms_fused2,
+                                      ms_split2])
+    log(f"scene_1m resident 200 steps from the lattice: split "
+        f"{resident_physics['split_ms_per_step']:.4f} ms/step ({ms_split1:.4f},"
+        f" {ms_split2:.4f}), fused physics "
+        f"{resident_physics['fused_ms_per_step']:.4f} ({ms_fused1:.4f}, "
+        f"{ms_fused2:.4f}); end states bitwise equal ({card})")
+
+    # 16. the CLI with the resident engine's variant flags
+    cli_variants = cli_variant_run()
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -1020,6 +1536,10 @@ def main() -> int:
                                    "bound_ms", "bound_by")},
                 library_ms=None, k32=coarse["scene_1m K=32"],
                 default_scene=coarse["default scene"])
+        elif name == "physics":
+            entry = dict(launches=l_fused["physics"],
+                         split_path_launches=l_split["physics"],
+                         **physics_res)
         elif name.startswith("sph_"):
             entry = dict(launches=p_launches[name],
                          resident_path_launches=launches[name],
@@ -1039,10 +1559,17 @@ def main() -> int:
             entry["has_ff"] = dict(
                 launches=render_launches["forces_integrate_has_ff"],
                 **has_ff)
+            for v, vres in variants.items():
+                entry[v] = dict(launches=v_launches[f"forces_integrate_{v}"],
+                                **vres)
+        if name in ("rebin", "density", "forces_integrate"):
+            key = {"rebin": "row_shift"}.get(name, "wid")
+            entry[key] = dict(launches=b_launches[f"{name}_{key}"],
+                              grid=[544, 8, 512], **batched[name])
         if name == "sph_forces":
             entry["surface_tension"] = st_res[name]
             entry["adaptive"] = ad_res[name]
-        entry["pallas_path_launches"] = p_launches[name]
+        entry["pallas_path_launches"] = p_launches.get(name, 0)
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, **entry))
     print(card)
@@ -1050,7 +1577,14 @@ def main() -> int:
                       "pallas_ms_per_step": ms_pallas,
                       "pallas_profile": pallas_prof, "render": render_res,
                       "frame": frame, "parity": parity,
-                      "cli_default": cli_res}))
+                      "cli_default": cli_res,
+                      "variants_ms_per_step": ms_variants,
+                      "variants_far_steps": far_steps,
+                      "config4": dict(ms_per_step=ms_c4, lost=int(gsb.lost),
+                                      lost_at_step=c4_lost,
+                                      world_stats=c4_stats),
+                      "resident_physics": resident_physics,
+                      "cli_variants": cli_variants}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

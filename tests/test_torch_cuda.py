@@ -1,5 +1,6 @@
 """PyTorch port on the card: each CUDA kernel (the resident engine's three,
-forces with an obstacle field, the metaball coarse fields, the dense
+forces with an obstacle field and the other variant flags, batched world
+stacks, the fused physics pass, the metaball coarse fields, the dense
 engine's density and forces with both variant flags) against its plain
 PyTorch version on the same CUDA tensors, and the kernel step against the
 plain step. Marked ``cuda``; every test skips without a CUDA device. This
@@ -12,7 +13,10 @@ bounds (|drho| <= 9.2e-5, |dpos| <= 4.8e-7, |dvel| <= 3.8e-5, relative
 where the value exceeds 1) on live slots, with dead slots exact; the
 metaball fields within 1e-5 * max(1, |plain|). The dense engine's grids
 are compared whole: density within 9.2e-5, forces as the velocity
-increment f * dt / rho within 3.8e-5 (see tests/test_torch_sph.py).
+increment f * dt / rho within 3.8e-5 (see tests/test_torch_sph.py). The
+resident engine's variants, its batched stacks and the physics pass are
+held bitwise: to their plain versions, the physics kernel to the split
+kernel pair, a batched step to the single-world steps.
 """
 
 import dataclasses
@@ -89,9 +93,9 @@ def test_kernels_match_plain(cuda, k):
         assert torch.equal(a[~live], b[~live])
     torch.cuda.synchronize()
     after = {**fused.LAUNCHES, **sph.LAUNCHES}
-    assert {n: after[n] - before[n] for n in before} == {
-        "rebin": 1, "density": 1, "forces_integrate": 1,
-        "forces_integrate_has_ff": 0, "sph_density": 0, "sph_forces": 0}
+    want = dict.fromkeys(before, 0)
+    want.update(rebin=1, density=1, forces_integrate=1)
+    assert {n: after[n] - before[n] for n in before} == want
 
 
 def test_kernel_step_matches_plain_step(cuda):
@@ -258,3 +262,188 @@ def test_sph_kernels_match_plain(cuda, case):
         assert not torch.equal(want[0][g.valid], base[0][g.valid])
     if case == "adaptive_subsampling":
         assert float(d[g.valid].max()) > 200.0
+
+
+# ------------------------------------------- resident variants, batching
+
+VARIANTS = {"wrap": dict(x_boundary="wrap"),
+            "surface_tension": dict(surface_tension=True),
+            "adaptive": dict(adaptive_subsampling=True),
+            "all": dict(x_boundary="wrap", surface_tension=True,
+                        adaptive_subsampling=True)}
+
+
+def _variant_case(cuda, k, seed=11):
+    """h 1.5 (surface tension acts above h 1), mass 60 (densities past the
+    adaptive strides' 150 and 200), movers out across the x walls, far
+    movers and coincident pairs; rebinned. (settings, params, grids)."""
+    s = tt.SimSettings(particle_count=2400, particle_spacing=0.75,
+                       smoothing_radius=1.5, size=(48.0, 40.0),
+                       cell_capacity=k)
+    p = tt.TickParams.default(cuda, gravity=(0.0, -9.8), mass=60.0,
+                              surface_tension_threshold=0.05,
+                              surface_tension_coefficient=5.0)
+    gs = _state(s, cuda, seed)
+    rng = np.random.default_rng(seed)
+    st, _ = resident.to_particles(gs, s)
+    pos, vel = st.position.cpu().numpy(), st.velocity.cpu().numpy()
+    side = np.where(np.arange(40) % 2 == 0, 1.0, -1.0)
+    pos[60:100, 0] = side * 23.99
+    vel[60:100, 0] = side * rng.uniform(3.0, 9.0, 40)
+    st.position = torch.from_numpy(pos).to(cuda)
+    st.predicted = st.position.clone()
+    st.velocity = torch.from_numpy(vel).to(cuda)
+    gs = resident.from_particles(st, s)
+    out = fused.rebin(gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, gs.occ_row,
+                      p.delta, s)
+    return s, p, gs.tick + 1, out[:5]
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_forces_variants_match_plain(cuda, variant):
+    """forces_integrate with each variant flag (and all three) against its
+    plain version, bitwise, and the launch counted under the variant."""
+    kw = VARIANTS[variant]
+    s, p, frame, (px, py, vx, vy, occ) = _variant_case(cuda, 16)
+    pres, invr = fused.density(px, py, vx, vy, occ, p.mass, p.delta,
+                               p.pressure_constant, p.rest_density, s)
+    fargs = (px, py, vx, vy, pres, invr, occ, p, s, frame)
+    before = dict(fused.LAUNCHES)
+    got = fused.forces_integrate(*fargs, **kw)
+    want = fused.forces_integrate_plain(*fargs, **kw)
+    base = fused.forces_integrate(*fargs)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    live = px < fused.SENTINEL_HALF
+    assert int(((got[2] != base[2]) & live).sum()) > 0
+    rho = 1.0 / invr[live]
+    assert bool((rho >= 200.0).any()) and bool(
+        ((rho >= 150.0) & (rho < 200.0)).any())
+    names = {"x_boundary": "wrap", "surface_tension": "surface_tension",
+             "adaptive_subsampling": "adaptive"}
+    for flag, name in names.items():
+        n = fused.LAUNCHES[f"forces_integrate_{name}"]
+        assert n == before[f"forces_integrate_{name}"] + (flag in kw)
+
+
+def _stack(cuda, n_worlds):
+    """A batched stack of the seeded grid, each world's velocities scaled
+    by its own factor, with per-world gravity and viscosity."""
+    s = tt.SimSettings(particle_count=3000, size=(9.0, 8.0), cell_capacity=8)
+    gs = _state(s, cuda, 3)
+    rows = gs.pos_x.shape[0]
+    cat = lambda f: torch.cat([f(w) for w in range(n_worlds)])
+    stack = resident.GridState(
+        pos_x=cat(lambda w: gs.pos_x), pos_y=cat(lambda w: gs.pos_y),
+        vel_x=cat(lambda w: gs.vel_x * (1.0 + 0.1 * w)),
+        vel_y=cat(lambda w: gs.vel_y), occ_row=cat(lambda w: gs.occ_row),
+        tick=gs.tick, lost=gs.lost)
+    plist = [tt.TickParams.default(cuda, gravity=(0.5 * w, -4.9 * w),
+                                   viscosity_coefficient=10.0 + 5 * w)
+             for w in range(n_worlds)]
+    wid = torch.arange(n_worlds, dtype=torch.int32,
+                       device=cuda).repeat_interleave(rows)
+    return s, stack, resident.batched_params(plist), wid, rows
+
+
+def test_batched_kernels_match_plain(cuda):
+    """rebin with row_shift, density and forces_integrate with wid on a
+    3-world stack against their plain versions, bitwise."""
+    s, g, bp, wid, rows = _stack(cuda, 3)
+    before = dict(fused.LAUNCHES)
+    rargs = (g.pos_x, g.pos_y, g.vel_x, g.vel_y, g.occ_row, bp.delta, s)
+    got = fused.rebin(*rargs, row_shift=-(wid * rows))
+    want = fused.rebin_plain(*rargs, row_shift=-(wid * rows))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    px, py, vx, vy, occ = got[:5]
+    dargs = (px, py, vx, vy, occ, bp.mass, bp.delta, bp.pressure_constant,
+             bp.rest_density, s)
+    pres, invr = fused.density(*dargs, wid=wid)
+    pres_p, invr_p = fused.density_plain(*dargs, wid=wid)
+    assert torch.equal(pres, pres_p) and torch.equal(invr, invr_p)
+    fargs = (px, py, vx, vy, pres, invr, occ, bp, s, g.tick + 1)
+    new = fused.forces_integrate(*fargs, wid=wid)
+    new_p = fused.forces_integrate_plain(*fargs, wid=wid)
+    torch.cuda.synchronize()
+    for a, b in zip(new, new_p):
+        assert torch.equal(a, b)
+    assert not torch.equal(new[3][:rows], new[3][rows:2 * rows])
+    for n in ("rebin_row_shift", "density_wid", "forces_integrate_wid"):
+        assert fused.LAUNCHES[n] == before[n] + 1
+
+
+@pytest.mark.parametrize("k,flags", [
+    (8, "base"), (32, "base"), (16, "all"), (8, "has_ff"), (8, "wid")])
+def test_physics_matches_split(cuda, k, flags):
+    """The fused physics kernel against the split density +
+    forces_integrate kernels and against physics_plain, bitwise."""
+    kw, extra = {}, {}
+    if flags == "all":
+        s, p, frame, (px, py, vx, vy, occ) = _variant_case(cuda, k)
+        kw = VARIANTS["all"]
+    elif flags == "wid":
+        s, g, p, wid, rows = _stack(cuda, 3)
+        px, py, vx, vy, occ = fused.rebin(
+            g.pos_x, g.pos_y, g.vel_x, g.vel_y, g.occ_row, p.delta, s,
+            row_shift=-(wid * rows))[:5]
+        frame = g.tick + 1
+        extra = dict(wid=wid)
+    else:
+        s = tt.SimSettings(particle_count=3000, size=(9.0, 8.0),
+                           cell_capacity=k)
+        p = tt.TickParams.default(cuda, gravity=(0.0, -9.8))
+        gs = _state(s, cuda, k)
+        px, py, vx, vy, occ = fused.rebin(
+            gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, gs.occ_row, p.delta,
+            s)[:5]
+        frame = gs.tick + 1
+        if flags == "has_ff":
+            gen = torch.Generator(device="cpu").manual_seed(2)
+            ff = torch.randn((2,) + tuple(occ.shape) + (px.shape[2],),
+                             generator=gen) * 3.0
+            ff[:, :, :20] = 0.0
+            extra = dict(ff_cells=tuple(f.contiguous().to(cuda) for f in ff))
+    before = fused.LAUNCHES["physics"]
+    got = fused.physics(px, py, vx, vy, occ, p, s, frame, **kw, **extra)
+    wid = extra.get("wid")
+    pres, invr = fused.density(px, py, vx, vy, occ, p.mass, p.delta,
+                               p.pressure_constant, p.rest_density, s,
+                               wid=wid)
+    split = fused.forces_integrate(px, py, vx, vy, pres, invr, occ, p, s,
+                                   frame, **kw, **extra)
+    plain = fused.physics_plain(px, py, vx, vy, occ, p, s, frame, **kw,
+                                **extra)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["physics"] == before + 1
+    for a, b, c in zip(got, split, plain):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_batched_step_matches_single_worlds(cuda):
+    """A 3-world resident stack steps bitwise like three single worlds,
+    split and fused physics alike."""
+    import os
+
+    s = tt.SimSettings(particle_count=3000, size=(9.0, 8.0), cell_capacity=8)
+    plist = [tt.TickParams.default(cuda, gravity=(0.3 * w, -4.9 * w))
+             for w in range(3)]
+    for fused_physics in ("", "1"):
+        os.environ["TPUFLUID_FUSED_PHYSICS"] = fused_physics
+        try:
+            gs = resident.init_batched_grid_state(s, 3, cuda)
+            step = resident.make_grid_step(s, n_worlds=3, x_boundary="wrap")
+            bp = resident.batched_params(plist)
+            for _ in range(5):
+                gs = step(gs, bp)
+            single = resident.make_grid_step(s, x_boundary="wrap")
+            for w, p in enumerate(plist):
+                ref = resident.init_grid_state(s, cuda)
+                for _ in range(5):
+                    ref = single(ref, p)
+                got = resident.world_state(gs, s, w)
+                for f in ("pos_x", "pos_y", "vel_x", "vel_y", "occ_row"):
+                    assert torch.equal(getattr(got, f), getattr(ref, f))
+        finally:
+            del os.environ["TPUFLUID_FUSED_PHYSICS"]

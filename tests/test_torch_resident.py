@@ -228,17 +228,75 @@ def test_strict_policy_refuses_undersized_scene():
                  capacity_policy="strict", device="cpu")
 
 
+def _variant_scene():
+    """h 1.5 (surface tension acts only above h 1), mass 150 (densities
+    past the adaptive strides' 150 and 200), particles at the x walls
+    moving out (wrap teleports them, and the next step re-inserts them as
+    far movers), a coincident pair; predicted coordinates 0.05 h or more
+    from cell edges."""
+    h, half = 1.5, 6.0
+    rng = np.random.default_rng(11)
+    cells = np.stack(np.meshgrid(np.arange(2, 8), np.arange(2, 8)),
+                     axis=-1).reshape(-1, 2)
+    c = cells[rng.integers(0, len(cells), 110)]
+    pred = (((c - 1) + rng.uniform(0.05, 0.95, c.shape)) * h
+            - half).astype(np.float32)
+    vel = (rng.normal(size=pred.shape) * 2.0).astype(np.float32)
+    pred[1], vel[1] = pred[0], vel[0]
+    pred[2:6, 0] = (half, -half, half, -half)
+    vel[2:6, 0] = (6.0, -6.0, 6.0, -6.0)
+    pos = (pred - vel * np.float32(1.0 / 120.0)).astype(np.float32)
+    pos[2:6, 0] = pred[2:6, 0] - np.sign(pred[2:6, 0]) * 0.01
+    s = tpufluid.SimSettings(particle_count=110, particle_spacing=0.75,
+                             smoothing_radius=h, size=(2 * half, 2 * half),
+                             cell_capacity=8)
+    p = tpufluid.TickParams.default(gravity=(0.0, -9.8), mass=150.0,
+                                    surface_tension_threshold=0.05,
+                                    surface_tension_coefficient=5.0)
+    return s, _jstate(pos, vel, tick=3), p
+
+
 @pytest.mark.parametrize("kw", [
     dict(x_boundary="wrap", surface_tension=True), dict(x_boundary="wrap"),
     dict(surface_tension=True), dict(adaptive_subsampling=True),
     dict(adaptive_subsampling=True, x_boundary="wrap"),
 ])
-def test_unported_paths_raise(kw):
-    """The resident engine's variants (the per-step engines run them all,
-    tests/test_torch_step.py)."""
-    s = tt.SimSettings(particle_count=64, size=(3.2, 3.2))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2 item 1"):
-        FluidApp(s, device="cpu", neighbor_mode="resident", **kw)
+def test_resident_variants_match_jax(kw, monkeypatch):
+    """The resident engine's variant flags, two synced steps against the
+    JAX engine (the second re-inserts the wrapped particles): occupancy,
+    layout, tick and lost bitwise, positions and the velocity increment
+    within the per-step bounds. FluidApp takes the flags too. The JAX
+    kernels run one row per program (the same outputs; a third of the
+    interpret-mode compile time)."""
+    monkeypatch.setattr(jresident, "rows_per_program", lambda s: 1)
+    js, jstate, jp = _variant_scene()
+    ts = interop.settings_from(js)
+    tp = interop.tick_params_from_numpy(jp, "cpu")
+    jstep = jresident.make_grid_step(js, **kw)
+    tstep = tresident.make_grid_step(ts, **kw)
+    jgs = jresident.from_particles(jstate, js)
+    for i in range(2):
+        tgs = tstep(interop.grid_state_from_numpy(jgs, "cpu"), tp)
+        prev = jgs
+        jgs = jax.block_until_ready(jstep(jgs, jp))
+        for f in ("occ_row", "tick", "lost"):
+            _bitwise(getattr(tgs, f), getattr(jgs, f), f"step {i} {f}")
+        live = np.asarray(jresident.valid_mask(jgs))
+        _bitwise(tresident.valid_mask(tgs), live, f"step {i} layout")
+        for f in ("pos_x", "pos_y"):
+            _within(getattr(tgs, f), getattr(jgs, f), POS_TOL, live,
+                    f"step {i} {f}")
+        for f in ("vel_x", "vel_y"):
+            v0 = np.array(getattr(prev, f))
+            _within(getattr(tgs, f) - torch.from_numpy(v0),
+                    np.asarray(getattr(jgs, f)) - v0, VEL_TOL, live,
+                    f"step {i} {f} increment")
+    if kw.get("x_boundary") == "wrap":
+        assert tstep.far_steps >= 1  # the wrapped particles re-inserted
+    app = FluidApp(interop.settings_from(js), tp, device="cpu",
+                   neighbor_mode="resident", **kw)
+    app.run(2)
+    assert app.metrics()["tick"] == 2
 
 
 def test_cli_run_on_cpu(capsys):

@@ -32,11 +32,13 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # argtypes of each C entry point (every pointer and the stream as c_void_p)
 _SIGNATURES = {
-    "tf_rebin": [_P] * 6 + [_P] * 4 + [_P] * 3 + [_I] * 3 + [_F] * 3
+    "tf_rebin": [_P] * 7 + [_P] * 4 + [_P] * 3 + [_I] * 3 + [_F] * 3
     + [_I] * 2 + [_P],
-    "tf_density": [_P] * 6 + [_P] * 2 + [_I] * 3 + [_F] * 4 + [_P],
-    "tf_forces": [_P] * 9 + [_P] * 2 + [_P] * 4 + [_I] * 3 + [_F] * 11
+    "tf_density": [_P] * 7 + [_P] * 2 + [_I] * 3 + [_F] * 4 + [_P],
+    "tf_forces": [_P] * 10 + [_P] * 2 + [_P] * 4 + [_I] * 3 + [_I, _P]
     + [_P],
+    "tf_physics": [_P] * 8 + [_P] * 2 + [_P] * 4 + [_I] * 3 + [_I] * 2
+    + [_I] + [_F] * 2 + [_P] + [_P],
     "tf_metaball_coarse": [_P] * 6 + [_I] * 5 + [_F] * 4 + [_P],
     "tf_sph_density": [_P] * 5 + [_I] * 3 + [_F] * 2 + [_P],
     "tf_sph_forces": [_P] * 8 + [_P] * 4 + [_I] * 3 + [_I] * 2 + [_F] * 11

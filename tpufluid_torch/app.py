@@ -5,11 +5,10 @@ Running/Render/Step/Stopped state machine with its fixed-timestep
 accumulator, ticks and burst ``run()``, obstacles, the capacity policies,
 the offline render mode (16 ticks per frame, src/main.rs:153-216) and
 checkpoints. Engines: ``"resident"`` (the slot grid kept between steps,
-with the loss audit and regrow-and-replay; bounce boundary only, no
-surface tension or adaptive subsampling yet) and the per-step engines of
-``step.make_step``: ``"grid"``, ``"naive"``, ``"dense"`` and ``"pallas"``
-(every variant). What is not ported raises ``NotImplementedError`` naming
-its ROADMAP item.
+with the loss audit and regrow-and-replay) and the per-step engines of
+``step.make_step``: ``"grid"``, ``"naive"``, ``"dense"`` and ``"pallas"``;
+each takes every variant flag. What is not ported (video force fields)
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations

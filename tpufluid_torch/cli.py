@@ -1,9 +1,8 @@
 """Command line: ``python -m tpufluid_torch <run|render|info>``.
 
 The flags of ``python -m tpufluid``, plus ``--device`` (default ``cuda``).
-Every engine runs (``--neighbor-mode``, default ``dense``), the per-step
-ones with every variant flag; the resident engine's variants and video
-force fields raise ``NotImplementedError``.
+Every engine runs (``--neighbor-mode``, default ``dense``) with every
+variant flag; video force fields raise ``NotImplementedError``.
 """
 
 from __future__ import annotations

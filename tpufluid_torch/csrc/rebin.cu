@@ -20,6 +20,10 @@
 // columns outside the grid are skipped: on the TPU they were the clamped
 // or wrapped empty sentinel ring and pad columns.
 //
+// Batched world stacks: row_shift[y] (null for one world) is row y's
+// world offset, negated: a slot's world-frame cell row ncy lands in
+// stacked row y when ncy - row_shift[y] == y (fused.py:410-439).
+//
 // Per-row counters: occ_row' (max of min(count, K)), far_n (far movers of
 // the centre source row, counted by the thread that owns their column)
 // and over_n (arrivals beyond K) are reduced over the warp and added with
@@ -30,7 +34,8 @@
 __global__ void __launch_bounds__(TF_BLOCK)
 rebin_kernel(const float* __restrict__ px, const float* __restrict__ py,
              const float* __restrict__ vx, const float* __restrict__ vy,
-             const int* __restrict__ occ_row, const float* __restrict__ dt_p,
+             const int* __restrict__ occ_row,
+             const int* __restrict__ row_shift, const float* __restrict__ dt_p,
              float* __restrict__ opx, float* __restrict__ opy,
              float* __restrict__ ovx, float* __restrict__ ovy,
              int* __restrict__ oocc, int* __restrict__ ofar,
@@ -39,6 +44,7 @@ rebin_kernel(const float* __restrict__ px, const float* __restrict__ py,
     const int x = blockIdx.x * TF_BLOCK + threadIdx.x;  // gx % 128 == 0
     const int y = blockIdx.y;
     const float dt = dt_p[0];
+    const int shift = row_shift != nullptr ? row_shift[y] : 0;
     int count = 0;
     int far = 0;
     for (int r = -1; r <= 1; ++r) {
@@ -58,7 +64,8 @@ rebin_kernel(const float* __restrict__ px, const float* __restrict__ py,
                 const int ncx = tf_cell(tf_pred(p_x, v_x, dt, half_x),
                                         half_x, h_inv, cx_max);
                 const int ncy = tf_cell(tf_pred(p_y, v_y, dt, half_y),
-                                        half_y, h_inv, cy_max);
+                                        half_y, h_inv, cy_max) -
+                                shift;
                 if (r == 0 && dx == 0 &&
                     (abs(ncy - y) > 1 || abs(ncx - x) > 1)) {
                     ++far;
@@ -95,7 +102,8 @@ rebin_kernel(const float* __restrict__ px, const float* __restrict__ py,
 }
 
 extern "C" int tf_rebin(const float* px, const float* py, const float* vx,
-                        const float* vy, const int* occ_row, const float* dt,
+                        const float* vy, const int* occ_row,
+                        const int* row_shift, const float* dt,
                         float* opx, float* opy, float* ovx, float* ovy,
                         int* oocc, int* ofar, int* oover, int gy, int K,
                         int gx, float h_inv, float half_x, float half_y,
@@ -103,7 +111,7 @@ extern "C" int tf_rebin(const float* px, const float* py, const float* vx,
     if (gx % TF_BLOCK != 0 || gy <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
     dim3 grid(gx / TF_BLOCK, gy);
     rebin_kernel<<<grid, TF_BLOCK, 0, stream>>>(
-        px, py, vx, vy, occ_row, dt, opx, opy, ovx, ovy, oocc, ofar, oover,
+        px, py, vx, vy, occ_row, row_shift, dt, opx, opy, ovx, ovy, oocc, ofar, oover,
         gy, K, gx, h_inv, half_x, half_y, cx_max, cy_max);
     return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
 from .scenes import (  # noqa: F401
     Scene,
+    batch_scenes,
     dam_break_4k,
     default_scene,
     scene_64k,

@@ -1,9 +1,12 @@
 """Scene presets (port of ``tpufluid.models.scenes``): the reference's
-default scene and the benchmark ladder, with the same settings."""
+default scene and the benchmark ladder, with the same settings, and
+``batch_scenes`` (BASELINE config 4 on the per-step engines)."""
 
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 from ..params import SimSettings, TickParams
 from ..state import ParticleState, init_state
@@ -90,3 +93,46 @@ def scene_4m(device) -> Scene:
         ),
         params=TickParams.default(device),
     )
+
+
+def world_params(params: TickParams, w: int) -> TickParams:
+    """World ``w``'s TickParams out of a batch with a leading [B] dim."""
+    return TickParams(**{f.name: getattr(params, f.name)[w]
+                         for f in dataclasses.fields(params)})
+
+
+def batch_scenes(scene: Scene, gravities, viscosities, **step_kw):
+    """BASELINE config 4 on the per-step engines: B independent copies of
+    a scene with differing gravity and viscosity.
+
+    Returns (states, batched_params, batched_step): a list of B
+    ParticleStates, TickParams with a leading [B] dim on every field, and
+    ``batched_step(states, params) -> states``. The JAX package vmaps the
+    step; the port steps the B worlds in turn (a ctypes kernel launch does
+    not batch under ``torch.func.vmap``), with the same numbers. The
+    resident engine's row-stacked form is
+    ``ops.resident.make_grid_step(n_worlds=B)``."""
+    from ..step import make_step
+
+    b = len(gravities)
+    if len(viscosities) != b:
+        raise ValueError(f"{b} gravities but {len(viscosities)} viscosities")
+    state = scene.init()
+    states = [dataclasses.replace(state) for _ in range(b)]
+    params = scene.params
+    dev = params.device
+    bparams = TickParams(**{
+        f.name: getattr(params, f.name).expand(
+            (b,) + tuple(getattr(params, f.name).shape)).clone()
+        for f in dataclasses.fields(params)})
+    bparams.gravity = torch.as_tensor(gravities, dtype=torch.float32,
+                                      device=dev).reshape(b, 2)
+    bparams.viscosity_coefficient = torch.as_tensor(
+        viscosities, dtype=torch.float32, device=dev).reshape(b)
+    step = make_step(scene.settings, **step_kw)
+
+    def batched_step(states, params):
+        return [step(st, world_params(params, w))
+                for w, st in enumerate(states)]
+
+    return states, bparams, batched_step

@@ -1,12 +1,21 @@
-"""The resident engine's three kernels: rebin, density, forces + integrate.
+"""The resident engine's kernels: rebin, density, forces + integrate, and
+the fused physics pass.
 
-Port of ``tpufluid.ops.pallas.fused`` (``rebin``, ``density``,
-``forces_integrate`` with the base flags and the obstacle ``has_ff``). Each function keeps the JAX
-signature and layout: slot grids f32[Gy, K, Gxp] (empty slots hold
-``pos = SENTINEL``), ``occ_row`` i32[Gy] = the per-row max packed
-occupancy. Arrivals fill slots 0..count-1 of a cell, so every slot at or
-beyond ``occ_row[y]`` in row y is empty; the kernels bound their loops by
-it, as the TPU kernels do.
+Port of ``tpufluid.ops.pallas.fused`` (``rebin`` with ``row_shift``,
+``density`` with ``wid``, ``forces_integrate`` with every flag: ``has_ff``,
+``x_boundary="wrap"``, ``surface_tension``, ``adaptive_subsampling`` and
+``wid``; ``physics``). Each function keeps the JAX signature and layout:
+slot grids f32[Gy, K, Gxp] (empty slots hold ``pos = SENTINEL``),
+``occ_row`` i32[Gy] = the per-row max packed occupancy. Arrivals fill
+slots 0..count-1 of a cell, so every slot at or beyond ``occ_row[y]`` in
+row y is empty; the kernels bound their loops by it, as the TPU kernels
+do.
+
+Batched world stacks (``ops.resident`` with ``n_worlds > 1``): worlds
+stack along the row axis. ``row_shift`` i32[Gy] maps a slot's world-frame
+cell row to the stacked row (rebin compares ``cell_row - row_shift[y] ==
+y``), ``wid`` i32[Gy] names each row's world, and the per-tick tunables
+then carry a leading [W] dim (``delta`` stays one scalar).
 
 Each wrapper dispatches on where its tensors lie. On the CPU it runs the
 plain PyTorch version beside it (``rebin_plain``, ...). On a CUDA device it
@@ -23,6 +32,7 @@ kernels build with ``-fmad=false``).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -39,10 +49,26 @@ SENTINEL = 1.0e9
 SENTINEL_HALF = 5.0e8
 MAX_SPEED = 500.0  # compute.wgsl:118-122
 
-# kernel launches per wrapper (CUDA tensors only); forces_integrate_has_ff
-# counts the forces_integrate launches that took the obstacle epilogue
-LAUNCHES = {"rebin": 0, "density": 0, "forces_integrate": 0,
-            "forces_integrate_has_ff": 0}
+# kernel launches per wrapper (CUDA tensors only). The qualified names
+# count the launches of a kernel that took a variant: forces_integrate
+# with an obstacle field (has_ff), x wrap, surface tension, adaptive
+# subsampling or a batched world stack (wid); rebin with row_shift,
+# density with wid.
+LAUNCHES = {"rebin": 0, "rebin_row_shift": 0, "density": 0,
+            "density_wid": 0, "forces_integrate": 0,
+            "forces_integrate_has_ff": 0, "forces_integrate_wrap": 0,
+            "forces_integrate_surface_tension": 0,
+            "forces_integrate_adaptive": 0, "forces_integrate_wid": 0,
+            "physics": 0}
+
+# variant flag bits of the forces and physics kernels (resident_math.cuh)
+_WRAP, _HAS_FF, _ST, _ADAPT = 1, 2, 4, 8
+# (rows, columns) tiles of the physics kernel, largest first, and the
+# shared memory a block may use on the H100; a tile that leaves room for
+# two blocks per SM is preferred
+PHYSICS_TILES = ((4, 32), (2, 32), (1, 32), (1, 16), (1, 8))
+SMEM_MAX = 232448
+SMEM_TWO_BLOCKS = 116 * 1024
 
 
 def _f32(x: float) -> float:
@@ -86,6 +112,43 @@ def _as_f32(v, device) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.float32, device=device)
 
 
+def _per_row(v, wid, device):
+    """A tunable as each grid row sees it: the value itself for one world
+    (``wid`` None, or a value shared by every world), else the row's
+    world's entry, shaped [Gy, 1, 1] to broadcast against a grid."""
+    v = _as_f32(v, device)
+    if wid is None or v.numel() == 1:
+        return v.reshape(())
+    return v.reshape(-1)[wid.to(torch.int64)].reshape(-1, 1, 1)
+
+
+def _sc_table(cols, wid, device) -> torch.Tensor:
+    """f32[W, n] per-world scalar table, one column per entry of ``cols``:
+    a tunable (0-d, or [W] with ``wid``) or a settings constant (a Python
+    float, the same in every world)."""
+    tens = [_as_f32(c, device).reshape(-1) for c in cols
+            if isinstance(c, torch.Tensor)]
+    w = max(c.numel() for c in tens) if wid is not None else 1
+    out = []
+    for c in cols:
+        if not isinstance(c, torch.Tensor):
+            out.append(torch.full((w,), c, dtype=torch.float32,
+                                  device=device))
+            continue
+        c = _as_f32(c, device).reshape(-1)
+        if c.numel() not in (1, w):
+            raise ValueError(f"per-world tunables of {c.numel()} and {w} "
+                             f"worlds")
+        out.append(c.expand(w))
+    return torch.stack(out, dim=1).contiguous()
+
+
+def _one_world(sc: torch.Tensor, wid_t):
+    """No world table when every world shares the scalar table's one
+    row (the kernel then reads row 0 for every grid row)."""
+    return None if sc.shape[0] == 1 else wid_t
+
+
 # ----------------------------------------------------------------- checks
 
 def _on_cuda(*tensors) -> bool:
@@ -111,15 +174,25 @@ def _check_grids(shape, *grids):
         raise ValueError(f"grid width {shape[2]} is not a multiple of 128")
 
 
-def _check_occ(occ_row: torch.Tensor, gy: int):
+def _check_occ(occ_row: torch.Tensor, gy: int, name: str = "occ_row"):
     if (occ_row.shape != (gy,) or occ_row.dtype != torch.int32
             or not occ_row.is_contiguous()):
-        raise ValueError(f"occ_row must be contiguous i32[{gy}], got "
+        raise ValueError(f"{name} must be contiguous i32[{gy}], got "
                          f"{occ_row.dtype}{list(occ_row.shape)}")
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def _opt_rows(t, gy: int, name: str, device):
+    """An optional i32[Gy] row table (wid, row_shift) as a kernel
+    argument: its pointer, or None."""
+    if t is None:
+        return None
+    t = torch.as_tensor(t, dtype=torch.int32, device=device).contiguous()
+    _check_occ(t, gy, name)
+    return t
+
+
+def _ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def _stream(device) -> ctypes.c_void_p:
@@ -152,8 +225,9 @@ def _live_slots(pos_x, occ_row):
 
 
 def _cells(px, py, vx, vy, dt, settings: SimSettings):
-    """Clamped predicted cell (x, y) of every slot, i64. Multiplies by
-    1/h like the TPU rebin (the boundary conversion divides by h)."""
+    """Clamped predicted cell (x, y) of every slot, in its world's frame,
+    i64. Multiplies by 1/h like the TPU rebin (the boundary conversion
+    divides by h)."""
     h_inv, half_x, half_y, cx_max, cy_max = _rebin_consts(settings)
     prx = _pred(px, vx, dt, half_x)
     pry = _pred(py, vy, dt, half_y)
@@ -163,7 +237,7 @@ def _cells(px, py, vx, vy, dt, settings: SimSettings):
 
 
 def rebin_plain(pos_x, pos_y, vel_x, vel_y, occ_row, dt,
-                settings: SimSettings):
+                settings: SimSettings, row_shift=None):
     """Plain PyTorch version of :func:`rebin`: the same walk, vectorised
     over all targets (y, x) at once."""
     gy, k, gx = pos_x.shape
@@ -173,6 +247,9 @@ def rebin_plain(pos_x, pos_y, vel_x, vel_y, occ_row, dt,
     ncx, ncy = _cells(pos_x, pos_y, vel_x, vel_y, dt, settings)
     ty = torch.arange(gy, device=dev)[:, None]
     tx = torch.arange(gx, device=dev)[None, :]
+    if row_shift is not None:  # compared in target row y's frame
+        ty = ty + torch.as_tensor(row_shift, device=dev).to(
+            torch.int64).reshape(gy, 1)
     occ = occ_row.to(torch.int64)
 
     # far movers of each source row (target beyond the 3x3 neighbourhood)
@@ -212,21 +289,26 @@ def rebin_plain(pos_x, pos_y, vel_x, vel_y, occ_row, dt,
     return px, py, vx, vy, occ_out, far_n, over_n
 
 
-def rebin(pos_x, pos_y, vel_x, vel_y, occ_row, dt, settings: SimSettings):
+def rebin(pos_x, pos_y, vel_x, vel_y, occ_row, dt, settings: SimSettings,
+          row_shift=None):
     """Re-pack grid slots by next-step predicted cell.
 
     Returns (pos_x', pos_y', vel_x', vel_y', occ_row', far_n[Gy],
     over_n[Gy]). Arrivals pack in (source row, dx, slot) order. Far
     movers (beyond the 3x3 neighbourhood) are left out of the output and
     counted per source row in ``far_n``; arrivals beyond capacity are
-    dropped and counted per target row in ``over_n``.
+    dropped and counted per target row in ``over_n``. ``row_shift``:
+    i32[Gy] for batched world stacks (row y takes the slots whose cell
+    row minus ``row_shift[y]`` is y).
     """
     if not _on_cuda(pos_x, pos_y, vel_x, vel_y, occ_row):
-        return rebin_plain(pos_x, pos_y, vel_x, vel_y, occ_row, dt, settings)
+        return rebin_plain(pos_x, pos_y, vel_x, vel_y, occ_row, dt, settings,
+                           row_shift)
     gy, k, gx = pos_x.shape
     _check_grids((gy, k, gx), pos_x, pos_y, vel_x, vel_y)
     _check_occ(occ_row, gy)
     dev = pos_x.device
+    shift = _opt_rows(row_shift, gy, "row_shift", dev)
     dt = _as_f32(dt, dev).reshape(1)
     outs = [torch.empty((gy, k, gx), dtype=torch.float32, device=dev)
             for _ in range(4)]
@@ -235,10 +317,12 @@ def rebin(pos_x, pos_y, vel_x, vel_y, occ_row, dt, settings: SimSettings):
     lib = _build.load()
     err = lib.tf_rebin(
         _ptr(pos_x), _ptr(pos_y), _ptr(vel_x), _ptr(vel_y), _ptr(occ_row),
-        _ptr(dt), *(_ptr(o) for o in outs),
+        _ptr(shift), _ptr(dt), *(_ptr(o) for o in outs),
         _ptr(counts[0]), _ptr(counts[1]), _ptr(counts[2]),
         gy, k, gx, h_inv, half_x, half_y, cx_max, cy_max, _stream(dev))
     _launched("rebin", err)
+    if shift is not None:
+        LAUNCHES["rebin_row_shift"] += 1
     return (*outs, counts[0], counts[1], counts[2])
 
 
@@ -252,11 +336,12 @@ def _density_consts(settings: SimSettings):
 
 
 def density_plain(pos_x, pos_y, vel_x, vel_y, occ_row, mass, dt,
-                  pressure_constant, rest_density, settings: SimSettings):
+                  pressure_constant, rest_density, settings: SimSettings,
+                  wid=None):
     """Plain PyTorch version of :func:`density`."""
     gy, k, gx = pos_x.shape
     dev = pos_x.device
-    mass, dt, kp_c, rho0 = (_as_f32(v, dev) for v in
+    mass, dt, kp_c, rho0 = (_per_row(v, wid, dev) for v in
                             (mass, dt, pressure_constant, rest_density))
     h2, norm, half_x, half_y = _density_consts(settings)
     live = pos_x < SENTINEL_HALF
@@ -288,45 +373,55 @@ def density_plain(pos_x, pos_y, vel_x, vel_y, occ_row, mass, dt,
 
 
 def density(pos_x, pos_y, vel_x, vel_y, occ_row, mass, dt,
-            pressure_constant, rest_density, settings: SimSettings):
+            pressure_constant, rest_density, settings: SimSettings,
+            wid=None):
     """(pres, inv_rho)[Gy, K, Gxp]: poly6 density over the 3x3 cell
     stencil of predicted positions (funcs.wgsl:157-203), then
     ``pres = k (rho - rho0)`` and ``1/rho`` after the EPSILON and 0.1
-    floors. Empty slots get the floor-density defaults."""
+    floors. Empty slots get the floor-density defaults. ``wid``: i32[Gy]
+    world of each row for batched world stacks; the scalars may then be
+    [W]."""
     if not _on_cuda(pos_x, pos_y, vel_x, vel_y, occ_row):
         return density_plain(pos_x, pos_y, vel_x, vel_y, occ_row, mass, dt,
-                             pressure_constant, rest_density, settings)
+                             pressure_constant, rest_density, settings, wid)
     gy, k, gx = pos_x.shape
     _check_grids((gy, k, gx), pos_x, pos_y, vel_x, vel_y)
     _check_occ(occ_row, gy)
     dev = pos_x.device
-    sc = torch.stack([_as_f32(v, dev).reshape(()) for v in
-                      (mass, dt, pressure_constant, rest_density)])
+    wid_t = _opt_rows(wid, gy, "wid", dev)
+    h2, norm, half_x, half_y = _density_consts(settings)
+    sc = _sc_table([_as_f32(v, dev) for v in
+                    (mass, dt, pressure_constant, rest_density)], wid_t, dev)
+    wid_t = _one_world(sc, wid_t)
     pres = torch.empty((gy, k, gx), dtype=torch.float32, device=dev)
     invr = torch.empty((gy, k, gx), dtype=torch.float32, device=dev)
-    h2, norm, half_x, half_y = _density_consts(settings)
     lib = _build.load()
     err = lib.tf_density(
         _ptr(pos_x), _ptr(pos_y), _ptr(vel_x), _ptr(vel_y), _ptr(occ_row),
-        _ptr(sc), _ptr(pres), _ptr(invr), gy, k, gx,
-        h2, norm, half_x, half_y, _stream(dev))
+        _ptr(wid_t), _ptr(sc), _ptr(pres), _ptr(invr), gy, k, gx, h2, norm,
+        half_x, half_y, _stream(dev))
     _launched("density", err)
+    if wid_t is not None:
+        LAUNCHES["density_wid"] += 1
     return pres, invr
 
 
 # ----------------------------------------------- forces + integration
 
+@functools.lru_cache(maxsize=None)
 def _forces_consts(settings: SimSettings):
     h = float(settings.smoothing_radius)
     h2 = h * h
     h3 = h * h2
     norms = settings.kernel_norms()
     return dict(
-        h=_f32(h), sqr_radius=_f32(settings.sqr_radius),
+        h=_f32(h), h2=_f32(h2), sqr_radius=_f32(settings.sqr_radius),
         c_spiky=_f32(0.5 * norms.spiky_derivative),
         visc_norm=_f32(norms.viscosity),
         c_r3=_f32(-1.0 / (2.0 * h3)), c_r2=_f32(1.0 / h2),
         c_inv=_f32(h / 2.0),
+        st_grad=_f32(-24.0 / (PI * h**8)), st_lap=_f32(8.0 / (PI * h**8)),
+        c3h2=_f32(3.0 * h2),
         half_x=_f32(float(settings.size[0]) * 0.5),
         half_y=_f32(float(settings.size[1]) * 0.5),
         # obstacle push: pixel -> world scale, (bounds * 2) / texture size
@@ -335,14 +430,25 @@ def _forces_consts(settings: SimSettings):
     )
 
 
-def _check_variant(x_boundary, surface_tension, adaptive_subsampling):
-    for on, flag in ((x_boundary != "bounce", "wrap_x"),
-                     (surface_tension, "surface_tension"),
-                     (adaptive_subsampling, "adaptive")):
-        if on:
-            raise NotImplementedError(
-                f"forces_integrate {flag} is not ported yet: ROADMAP.md "
-                f"queue 2")
+# TfForceConsts (resident_math.cuh), in its field order
+_CONST_FIELDS = ("h", "h2", "sqr_radius", "c_spiky", "visc_norm", "c_r3",
+                 "c_r2", "c_inv", "st_grad", "st_lap", "c3h2")
+
+
+@functools.lru_cache(maxsize=None)
+def _consts_struct(settings: SimSettings):
+    c = _forces_consts(settings)
+    return (ctypes.c_float * len(_CONST_FIELDS))(*(c[n]
+                                                   for n in _CONST_FIELDS))
+
+
+def _flags(x_boundary, ff_cells, surface_tension, adaptive) -> int:
+    if x_boundary not in ("bounce", "wrap"):
+        raise ValueError(f"unknown x_boundary {x_boundary!r}")
+    return ((_WRAP if x_boundary == "wrap" else 0)
+            | (_HAS_FF if ff_cells is not None else 0)
+            | (_ST if surface_tension else 0)
+            | (_ADAPT if adaptive else 0))
 
 
 def _tie_directions(prx, pry, frame):
@@ -359,6 +465,20 @@ def _tie_directions(prx, pry, frame):
     return rx * inv, ry * inv
 
 
+def _st_directions(prx, frame):
+    """Per-target surface-tension direction for coincident pairs, seeded
+    from the predicted x (compute.wgsl:406; u32 of a negative x is 0)."""
+    st_i = torch.clamp(prx, min=0.0).to(torch.int32).to(torch.int64)
+    seed = (st_i * 324 + prng.u32(frame) * 5632) & prng.U32
+    s1 = prng.xorshift32(seed)
+    s2 = prng.xorshift32(s1)
+    rx = prng.u32_to_uniform01(s1)
+    ry = prng.u32_to_uniform01(s2)
+    rn = torch.sqrt(rx * rx + ry * ry)
+    rn = torch.where(rn == 0.0, 1.0, rn)
+    return rx / rn, ry / rn
+
+
 def _check_ff(ff_cells, gy: int, gx: int):
     for f in ff_cells:
         if (f.shape != (gy, gx) or f.dtype != torch.float32
@@ -369,20 +489,30 @@ def _check_ff(ff_cells, gy: int, gx: int):
 
 def forces_integrate_plain(pos_x, pos_y, vel_x, vel_y, pres, invr, occ_row,
                            params, settings: SimSettings, frame,
-                           ff_cells=None):
-    """Plain PyTorch version of :func:`forces_integrate` (base flags and
-    ``has_ff``)."""
+                           ff_cells=None, x_boundary="bounce",
+                           surface_tension: bool = False,
+                           adaptive_subsampling: bool = False, wid=None):
+    """Plain PyTorch version of :func:`forces_integrate`."""
+    _flags(x_boundary, ff_cells, surface_tension, adaptive_subsampling)
     gy, k, gx = pos_x.shape
     dev = pos_x.device
+    f32 = torch.float32
     c = _forces_consts(settings)
-    h, sqr_radius, c_sp = c["h"], c["sqr_radius"], c["c_spiky"]
+    h, h2, sqr_radius, c_sp = c["h"], c["h2"], c["sqr_radius"], c["c_spiky"]
     c_r3, c_r2, c_inv = c["c_r3"], c["c_r2"], c["c_inv"]
-    dt = params.delta
     half_x, half_y = c["half_x"], c["half_y"]
+    row = lambda v: _per_row(v, wid, dev)
+    dt = row(params.delta)
+    mass = row(params.mass)
     live = pos_x < SENTINEL_HALF
     prx = _pred(pos_x, vel_x, dt, half_x)
     pry = _pred(pos_y, vel_y, dt, half_y)
-    d0x, d0y = _tie_directions(prx, pry, torch.as_tensor(frame, device=dev))
+    frame = torch.as_tensor(frame, device=dev)
+    d0x, d0y = _tie_directions(prx, pry, frame)
+    if surface_tension:
+        st_dx, st_dy = _st_directions(prx, frame)
+    if adaptive_subsampling:
+        rho_self = torch.reciprocal(invr)
 
     cand = dict(px=_pad(prx, SENTINEL), py=_pad(pry, SENTINEL),
                 vx=_pad(vel_x, 0.0), vy=_pad(vel_y, 0.0),
@@ -392,10 +522,17 @@ def forces_integrate_plain(pos_x, pos_y, vel_x, vel_y, pres, invr, occ_row,
     k_self = torch.arange(k, device=dev)[None, :, None]
     zero = torch.zeros_like(pos_x)
     sfx, sfy, sgx, sgy = zero, zero, zero, zero
+    scgx, scgy, sclap = zero, zero, zero
     scc = torch.zeros(pos_x.shape, dtype=torch.int64, device=dev)
     n3 = int(occ3_of(occ_row).max()) if gy else 0
     for kp in range(n3):
         fx, fy, gx_, gy_ = zero, zero, zero, zero
+        cgx, cgy, cl = zero, zero, zero
+        if adaptive_subsampling:
+            # pressure stride 1/5/13 as the self density crosses 150/200
+            fac = torch.where(rho_self >= 200.0, float(kp % 13 == 0),
+                              torch.where(rho_self >= 150.0,
+                                          float(kp % 5 == 0), 1.0))
         for r in range(3):
             ok_row = (kp < occ_p[r:r + gy])[:, None]
             for dx in (-1, 0, 1):
@@ -407,69 +544,114 @@ def forces_integrate_plain(pos_x, pos_y, vel_x, vel_y, pres, invr, occ_row,
                 r2 = ddx * ddx + ddy * ddy
                 inv_dst = torch.rsqrt(torch.clamp(r2, min=1e-35))
                 dst = r2 * inv_dst
-                if (r, dx) != (1, 0):
+                dirx = ddx * inv_dst
+                diry = ddy * inv_dst
+                centre = (r, dx) == (1, 0)
+                if not centre:
                     # off-centre: the kernel-value clamps are the range gates
                     kern_p = torch.clamp(dst - h, max=0.0) * c_sp
                     wp = kern_p * (pres + nb["p"]) * nb["ir"]
+                    if adaptive_subsampling:
+                        wp = wp * fac
                     s = wp * inv_dst
+                    fx = torch.where(ok, fx + ddx * s, fx)
+                    fy = torch.where(ok, fy + ddy * s, fy)
                     kv = torch.clamp(r2 * dst * c_r3 + r2 * c_r2
                                      + inv_dst * c_inv - 1.0, min=0.0)
                     wv = kv * nb["ir"]
-                    fx = torch.where(ok, fx + ddx * s, fx)
-                    fy = torch.where(ok, fy + ddy * s, fy)
                     gx_ = torch.where(ok, gx_ + (nb["vx"] - vel_x) * wv, gx_)
                     gy_ = torch.where(ok, gy_ + (nb["vy"] - vel_y) * wv, gy_)
-                    continue
-                # centre block: explicit range test, self excluded, and the
-                # tie-break direction for coincident pairs
-                in_range = ok & (r2 <= sqr_radius) & (k_self != kp)
-                dirx = ddx * inv_dst
-                diry = ddy * inv_dst
-                coincident = in_range & (dst == 0.0)
-                has_prior = scc >= 1
-                salted = kp < k_self
-                tx = torch.where(salted, torch.where(has_prior, d0y, -d0x),
-                                 torch.where(has_prior, -d0y, d0x))
-                ty = torch.where(salted, torch.where(has_prior, -d0x, -d0y),
-                                 torch.where(has_prior, d0x, d0y))
-                dirx = torch.where(coincident, tx, dirx)
-                diry = torch.where(coincident, ty, diry)
-                scc = scc + coincident
-                kern_p = (dst - h) * c_sp
-                wp = torch.where(in_range, kern_p * (pres + nb["p"]) * nb["ir"],
-                                 0.0)
-                fx = fx + dirx * wp
-                fy = fy + diry * wp
-                kv = r2 * dst * c_r3 + r2 * c_r2 + inv_dst * c_inv - 1.0
-                kv = torch.where(dst == 0.0, 1.0, kv)
-                wv = torch.where(in_range, kv * nb["ir"], 0.0)
-                gx_ = gx_ + (nb["vx"] - vel_x) * wv
-                gy_ = gy_ + (nb["vy"] - vel_y) * wv
+                else:
+                    # centre block: explicit range test, self excluded, and
+                    # the tie-break direction for coincident pairs
+                    in_range = ok & (r2 <= sqr_radius) & (k_self != kp)
+                    coincident = in_range & (dst == 0.0)
+                    has_prior = scc >= 1
+                    salted = kp < k_self
+                    tx = torch.where(salted,
+                                     torch.where(has_prior, d0y, -d0x),
+                                     torch.where(has_prior, -d0y, d0x))
+                    ty = torch.where(salted,
+                                     torch.where(has_prior, -d0x, -d0y),
+                                     torch.where(has_prior, d0x, d0y))
+                    dirx = torch.where(coincident, tx, dirx)
+                    diry = torch.where(coincident, ty, diry)
+                    scc = scc + coincident
+                    kern_p = (dst - h) * c_sp
+                    in_range_p = in_range
+                    if adaptive_subsampling:
+                        in_range_p = in_range & (fac > 0.0)
+                    wp = torch.where(in_range_p,
+                                     kern_p * (pres + nb["p"]) * nb["ir"],
+                                     0.0)
+                    fx = fx + dirx * wp
+                    fy = fy + diry * wp
+                    kv = r2 * dst * c_r3 + r2 * c_r2 + inv_dst * c_inv - 1.0
+                    kv = torch.where(dst == 0.0, 1.0, kv)
+                    wv = torch.where(in_range, kv * nb["ir"], 0.0)
+                    gx_ = gx_ + (nb["vx"] - vel_x) * wv
+                    gy_ = gy_ + (nb["vy"] - vel_y) * wv
+                if surface_tension:
+                    # colour field, self pair included; a coincident pair
+                    # takes the target's own seeded direction
+                    ok_st = r2 <= sqr_radius
+                    if centre:
+                        co_st = ok_st & (dst == 0.0)
+                        dirx = torch.where(co_st, st_dx, dirx)
+                        diry = torch.where(co_st, st_dy, diry)
+                    rlen2 = dirx * dirx + diry * diry
+                    rlen = torch.sqrt(rlen2)
+                    gdiff = h2 - rlen2
+                    gsc = torch.where((rlen >= h) | (rlen == 0.0), 0.0,
+                                      c["st_grad"] * gdiff * gdiff)
+                    m_rho = mass * nb["ir"]
+                    lap = torch.where(dst > h, 0.0,
+                                      c["st_lap"] * (h2 - r2)
+                                      * (c["c3h2"] - 4.0 * r2))
+                    cgx = torch.where(ok, cgx + torch.where(
+                        ok_st, m_rho * gsc * dirx, 0.0), cgx)
+                    cgy = torch.where(ok, cgy + torch.where(
+                        ok_st, m_rho * gsc * diry, 0.0), cgy)
+                    cl = torch.where(ok, cl + torch.where(
+                        ok_st, m_rho * lap, 0.0), cl)
         sfx, sfy = sfx + fx, sfy + fy
         sgx, sgy = sgx + gx_, sgy + gy_
+        if surface_tension:
+            scgx, scgy, sclap = scgx + cgx, scgy + cgy, sclap + cl
 
     # integration (compute.wgsl:95-155)
-    f32 = torch.float32
-    mu = params.viscosity_coefficient
-    visc_mu = c["visc_norm"] * mu
-    grav = params.gravity.reshape(2)
+    visc_mu = c["visc_norm"] * row(params.viscosity_coefficient)
+    grav = torch.as_tensor(params.gravity, dtype=f32, device=dev)
+    grav_x, grav_y = row(grav[..., 0]), row(grav[..., 1])
     accel_x = sfx + sgx * visc_mu
     accel_y = sfy + sgy * visc_mu
-    vx = vel_x + accel_x * invr * dt + grav[0] * dt
-    vy = vel_y + accel_y * invr * dt + grav[1] * dt
+    if surface_tension:
+        # pairs.surface_tension composition (compute.wgsl:303-315)
+        n_len = torch.sqrt(scgx * scgx + scgy * scgy)
+        safe_len = torch.where(n_len == 0.0, 1.0, n_len)
+        k_st = (-sclap) / (n_len + 1e-6)
+        apply_st = n_len > row(params.surface_tension_threshold)
+        coef = row(params.surface_tension_coefficient)
+        accel_x = accel_x + torch.where(apply_st,
+                                        -coef * k_st * (scgx / safe_len), 0.0)
+        accel_y = accel_y + torch.where(apply_st,
+                                        -coef * k_st * (scgy / safe_len), 0.0)
+    vx = vel_x + accel_x * invr * dt + grav_x * dt
+    vy = vel_y + accel_y * invr * dt + grav_y * dt
 
     # mouse impulse (compute.wgsl:99-108); dist 0 under a press is the
     # reference's 0/0 = NaN, which the NaN reset below zeroes
-    mouse = params.mouse_pos.reshape(2)
-    mstate = params.mouse_state.to(f32)
-    diffx = mouse[0] - prx
-    diffy = mouse[1] - pry
+    mouse = torch.as_tensor(params.mouse_pos, dtype=f32, device=dev)
+    mstate = row(torch.as_tensor(params.mouse_state, device=dev).to(f32))
+    mradius = row(params.mouse_force_radius)
+    diffx = row(mouse[..., 0]) - prx
+    diffy = row(mouse[..., 1]) - pry
     dist = torch.sqrt(diffx * diffx + diffy * diffy)
     msafe = torch.where(dist == 0.0, 1.0, dist)
-    iscale = (params.mouse_force_power * mstate
-              * (dist / params.mouse_force_radius) / (msafe * msafe))
+    iscale = (row(params.mouse_force_power) * mstate
+              * (dist / mradius) / (msafe * msafe))
     iscale = torch.where(dist == 0.0, float("nan"), iscale)
-    apply_m = (mstate != 0.0) & (dist <= params.mouse_force_radius)
+    apply_m = (mstate != 0.0) & (dist <= mradius)
     vx = torch.where(apply_m, vx + diffx * iscale, vx)
     vy = torch.where(apply_m, vy + diffy * iscale, vy)
 
@@ -487,7 +669,7 @@ def forces_integrate_plain(pos_x, pos_y, vel_x, vel_y, pres, invr, occ_row,
 
     px = pos_x + vx * dt
     py = pos_y + vy * dt
-    damping = params.damping_factor
+    damping = row(params.damping_factor)
     if ff_cells is not None:
         # obstacle push-out per target cell (fused.py:1000-1023): the
         # field is in pixels; the normal is normalised in pixel space, the
@@ -507,8 +689,11 @@ def forces_integrate_plain(pos_x, pos_y, vel_x, vel_y, pres, invr, occ_row,
         vy = torch.where(hit, vy - refl * vn * nhy, vy)
     outx = torch.abs(px) > half_x
     outy = torch.abs(py) > half_y
-    px = torch.where(outx, half_x * torch.sign(px), px)
-    vx = torch.where(outx, vx * -damping, vx)
+    if x_boundary == "wrap":  # teleport, velocity kept
+        px = torch.where(outx, -half_x * torch.sign(px), px)
+    else:
+        px = torch.where(outx, half_x * torch.sign(px), px)
+        vx = torch.where(outx, vx * -damping, vx)
     py = torch.where(outy, half_y * torch.sign(py), py)
     vy = torch.where(outy, vy * -damping, vy)
 
@@ -517,49 +702,154 @@ def forces_integrate_plain(pos_x, pos_y, vel_x, vel_y, pres, invr, occ_row,
             torch.where(act, vx, 0.0), torch.where(act, vy, 0.0))
 
 
+def _forces_sc(params, settings: SimSettings, wid, dev, physics=False):
+    """The per-world scalar table of the forces (17 columns) or physics
+    (19) kernel, in the JAX ``sc`` column order."""
+    c = _forces_consts(settings)
+    grav = torch.as_tensor(params.gravity, device=dev)
+    mouse = torch.as_tensor(params.mouse_pos, device=dev)
+    cols = [params.delta, params.viscosity_coefficient, grav[..., 0],
+            grav[..., 1], params.damping_factor, mouse[..., 0],
+            mouse[..., 1], params.mouse_force_radius,
+            params.mouse_force_power,
+            torch.as_tensor(params.mouse_state, device=dev),
+            c["half_x"], c["half_y"], c["ff_sx"], c["ff_sy"], params.mass,
+            params.surface_tension_threshold,
+            params.surface_tension_coefficient]
+    if physics:
+        cols += [params.pressure_constant, params.rest_density]
+    return _sc_table(cols, wid, dev)
+
+
+def _count_variants(flags: int, wid_t) -> None:
+    for bit, name in ((_HAS_FF, "has_ff"), (_WRAP, "wrap"),
+                      (_ST, "surface_tension"), (_ADAPT, "adaptive")):
+        if flags & bit:
+            LAUNCHES[f"forces_integrate_{name}"] += 1
+    if wid_t is not None:
+        LAUNCHES["forces_integrate_wid"] += 1
+
+
 def forces_integrate(pos_x, pos_y, vel_x, vel_y, pres, invr, occ_row,
                      params, settings: SimSettings, frame, ff_cells=None,
                      x_boundary="bounce", surface_tension: bool = False,
-                     adaptive_subsampling: bool = False):
+                     adaptive_subsampling: bool = False, wid=None):
     """Symmetrised spiky pressure and viscosity over the 3x3 stencil,
     fused with the full integration (gravity, mouse impulse, NaN reset,
-    speed clamp, bounce). Returns (pos_x', pos_y', vel_x', vel_y').
-    ``frame`` seeds the coincident-pair tie-break. ``ff_cells``: optional
-    (ffx, ffy) f32[Gy, Gxp] pixel-space obstacle push-out per target cell
-    (``resident.forcefield_cells``). The base flags and ``has_ff`` are
-    ported; the other variants raise ``NotImplementedError``."""
-    _check_variant(x_boundary, surface_tension, adaptive_subsampling)
+    speed clamp, bounce or x wrap). Returns (pos_x', pos_y', vel_x',
+    vel_y'). ``frame`` seeds the coincident-pair tie-break. ``ff_cells``:
+    optional (ffx, ffy) f32[Gy, Gxp] pixel-space obstacle push-out per
+    target cell (``resident.forcefield_cells``). ``surface_tension`` adds
+    the colour-field force, ``adaptive_subsampling`` strides the pressure
+    candidates by the self density. ``wid``: i32[Gy] world of each row for
+    batched world stacks; the params may then carry a leading [W]."""
+    flags = _flags(x_boundary, ff_cells, surface_tension,
+                   adaptive_subsampling)
     ffs = () if ff_cells is None else tuple(ff_cells)
     if not _on_cuda(pos_x, pos_y, vel_x, vel_y, pres, invr, occ_row, *ffs):
-        return forces_integrate_plain(pos_x, pos_y, vel_x, vel_y, pres, invr,
-                                      occ_row, params, settings, frame,
-                                      ff_cells)
+        return forces_integrate_plain(
+            pos_x, pos_y, vel_x, vel_y, pres, invr, occ_row, params,
+            settings, frame, ff_cells, x_boundary, surface_tension,
+            adaptive_subsampling, wid)
     gy, k, gx = pos_x.shape
     _check_grids((gy, k, gx), pos_x, pos_y, vel_x, vel_y, pres, invr)
     _check_occ(occ_row, gy)
     if ffs:
         _check_ff(ffs, gy, gx)
     dev = pos_x.device
-    f32 = torch.float32
-    sc = torch.cat([
-        params.delta.reshape(1), params.viscosity_coefficient.reshape(1),
-        params.gravity.reshape(2), params.damping_factor.reshape(1),
-        params.mouse_pos.reshape(2), params.mouse_force_radius.reshape(1),
-        params.mouse_force_power.reshape(1),
-        params.mouse_state.reshape(1).to(f32)]).to(dev)
+    wid_t = _opt_rows(wid, gy, "wid", dev)
+    sc = _forces_sc(params, settings, wid_t, dev)
+    wid_t = _one_world(sc, wid_t)
     fr = torch.as_tensor(frame, dtype=torch.int64, device=dev).reshape(1)
-    outs = [torch.empty((gy, k, gx), dtype=f32, device=dev) for _ in range(4)]
-    c = _forces_consts(settings)
+    outs = [torch.empty((gy, k, gx), dtype=torch.float32, device=dev)
+            for _ in range(4)]
     lib = _build.load()
     err = lib.tf_forces(
         _ptr(pos_x), _ptr(pos_y), _ptr(vel_x), _ptr(vel_y), _ptr(pres),
-        _ptr(invr), _ptr(occ_row), _ptr(sc), _ptr(fr),
+        _ptr(invr), _ptr(occ_row), _ptr(wid_t), _ptr(sc), _ptr(fr),
         *([_ptr(f) for f in ffs] if ffs else [None, None]),
-        *(_ptr(o) for o in outs), gy, k, gx,
-        c["h"], c["sqr_radius"], c["c_spiky"], c["visc_norm"],
-        c["c_r3"], c["c_r2"], c["c_inv"], c["half_x"], c["half_y"],
-        c["ff_sx"], c["ff_sy"], _stream(dev))
+        *(_ptr(o) for o in outs), gy, k, gx, flags,
+        _consts_struct(settings), _stream(dev))
     _launched("forces_integrate", err)
+    _count_variants(flags, wid_t)
+    return tuple(outs)
+
+
+# -------------------------------- density + forces + integration, fused
+
+def physics_smem_bytes(k: int, rows: int, cols: int) -> int:
+    """Shared memory of one physics block: predictions of the +-2 tile,
+    velocities, pressure and 1/rho of the +-1 tile."""
+    return 4 * k * (2 * (rows + 4) * (cols + 4) + 4 * (rows + 2) * (cols + 2))
+
+
+def physics_tile(k: int):
+    """(rows, columns) of the physics kernel's tile at capacity ``k``: the
+    largest that leaves room for two blocks per SM, else the largest that
+    fits one; raises if none fits."""
+    for limit in (SMEM_TWO_BLOCKS, SMEM_MAX):
+        for rows, cols in PHYSICS_TILES:
+            if physics_smem_bytes(k, rows, cols) <= limit:
+                return rows, cols
+    raise ValueError(
+        f"physics: no tile fits cell_capacity {k} in {SMEM_MAX} bytes of "
+        f"shared memory (the smallest, {PHYSICS_TILES[-1]}, needs "
+        f"{physics_smem_bytes(k, *PHYSICS_TILES[-1])}); use the split "
+        f"density + forces_integrate pair")
+
+
+def physics_plain(pos_x, pos_y, vel_x, vel_y, occ_row, params,
+                  settings: SimSettings, frame, ff_cells=None,
+                  x_boundary="bounce", surface_tension: bool = False,
+                  adaptive_subsampling: bool = False, wid=None):
+    """Plain PyTorch version of :func:`physics`: by definition
+    ``density_plain`` followed by ``forces_integrate_plain``."""
+    pres, invr = density_plain(
+        pos_x, pos_y, vel_x, vel_y, occ_row, params.mass, params.delta,
+        params.pressure_constant, params.rest_density, settings, wid)
+    return forces_integrate_plain(
+        pos_x, pos_y, vel_x, vel_y, pres, invr, occ_row, params, settings,
+        frame, ff_cells, x_boundary, surface_tension, adaptive_subsampling,
+        wid)
+
+
+def physics(pos_x, pos_y, vel_x, vel_y, occ_row, params,
+            settings: SimSettings, frame, ff_cells=None, x_boundary="bounce",
+            surface_tension: bool = False,
+            adaptive_subsampling: bool = False, wid=None):
+    """Density + 3x3-stencil forces + full integration as one kernel.
+
+    Same contract as :func:`density` followed by
+    :func:`forces_integrate`, and bitwise equal to that pair: returns
+    (pos_x', pos_y', vel_x', vel_y'). pres and 1/rho never leave the
+    block (``csrc/physics.cu``)."""
+    flags = _flags(x_boundary, ff_cells, surface_tension,
+                   adaptive_subsampling)
+    ffs = () if ff_cells is None else tuple(ff_cells)
+    if not _on_cuda(pos_x, pos_y, vel_x, vel_y, occ_row, *ffs):
+        return physics_plain(pos_x, pos_y, vel_x, vel_y, occ_row, params,
+                             settings, frame, ff_cells, x_boundary,
+                             surface_tension, adaptive_subsampling, wid)
+    gy, k, gx = pos_x.shape
+    _check_grids((gy, k, gx), pos_x, pos_y, vel_x, vel_y)
+    _check_occ(occ_row, gy)
     if ffs:
-        LAUNCHES["forces_integrate_has_ff"] += 1
+        _check_ff(ffs, gy, gx)
+    rows, cols = physics_tile(k)
+    dev = pos_x.device
+    wid_t = _opt_rows(wid, gy, "wid", dev)
+    sc = _forces_sc(params, settings, wid_t, dev, physics=True)
+    wid_t = _one_world(sc, wid_t)
+    fr = torch.as_tensor(frame, dtype=torch.int64, device=dev).reshape(1)
+    outs = [torch.empty((gy, k, gx), dtype=torch.float32, device=dev)
+            for _ in range(4)]
+    h2, norm, _, _ = _density_consts(settings)
+    lib = _build.load()
+    err = lib.tf_physics(
+        _ptr(pos_x), _ptr(pos_y), _ptr(vel_x), _ptr(vel_y), _ptr(occ_row),
+        _ptr(wid_t), _ptr(sc), _ptr(fr),
+        *([_ptr(f) for f in ffs] if ffs else [None, None]),
+        *(_ptr(o) for o in outs), gy, k, gx, rows, cols, flags, h2, norm,
+        _consts_struct(settings), _stream(dev))
+    _launched("physics", err)
     return tuple(outs)

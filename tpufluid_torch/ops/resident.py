@@ -1,17 +1,26 @@
 """Grid-resident engine: particles live in the cell grid between steps
-(port of ``tpufluid.ops.resident``, single world, base variant).
+(port of ``tpufluid.ops.resident``: every variant flag, obstacles and
+batched world stacks).
 
 The state IS the slot grid ``[Gy, K, Gxp]`` (rows padded to a multiple of
 4, columns to a multiple of 128, K above 8 to a multiple of 8: the JAX
 shapes, so the two engines' states compare one to one). One step:
 
   1. rebin: slots move to their next predicted cell (``fused.rebin``);
-  2. far movers (> 1 cell in one step, rare) re-insert through plain
-     tensor code, only when the rebin counted any;
-  3. density -> (pressure, 1/rho) (``fused.density``);
-  4. forces fused with the integration (``fused.forces_integrate``), with
+  2. far movers (> 1 cell in one step, or across the x wall under
+     ``x_boundary="wrap"``) re-insert through plain tensor code, only when
+     the rebin counted any;
+  3. physics: density -> (pressure, 1/rho) (``fused.density``), then the
+     forces fused with the integration (``fused.forces_integrate``), with
      the per-cell obstacle push-out when the step is built with
-     ``has_force_field=True``.
+     ``has_force_field=True``; or both in one kernel (``fused.physics``,
+     bitwise the same) under ``TPUFLUID_FUSED_PHYSICS=1``.
+
+Batched worlds (``n_worlds=B``): B worlds of the same settings stack along
+the row axis, each world's rows ending in its empty sentinel ring, so one
+set of kernel launches steps them all; ``row_shift`` and ``wid`` map each
+row to its world, and the per-tick tunables carry a leading [B] dim
+(``delta`` is shared). BASELINE config 4 runs eight 128k worlds so.
 
 Arrivals beyond ``cell_capacity`` and far movers beyond ``far_capacity``
 are dropped and counted in ``GridState.lost``, never silently.
@@ -23,6 +32,7 @@ step 2 runs (the JAX step branches on the device with ``lax.cond``).
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Tuple
 
 import torch
@@ -169,7 +179,8 @@ def _reinsert_far(gs: GridState, px, py, vx, vy, n_far, dt,
     far movers of the pre-rebin grid in slot order (at most
     ``far_capacity``), order them by target cell, and append each to its
     target cell after the slots the rebin filled. Returns the new grids,
-    occ_row and the count dropped for want of room."""
+    occ_row and the count dropped for want of room. In a batched stack a
+    world's cell rows map to its own stacked rows."""
     gy, k, gxp = px.shape
     size = px.numel()
     dev = px.device
@@ -178,6 +189,9 @@ def _reinsert_far(gs: GridState, px, py, vx, vy, n_far, dt,
                             settings)
     scx = torch.arange(gxp, device=dev)[None, None, :]
     scy = torch.arange(gy, device=dev)[:, None, None]
+    rows_w = _rows(settings)
+    if gy > rows_w:  # world-local cell row -> absolute stacked row
+        ncy = ncy + (scy // rows_w) * rows_w
     far = (gs.pos_x < SENTINEL_HALF) & (
         ((ncy - scy).abs() > 1) | ((ncx - scx).abs() > 1))
     sort_key = torch.where(far.reshape(-1), 0, 1)
@@ -244,8 +258,16 @@ def forcefield_cells(forcefield: torch.Tensor, settings: SimSettings):
     return ((f[..., 0] * mask).contiguous(), (f[..., 1] * mask).contiguous())
 
 
-def _unported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md {item}")
+def _split_physics() -> bool:
+    """Physics layout, the JAX package's switch: the split density +
+    forces_integrate pair (the default), or the single fused physics
+    kernel under ``TPUFLUID_FUSED_PHYSICS=1`` (bitwise the same outputs);
+    ``TPUFLUID_SPLIT_PHYSICS=1`` forces the pair."""
+    if os.environ.get("TPUFLUID_SPLIT_PHYSICS", ""):
+        return True
+    if os.environ.get("TPUFLUID_FUSED_PHYSICS", ""):
+        return False
+    return True
 
 
 def make_grid_step(settings: SimSettings, far_capacity: int | None = None,
@@ -256,50 +278,68 @@ def make_grid_step(settings: SimSettings, far_capacity: int | None = None,
                    n_worlds: int = 1):
     """Resident step, memoised on its arguments: ``step(gs, params)``, or
     ``step(gs, params, forcefield)`` with ``has_force_field`` (forcefield:
-    the f32[H, W, 2] push-out field of ``forcefield.obstacle_force_field``).
+    the f32[H, W, 2] push-out field of ``forcefield.obstacle_force_field``;
+    with ``n_worlds > 1`` one field for every world or f32[B, H, W, 2]).
     The step runs where ``gs`` lies: the CUDA kernels on a CUDA device,
-    their plain versions on the CPU."""
-    if x_boundary not in ("bounce", "wrap"):
-        raise ValueError(f"unknown x_boundary {x_boundary!r}")
-    if x_boundary == "wrap":
-        _unported("x_boundary='wrap' in the resident engine",
-                  "queue 2 item 1, forces_integrate wrap_x")
-    if surface_tension:
-        _unported("surface tension in the resident engine",
-                  "queue 2 item 1, forces_integrate surface_tension")
-    if adaptive_subsampling:
-        _unported("adaptive subsampling in the resident engine",
-                  "queue 2 item 1, forces_integrate adaptive")
-    if n_worlds != 1:
-        _unported("batched worlds", "queue 1, batched worlds")
-    key = (settings, far_capacity, has_force_field)
+    their plain versions on the CPU. The physics layout
+    (``_split_physics``) is read when the step is built."""
+    split = _split_physics()
+    key = (settings, far_capacity, x_boundary, has_force_field,
+           surface_tension, adaptive_subsampling, n_worlds, split)
     hit = _STEP_CACHE.get(key)
     if hit is None:
         hit = _STEP_CACHE[key] = _make_step(
-            settings, far_capacity, has_force_field, fused.rebin,
-            fused.density, fused.forces_integrate)
+            settings, far_capacity, x_boundary, has_force_field,
+            surface_tension, adaptive_subsampling, n_worlds, fused.rebin,
+            fused.density, fused.forces_integrate,
+            None if split else fused.physics)
     return hit
 
 
 def make_plain_grid_step(settings: SimSettings,
                          far_capacity: int | None = None,
-                         has_force_field: bool = False):
+                         x_boundary: str = "bounce",
+                         has_force_field: bool = False,
+                         surface_tension: bool = False,
+                         adaptive_subsampling: bool = False,
+                         n_worlds: int = 1):
     """The resident step built on the kernels' plain PyTorch versions, on
     any device: the reference that the CUDA step is held to on the card."""
-    return _make_step(settings, far_capacity, has_force_field,
+    return _make_step(settings, far_capacity, x_boundary, has_force_field,
+                      surface_tension, adaptive_subsampling, n_worlds,
                       fused.rebin_plain, fused.density_plain,
-                      fused.forces_integrate_plain)
+                      fused.forces_integrate_plain, None)
 
 
-def _make_step(settings: SimSettings, far_capacity, has_force_field: bool,
-               rebin, density, forces_integrate):
+def _make_step(settings: SimSettings, far_capacity, x_boundary: str,
+               has_force_field: bool, surface_tension: bool,
+               adaptive_subsampling: bool, n_worlds: int, rebin, density,
+               forces_integrate, physics):
+    if x_boundary not in ("bounce", "wrap"):
+        raise ValueError(f"unknown x_boundary {x_boundary!r}")
+    if n_worlds < 1:
+        raise ValueError(f"n_worlds {n_worlds} < 1")
     settings = pad_capacity(settings)
     k = settings.cell_capacity
-    gy_p = _rows(settings)
+    rows_w = _rows(settings)
+    gy_p = rows_w * n_worlds
     gxp = _gxp(settings)
     if far_capacity is None:
         # impact phases can fling thousands of >1-cell movers in one step
         far_capacity = max(4096, (gy_p * k * gxp) // 128)
+    variant = dict(x_boundary=x_boundary, surface_tension=surface_tension,
+                   adaptive_subsampling=adaptive_subsampling)
+    # batched stacks: each row's world, and its cell-row frame offset
+    tables = {}
+
+    def world_tables(device):
+        if n_worlds == 1:
+            return None, None
+        if device not in tables:
+            w = torch.arange(n_worlds, dtype=torch.int32, device=device)
+            w = w.repeat_interleave(rows_w)
+            tables[device] = (w, -(w * rows_w))
+        return tables[device]
 
     # the field's cell samples, kept while the same field tensor comes
     # back: sampling once per field instead of once per step gives the
@@ -311,7 +351,8 @@ def _make_step(settings: SimSettings, far_capacity, has_force_field: bool,
             raise ValueError("step built with has_force_field=True needs a "
                              "forcefield argument")
         if ff_memo[0] is not forcefield:
-            ff_memo[:] = [forcefield, forcefield_cells(forcefield, settings)]
+            ff_memo[:] = [forcefield, _world_cells(forcefield, settings,
+                                                   n_worlds)]
         return ff_memo[1]
 
     def step(gs: GridState, params, forcefield=None) -> GridState:
@@ -319,26 +360,57 @@ def _make_step(settings: SimSettings, far_capacity, has_force_field: bool,
         if gs.pos_x.shape != (gy_p, k, gxp):
             raise ValueError(f"state shape {tuple(gs.pos_x.shape)} does not "
                              f"match settings {(gy_p, k, gxp)}")
-        frame = gs.tick + 1
         dt = params.delta
+        if n_worlds > 1 and dt.numel() != 1:
+            raise ValueError(
+                "batched resident mode shares one delta across worlds "
+                "(pass a scalar); gravity/viscosity/etc. may be [B]")
+        wid, row_shift = world_tables(gs.pos_x.device)
+        frame = gs.tick + 1
         px, py, vx, vy, occ_row, far_n, over_n = rebin(
-            gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, gs.occ_row, dt, settings)
+            gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, gs.occ_row, dt, settings,
+            row_shift=row_shift)
         n_far = far_n.sum()
         lost = gs.lost + over_n.sum().to(torch.int32)
         if int(n_far) > 0:  # the step's one host sync
             px, py, vx, vy, occ_row, dropped = _reinsert_far(
                 gs, px, py, vx, vy, n_far, dt, settings, far_capacity)
             lost = lost + dropped
-        pres, invr = density(
-            px, py, vx, vy, occ_row, params.mass, dt,
-            params.pressure_constant, params.rest_density, settings)
-        npx, npy, nvx, nvy = forces_integrate(
-            px, py, vx, vy, pres, invr, occ_row, params, settings, frame,
-            ff_cells=ff_cells)
+            step.far_steps += 1
+        if physics is not None:
+            npx, npy, nvx, nvy = physics(
+                px, py, vx, vy, occ_row, params, settings, frame,
+                ff_cells=ff_cells, wid=wid, **variant)
+        else:
+            pres, invr = density(
+                px, py, vx, vy, occ_row, params.mass, dt,
+                params.pressure_constant, params.rest_density, settings,
+                wid=wid)
+            npx, npy, nvx, nvy = forces_integrate(
+                px, py, vx, vy, pres, invr, occ_row, params, settings, frame,
+                ff_cells=ff_cells, wid=wid, **variant)
         return GridState(pos_x=npx, pos_y=npy, vel_x=nvx, vel_y=nvy,
                          occ_row=occ_row, tick=frame, lost=lost)
 
+    # steps that ran the far-mover fallback (one host-synced plain pass)
+    step.far_steps = 0
     return step
+
+
+def _world_cells(forcefield: torch.Tensor, settings: SimSettings,
+                 n_worlds: int):
+    """Per-cell push-out samples of the step's state rows: one world's
+    (``forcefield_cells``), or a batched stack's, each world's samples
+    stacked along the rows like its state (a [H, W, 2] field is shared by
+    every world, a [B, H, W, 2] one gives each its own)."""
+    if n_worlds == 1:
+        return forcefield_cells(forcefield, settings)
+    ff = forcefield
+    if ff.dim() == 3:
+        ff = ff.expand((n_worlds,) + tuple(ff.shape))
+    parts = [forcefield_cells(ff[w], settings) for w in range(n_worlds)]
+    return (torch.cat([p[0] for p in parts]).contiguous(),
+            torch.cat([p[1] for p in parts]).contiguous())
 
 
 _STEP_CACHE: dict = {}
@@ -346,7 +418,7 @@ _STEP_CACHE: dict = {}
 
 def make_grid_multi_step(settings: SimSettings, n_steps: int, **kw):
     """``run(gs, params[, forcefield])``: ``n_steps`` resident steps in a
-    Python loop."""
+    Python loop (``kw``: those of ``make_grid_step``)."""
     step = make_grid_step(settings, **kw)
 
     def run(gs: GridState, params, *forcefield) -> GridState:
@@ -354,4 +426,72 @@ def make_grid_multi_step(settings: SimSettings, n_steps: int, **kw):
             gs = step(gs, params, *forcefield)
         return gs
 
+    run.step = step
     return run
+
+
+# ------------------------------------------------------------- batching
+# BASELINE config 4: B independent worlds with differing per-tick params,
+# stepped by one set of kernel launches (make_grid_step(n_worlds=B)).
+
+def init_batched_grid_state(settings: SimSettings, n_worlds: int,
+                            device) -> GridState:
+    """The reference spawn lattice replicated into a B-world row stack."""
+    gs = init_grid_state(settings, device)
+    tile = lambda a: a.repeat(n_worlds, 1, 1)
+    return GridState(
+        pos_x=tile(gs.pos_x), pos_y=tile(gs.pos_y),
+        vel_x=tile(gs.vel_x), vel_y=tile(gs.vel_y),
+        occ_row=gs.occ_row.repeat(n_worlds), tick=gs.tick, lost=gs.lost)
+
+
+def batched_params(param_list):
+    """Stack B TickParams into one with a leading [B] dim on every field
+    except ``delta``, which the worlds must share."""
+    d0 = param_list[0].delta
+    for p in param_list[1:]:
+        if not torch.equal(p.delta.to(d0.device), d0):
+            raise ValueError("batched worlds must share delta")
+    fields = {f.name: torch.stack([getattr(p, f.name) for p in param_list])
+              for f in dataclasses.fields(param_list[0])}
+    fields["delta"] = d0
+    return type(param_list[0])(**fields)
+
+
+def batched_world_stats(gs: GridState, settings: SimSettings,
+                        n_worlds: int) -> dict:
+    """Per-world occupancy of a batched row stack: particle count,
+    occupied rows, per-row max occupancy (mean over occupied rows and
+    max), and the mean occ3 over occupied rows, the candidate-scan bound
+    the kernels pay. Plain Python lists, one entry per world."""
+    gy = _rows(settings)
+    occ_cell = (gs.pos_x < SENTINEL_HALF).sum(dim=1).to(torch.int32)
+    occ_cell = occ_cell.reshape(n_worlds, gy, -1)
+    n_parts = occ_cell.sum(dim=(1, 2))
+    rowmax = occ_cell.amax(dim=2)  # [W, Gy]
+    occupied = rowmax > 0
+    n_rows = occupied.sum(dim=1)
+    zero = torch.zeros_like(rowmax[:, :1])
+    lo = torch.cat([zero, rowmax[:, :-1]], dim=1)
+    hi = torch.cat([rowmax[:, 1:], zero], dim=1)
+    occ3 = torch.maximum(torch.maximum(lo, rowmax), hi)
+    denom = torch.clamp(n_rows, min=1).to(torch.float32)
+    mean_rowmax = torch.where(occupied, rowmax, 0).sum(dim=1) / denom
+    mean_occ3 = torch.where(occupied, occ3, 0).sum(dim=1) / denom
+    return dict(
+        particles=[int(x) for x in n_parts],
+        occupied_rows=[int(x) for x in n_rows],
+        rowmax_mean=[float(x) for x in mean_rowmax],
+        rowmax_max=[int(x) for x in rowmax.amax(dim=1)],
+        occ3_mean=[float(x) for x in mean_occ3],
+    )
+
+
+def world_state(gs: GridState, settings: SimSettings, w: int) -> GridState:
+    """World ``w`` of a batched row stack."""
+    gy = _rows(settings)
+    sl = slice(w * gy, (w + 1) * gy)
+    return GridState(
+        pos_x=gs.pos_x[sl], pos_y=gs.pos_y[sl],
+        vel_x=gs.vel_x[sl], vel_y=gs.vel_y[sl],
+        occ_row=gs.occ_row[sl], tick=gs.tick, lost=gs.lost)
