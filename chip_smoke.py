@@ -9,7 +9,8 @@ Builds the CUDA kernels from ``tpufluid_torch/csrc`` and runs, in order:
    grid at K=32), timed;
 2. a synced 20-step comparison of the kernel step against the plain step;
 3. ``FluidApp(scene_1m, neighbor_mode="resident", device="cuda").run(200)``
-   with the launch counters reset just before it;
+   with the launch counters reset just before it, then a torch.profiler
+   reading of 20 more steps;
 4. the reference's default scene (100k particles, gravity) through the
    CLI's ``run`` path for 512 steps;
 5. the metaball coarse-field kernel against its plain version at scene_1m
@@ -28,7 +29,7 @@ Builds the CUDA kernels from ``tpufluid_torch/csrc`` and runs, in order:
     with the launch counters reset just before it;
 12. engine parity on bench.py's parity scene (grid, dense and pallas, 10
     steps), and the CLI's default ``run`` (the dense engine) on the
-    reference's default scene for 64 steps;
+    reference's default scene for 32 steps;
 13. forces_integrate's variants against their plain versions, bitwise:
     x wrap at scene_1m with movers across the x walls, surface tension at
     scene_1m (and at h = 1.5, where it acts), adaptive subsampling on the
@@ -44,7 +45,18 @@ Builds the CUDA kernels from ``tpufluid_torch/csrc`` and runs, in order:
     three variant flags and with wid on config 4's stack; timed against
     the pair; resident ms/step split vs fused at scene_1m;
 16. the CLI's ``run --neighbor-mode resident`` with ``--x-boundary wrap
-    --surface-tension --adaptive-subsampling`` on the default scene.
+    --surface-tension --adaptive-subsampling`` on the default scene;
+17. the round-1 rebin with a valid mask (``ops.rebin.rebin_valid``, no
+    caller on any path) against its plain version at scene_1m's grid with
+    valid_f from the seeded state, bitwise, timed;
+18. the tile kernels of density and forces_integrate against their plain
+    versions, bitwise, at every tile shape the wrapper picks: scene_1m
+    K=8 (its 524 rows ragged for the density tile), the clump at K=16,
+    scene_1m K=32, phase 4's K=192 grid (64 rows from its densest one; the
+    whole grid timed) and a small grid of 41 rows (ragged for every tile
+    height) at K=8 and K=256 with a row at full occupancy, and sparse (60
+    particles, halo rows of at most one slot) at K=8 and K=192; with each
+    variant flag, an obstacle field and two worlds (wid).
 
 Any failed phase raises and the script exits non-zero. Output: progress
 lines, then the card's name and power limit, then one JSON line of
@@ -81,8 +93,8 @@ PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 # pair (density: predict 8, distance 5, kernel 5; forces: predict 8,
 # distance 7, pressure 11, viscosity 17), per live (sample, candidate) pair
 # (metaball_coarse: distance 5, scale 1, exp 1, sums 3)
-OPS = {"rebin": 14, "density": 18, "forces_integrate": 43,
-       "metaball_coarse": 10}
+OPS = {"rebin": 14, "rebin_valid": 14, "density": 18,
+       "forces_integrate": 43, "metaball_coarse": 10}
 # forces_integrate's variants: f32 operations per live pair beyond the
 # base 43, counted from csrc/resident_math.cuh (surface tension: direction
 # 2, length 4, gradient weight 5, mass / rho 1, two gradient sums 6, the
@@ -103,6 +115,8 @@ BYTES_SPH = {"sph_density": 2 * 4 + 1 + 4, "sph_forces": 5 * 4 + 1 + 4 * 4}
 KERNELS = {
     "rebin": ("tpufluid_torch/csrc/rebin.cu",
               "tpufluid/ops/pallas/fused.py:396"),
+    "rebin_valid": ("tpufluid_torch/csrc/rebin_valid.cu",
+                    "tpufluid/ops/pallas/rebin.py:124"),
     "density": ("tpufluid_torch/csrc/density.cu",
                 "tpufluid/ops/pallas/fused.py:627"),
     "forces_integrate": ("tpufluid_torch/csrc/forces.cu",
@@ -273,6 +287,7 @@ def compare_kernels(settings, params, label):
     if not (e_rho <= RHO_TOL and e_pres <= RHO_TOL):
         raise AssertionError(f"{label} density: rel err rho {e_rho} pres "
                              f"{e_pres} > {RHO_TOL}")
+    bitwise((pres, invr), (pres_p, invr_p), f"{label} density")
     out["density"] = dict(max_abs_err=max(abs_err(pres, pres_p, live),
                                           abs_err(invr, invr_p, live)))
     log(f"{label} density: rel err rho {e_rho:.3g} pres {e_pres:.3g} "
@@ -284,9 +299,7 @@ def compare_kernels(settings, params, label):
     errs = [rel_err(a, b, live) for a, b in zip(new, new_p)]
     if not (max(errs[:2]) <= POS_TOL and max(errs[2:]) <= VEL_TOL):
         raise AssertionError(f"{label} forces_integrate: rel errs {errs}")
-    for a, b in zip(new, new_p):
-        if not torch.equal(a[~live], b[~live]):
-            raise AssertionError(f"{label} forces_integrate: dead slots differ")
+    bitwise(new, new_p, f"{label} forces_integrate")
     out["forces_integrate"] = dict(
         max_abs_err=max(abs_err(a, b, live) for a, b in zip(new, new_p)))
     log(f"{label} forces_integrate: rel err pos {max(errs[:2]):.3g} (bound "
@@ -428,9 +441,7 @@ def compare_has_ff(settings, params, field, label):
     if not (max(errs[:2]) <= POS_TOL and max(errs[2:]) <= VEL_TOL):
         raise AssertionError(f"{label} forces_integrate has_ff: rel errs "
                              f"{errs}")
-    for a, b in zip(new, new_p):
-        if not torch.equal(a[~live], b[~live]):
-            raise AssertionError(f"{label} has_ff: dead slots differ")
+    bitwise(new, new_p, f"{label} forces_integrate has_ff")
     pushed = int(((new[0] != base[0]) & live).sum())
     if pushed < 1000:
         raise AssertionError(f"{label} has_ff: only {pushed} pushed")
@@ -456,17 +467,19 @@ def compare_has_ff(settings, params, field, label):
 
 
 def reset_counts():
-    from tpufluid_torch.ops import fused, render_coarse, sph
+    from tpufluid_torch.ops import fused, rebin, render_coarse, sph
 
-    for counts in (fused.LAUNCHES, render_coarse.LAUNCHES, sph.LAUNCHES):
+    for counts in (fused.LAUNCHES, rebin.LAUNCHES, render_coarse.LAUNCHES,
+                   sph.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
 
 def read_counts() -> dict:
-    from tpufluid_torch.ops import fused, render_coarse, sph
+    from tpufluid_torch.ops import fused, rebin, render_coarse, sph
 
-    return {**fused.LAUNCHES, **render_coarse.LAUNCHES, **sph.LAUNCHES}
+    return {**fused.LAUNCHES, **rebin.LAUNCHES, **render_coarse.LAUNCHES,
+            **sph.LAUNCHES}
 
 
 def render_cli():
@@ -823,11 +836,11 @@ def engine_parity(dev):
 
 def cli_default_run():
     """The CLI's ``run`` with no --neighbor-mode (the dense engine) on the
-    reference's default scene, 64 steps."""
+    reference's default scene, 32 steps."""
     from tpufluid_torch import cli
 
     args = cli.parser().parse_args(["run", "--device", "cuda", "--steps",
-                                    "64", "--report-every", "32"])
+                                    "32", "--report-every", "16"])
     if args.neighbor_mode != "dense":
         raise AssertionError(f"CLI default engine {args.neighbor_mode}")
     torch.cuda.synchronize()
@@ -836,13 +849,13 @@ def cli_default_run():
     wall = time.perf_counter() - t0
     m = app.metrics(deep=True)
     log(f"CLI default run (dense, 100k, 53x53, K={app.settings.cell_capacity}"
-        f"), 64 steps: wall {wall:.2f} s, {1e3 * wall / 64:.1f} ms/step; "
+        f"), 32 steps: wall {wall:.2f} s, {1e3 * wall / 32:.1f} ms/step; "
         f"tick {m['tick']}, NaN {m['nan_positions']}, max occupancy "
         f"{m['max_cell_occupancy']}")
-    if not (m["tick"] == 64 and m["nan_positions"] == 0
+    if not (m["tick"] == 32 and m["nan_positions"] == 0
             and not m["capacity_exceeded"]):
         raise AssertionError(f"CLI default run: {m}")
-    return dict(wall_s=wall, ms_per_step=1e3 * wall / 64,
+    return dict(wall_s=wall, ms_per_step=1e3 * wall / 32,
                 cell_capacity=app.settings.cell_capacity,
                 profile=profile_steps(app, 2, "CLI default dense"))
 
@@ -1186,6 +1199,169 @@ def cli_variant_run():
     return dict(exit=out.returncode, wall_s=wall)
 
 
+def compare_rebin_valid(settings, params, label):
+    """ops.rebin.rebin_valid against its plain version, bitwise, on the
+    seeded state's grid with valid_f = 1 at the live slots (the empty
+    slots keep their SENTINEL data as stale data), then timed."""
+    from tpufluid_torch.ops import rebin, resident
+
+    gs = resident.from_particles(seeded_state(settings, params.device),
+                                 settings)
+    valid = (gs.pos_x < 5e8).float()
+    args = (gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, valid, params.delta,
+            settings)
+    got = rebin.rebin_valid(*args)
+    want = rebin.rebin_valid_plain(*args)
+    bitwise(got, want, f"{label} rebin_valid")
+    n_valid = float(valid.sum())
+    lost = float(want[5][:, 0].sum()) * settings.cell_capacity
+    if not (lost > 0 and float(want[4].sum()) + lost == n_valid):
+        raise AssertionError(f"{label} rebin_valid: {n_valid} valid, "
+                             f"{float(want[4].sum())} moved, {lost} lost")
+    b_ms, b_by = bound(11 * grid_bytes(gs.pos_x), OPS["rebin_valid"] * n_valid)
+    ms, plain_ms, raw = timed_pair(lambda: rebin.rebin_valid(*args),
+                                   lambda: rebin.rebin_valid_plain(*args))
+    res = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=None, grid=list(gs.pos_x.shape))
+    log(f"{label} rebin_valid {tuple(gs.pos_x.shape)}: bitwise equal to "
+        f"plain ({n_valid:.0f} valid slots, {lost:.0f} lost); kernel "
+        f"{ms:.4f} ms ({raw[0]:.4f}, {raw[1]:.4f}), plain {plain_ms:.3f} ms "
+        f"({raw[2]:.3f}, {raw[3]:.3f}), bound {b_ms:.4f} ms ({b_by})")
+    return res
+
+
+def small_state(device, k, n_random=1500, fill_row=True, seed=SEED):
+    """A 9 x 8 world (47 x 42 cells, Gxp 128) at capacity ``k``:
+    ``n_random`` random particles, a coincident pair, and with
+    ``fill_row`` eight neighbouring cells of row 20 filled to ``k``; its
+    grid is cut to its first 41 rows (the rows dropped are empty), which
+    no tile height of 2, 4 or 8 divides. With few particles most tiles
+    stage halo rows of at most one slot. Returns (settings, GridState)."""
+    import numpy as np
+    import tpufluid_torch as tt
+    from tpufluid_torch.ops import resident
+
+    rng = np.random.default_rng(seed)
+    h, half = 0.2, np.array([4.5, 4.0])
+    full = np.stack(np.meshgrid(np.arange(10, 18), [20]), -1).reshape(-1, 2)
+    rand = rng.uniform(-half, half, (3000, 2))
+    cell = np.floor((rand + half) / h).astype(int) + 1
+    clear = ~((cell[:, 1] == 20) & (cell[:, 0] >= 10) & (cell[:, 0] < 18))
+    rand = rand[clear][:n_random]
+    packed = ((np.repeat(full, k if fill_row else 0, axis=0) - 1
+               + rng.uniform(0.05, 0.95, (len(full) * k * fill_row, 2)))
+              * h - half)
+    pos = np.concatenate([rand, packed]).astype(np.float32)
+    pos[1] = pos[0]
+    vel = rng.normal(size=pos.shape).astype(np.float32) * 2.0
+    vel[1] = vel[0]
+    s = tt.SimSettings(particle_count=len(pos), size=(9.0, 8.0),
+                       cell_capacity=k)
+    st = tt.init_state(s, device)
+    st = dataclasses.replace(
+        st, position=torch.from_numpy(pos).to(device),
+        predicted=torch.from_numpy(pos).to(device),
+        velocity=torch.from_numpy(vel).to(device))
+    gs = resident.from_particles(st, s)
+    gs = dataclasses.replace(gs, **{
+        f: getattr(gs, f)[:41].contiguous()
+        for f in ("pos_x", "pos_y", "vel_x", "vel_y", "occ_row")})
+    if (fill_row and int(gs.occ_row.max()) != k) or int(gs.lost) != 0:
+        raise AssertionError(f"small state at K={k}: occupancy "
+                             f"{int(gs.occ_row.max())}, lost {int(gs.lost)}")
+    return s, gs
+
+
+# the variant sets of the tile gates: forces_integrate's flags, "has_ff"
+# (a seeded random push-out field) and "wid" (rows split into two worlds)
+TILE_VARIANTS = {
+    "base": {}, "wrap": dict(x_boundary="wrap"),
+    "surface_tension": dict(surface_tension=True),
+    "adaptive": dict(adaptive_subsampling=True), "has_ff": dict(has_ff=True),
+    "wid": dict(wid=True),
+    "all": dict(x_boundary="wrap", surface_tension=True,
+                adaptive_subsampling=True, has_ff=True)}
+
+
+def tile_gates(label, settings, grids, variants):
+    """density and forces_integrate against their plain versions, bitwise,
+    on ``grids`` (px, py, vx, vy, occ, frame) with each of ``variants``
+    (TILE_VARIANTS keys). Params: gravity -9.8 and surface tension's
+    test values; "wid" splits the rows between that world and one with
+    gravity -2 and viscosity 25."""
+    import tpufluid_torch as tt
+    from tpufluid_torch.ops import fused, resident
+
+    px, py, vx, vy, occ, frame = grids
+    dev = px.device
+    gy, k, gx = px.shape
+    plist = [tt.TickParams.default(dev, gravity=(0.0, -9.8), **ST_PARAMS),
+             tt.TickParams.default(dev, gravity=(0.0, -2.0),
+                                   viscosity_coefficient=25.0, **ST_PARAMS)]
+    g = torch.Generator(device="cpu").manual_seed(SEED + k)
+    ff = (torch.rand((2, gy, gx), generator=g) - 0.5) * 4.0
+    ff[torch.rand(ff.shape, generator=g) < 0.7] = 0.0
+    ff = ff.to(dev)
+    torch.use_deterministic_algorithms(True)
+    for name in variants:
+        kw = dict(TILE_VARIANTS[name])
+        prm = plist[0]
+        if kw.pop("wid", False):
+            prm = resident.batched_params(plist)
+            kw["wid"] = (torch.arange(gy, device=dev) >= gy // 2).to(
+                torch.int32)
+        if kw.pop("has_ff", False):
+            kw["ff_cells"] = (ff[0], ff[1])
+        wid = kw.get("wid")
+        dargs = (px, py, vx, vy, occ, prm.mass, prm.delta,
+                 prm.pressure_constant, prm.rest_density, settings)
+        want = fused.density_plain(*dargs, wid=wid)
+        bitwise(fused.density(*dargs, wid=wid), want,
+                f"{label} density {name}")
+        fargs = (px, py, vx, vy, *want, occ, prm, settings, frame)
+        bitwise(fused.forces_integrate(*fargs, **kw),
+                fused.forces_integrate_plain(*fargs, **kw),
+                f"{label} forces_integrate {name}")
+    torch.use_deterministic_algorithms(False)
+    log(f"{label} {(gy, k, gx)} (tiles: density "
+        f"{fused.density_tile(k)}, forces {fused.forces_tile(k)}; max "
+        f"occupancy {int(occ.max())}): density and forces_integrate bitwise "
+        f"equal to plain with {', '.join(variants)}")
+    return f"{label} K={k}: {', '.join(variants)}"
+
+
+def time_big_k(grids, settings, params, label):
+    """density and forces_integrate against their plain versions' time
+    and the bound on a high-occupancy grid."""
+    from tpufluid_torch.ops import fused
+
+    px, py, vx, vy, occ, frame = grids
+    dargs = (px, py, vx, vy, occ, params.mass, params.delta,
+             params.pressure_constant, params.rest_density, settings)
+    pres, invr = fused.density(*dargs)
+    fargs = (px, py, vx, vy, pres, invr, occ, params, settings, frame)
+    g = grid_bytes(px)
+    pairs = stencil_pairs(px)
+    out = {}
+    for name, n_bytes, kern, plain in (
+            ("density", 6 * g, lambda: fused.density(*dargs),
+             lambda: fused.density_plain(*dargs)),
+            ("forces_integrate", 10 * g,
+             lambda: fused.forces_integrate(*fargs),
+             lambda: fused.forces_integrate_plain(*fargs))):
+        b_ms, b_by = bound(n_bytes, OPS[name] * pairs)
+        k1, k2 = time_ms(kern, 50), time_ms(kern, 50)
+        plain_ms = time_ms(plain, 1, warm=0)  # seconds a call: one reading
+        out[name] = dict(max_abs_err=0.0, ms=(k1 + k2) / 2,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None, grid=list(px.shape))
+        log(f"{label} {name} {tuple(px.shape)}: kernel "
+            f"{out[name]['ms']:.4f} ms ({k1:.4f}, {k2:.4f}), plain "
+            f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); "
+            f"{pairs:.4e} stencil pairs")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -1193,7 +1369,7 @@ def main() -> int:
     from tpufluid_torch import _build, cli
     from tpufluid_torch.app import FluidApp
     from tpufluid_torch.models import scenes
-    from tpufluid_torch.ops import resident
+    from tpufluid_torch.ops import fused, resident
 
     dev = torch.device("cuda")
     card = card_line()
@@ -1258,6 +1434,7 @@ def main() -> int:
     if launches != {**dict.fromkeys(launches, 0), "rebin": 200,
                     "density": 200, "forces_integrate": 200}:
         raise AssertionError(f"kernel launches in the run: {launches}")
+    resident_prof = profile_steps(app, 20, "scene_1m resident")
 
     # 4. the reference's default scene through the CLI's run path
     args = cli.parser().parse_args([
@@ -1489,7 +1666,6 @@ def main() -> int:
                      gs192.occ_row, gs192.tick + 1), s192,
                     tt.TickParams.default(dev, gravity=(0.0, -9.8)),
                     "default scene after 512 steps", plain=False)
-    del gs192
     field = forcefield.obstacle_force_field(
         forcefield.Objects.from_list(OBSTACLES_1M, dev), s8)
     compare_physics(grids8, s8, scene.params, "scene_1m K=8",
@@ -1527,6 +1703,44 @@ def main() -> int:
     # 16. the CLI with the resident engine's variant flags
     cli_variants = cli_variant_run()
 
+    # 17. kernel 8: the round-1 rebin with a valid mask (no caller)
+    torch.use_deterministic_algorithms(True)
+    rebin_valid = compare_rebin_valid(s8, scene.params, "scene_1m K=8")
+    torch.use_deterministic_algorithms(False)
+
+    # 18. the tile kernels of density and forces at every tile shape
+    gates = [tile_gates("scene_1m", s8, grids8,
+                        ["adaptive", "has_ff", "wid"])]
+    gates.append(tile_gates("scene_1m clump", s16, (
+        *rebinned(gcl, s16, p_st), gcl.tick + 1), ["base", "has_ff", "wid"]))
+    g32 = resident.from_particles(seeded_state(s32, dev), s32)
+    gates.append(tile_gates("scene_1m", s32, (
+        *rebinned(g32, s32, scene.params), g32.tick + 1),
+        ["base", "wrap", "surface_tension", "adaptive", "has_ff", "wid"]))
+    del g32
+    g192 = (gs192.pos_x, gs192.pos_y, gs192.vel_x, gs192.vel_y,
+            gs192.occ_row, gs192.tick + 1)
+    del gs192
+    # the gates on the 64 rows from the densest one on (the plain forces
+    # takes seconds a call on the whole grid); the tile depends on K only
+    y0 = min(int(g192[4].argmax()), g192[0].shape[0] - 64)
+    gates.append(tile_gates("default scene after 512 steps, 64 densest rows",
+                            s192, (*(a[y0:y0 + 64].contiguous()
+                                     for a in g192[:5]), g192[5]),
+                            ["base", "all", "wid"]))
+    big_k = time_big_k(g192, s192,
+                       tt.TickParams.default(dev, gravity=(0.0, -9.8)),
+                       "default scene after 512 steps")
+    del g192
+    for label, k, n_random, fill in (("full row", 8, 1500, True),
+                                     ("full row", 256, 1500, True),
+                                     ("sparse", 8, 60, False),
+                                     ("sparse", 192, 60, False)):
+        sk, gk = small_state(dev, k, n_random, fill)
+        gates.append(tile_gates(label, sk, (
+            gk.pos_x, gk.pos_y, gk.vel_x, gk.vel_y, gk.occ_row, gk.tick + 1),
+            ["base", "all", "wid"]))
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         if name == "metaball_coarse":
@@ -1536,6 +1750,8 @@ def main() -> int:
                                    "bound_ms", "bound_by")},
                 library_ms=None, k32=coarse["scene_1m K=32"],
                 default_scene=coarse["default scene"])
+        elif name == "rebin_valid":
+            entry = dict(launches=launches[name], **rebin_valid)
         elif name == "physics":
             entry = dict(launches=l_fused["physics"],
                          split_path_launches=l_split["physics"],
@@ -1562,6 +1778,11 @@ def main() -> int:
             for v, vres in variants.items():
                 entry[v] = dict(launches=v_launches[f"forces_integrate_{v}"],
                                 **vres)
+        if name in ("density", "forces_integrate"):
+            entry["k192"] = big_k[name]
+            entry["tile"] = list(getattr(fused, {
+                "density": "density_tile",
+                "forces_integrate": "forces_tile"}[name])(8))
         if name in ("rebin", "density", "forces_integrate"):
             key = {"rebin": "row_shift"}.get(name, "wid")
             entry[key] = dict(launches=b_launches[f"{name}_{key}"],
@@ -1574,6 +1795,7 @@ def main() -> int:
                             replaces=replaces, **entry))
     print(card)
     print(json.dumps({"kernels": kernels, "ms_per_step": ms_step,
+                      "resident_profile": resident_prof,
                       "pallas_ms_per_step": ms_pallas,
                       "pallas_profile": pallas_prof, "render": render_res,
                       "frame": frame, "parity": parity,
@@ -1584,7 +1806,7 @@ def main() -> int:
                                       lost_at_step=c4_lost,
                                       world_stats=c4_stats),
                       "resident_physics": resident_physics,
-                      "cli_variants": cli_variants}))
+                      "cli_variants": cli_variants, "tile_gates": gates}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

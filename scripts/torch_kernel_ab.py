@@ -4,18 +4,39 @@
 
 Each checkout runs in its own process (its own ``tpufluid_torch/_build``):
 the script re-runs itself once per path and prints, per checkout, the
-registers and spills ptxas reports for the resident kernels and the device
-ms of rebin, density, forces_integrate (and physics, where the checkout
-has it) at scene_1m, K=8, on the spawn lattice with seeded random
-velocities: CUDA events around 50 calls behind a sleep kernel, twice. Give
-the paths as parent, change, change, parent to compare two versions within
-one call. Needs a CUDA device; imports no JAX.
+registers and spills ptxas reports for the resident kernels, then the
+device ms (CUDA events around 50 calls behind a sleep kernel, twice; the
+mean and both readings) of:
+
+* density and forces_integrate at scene_1m K=8 and K=32 (seeded state:
+  the spawn lattice with random velocities, far movers and coincident
+  pairs) and on the reference's default scene after 512 steps under
+  gravity (100k particles; the capacity grows to K=192 there);
+* forces_integrate with each variant at scene_1m: x wrap with movers
+  across the walls, surface tension, adaptive subsampling on the clumped
+  K=16 state, an obstacle field (has_ff); density and forces with wid on
+  BASELINE config 4's stack of eight seeded worlds;
+* rebin and, where the checkout has it, physics at scene_1m K=8;
+* the resident step, ``FluidApp(scene_1m, neighbor_mode="resident")``:
+  ms/step over 200 steps of ``run`` five times after a 20-step warm-up
+  (CUDA events; the median and each reading), and the device's busy time
+  per step over 20 more (torch.profiler, ``chip_smoke.profile_steps``).
+
+The states come from ``chip_smoke.py`` of the tree this script lies in, so
+every checkout times the same inputs. Give the paths as parent, change,
+change, parent to compare two versions within one call. Needs a CUDA
+device; imports no JAX.
 """
 
+import contextlib
 import dataclasses
+import importlib.util
+import io
 import os
 import subprocess
 import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def registers(log: str):
@@ -29,38 +50,27 @@ def registers(log: str):
             spill = line.strip().split(",")[1].strip()
         elif "Used" in line and "registers" in line and name:
             if ("sph" not in name and "metaball" not in name
-                    and ("ILb" not in name or "ILb0ELb0ELb0ELb0E" in name
-                         or "forces_kernelILb0EE" in name)):
+                    and ("ILb" not in name or "ILb0ELb0ELb0ELb0E" in name)):
                 regs = line.split("Used")[1].split(",")[0].strip()
                 out.append((name[:40], regs, spill))
             name = None
     return out
 
 
-def time_ms(fn, reps=50):
-    import torch
-
-    for _ in range(2):
-        fn()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(40_000_000)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
-
-
 def bench(root: str) -> None:
     sys.path.insert(0, root)
     import torch
-    from tpufluid_torch import _build
+
+    # chip_smoke.py of this tree makes the states, whatever the checkout
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import tpufluid_torch as tt
+    from tpufluid_torch import _build, cli
+    from tpufluid_torch.app import FluidApp
     from tpufluid_torch.models import scenes
-    from tpufluid_torch.ops import fused, resident
-    from tpufluid_torch.state import init_state
+    from tpufluid_torch.ops import forcefield, fused, resident
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -69,34 +79,95 @@ def bench(root: str) -> None:
     for row in registers(_build.build_log()):
         print("  ", *row)
     scene = scenes.scene_1m(dev)
-    s, p = scene.settings, scene.params
-    st = init_state(s, "cpu")
-    g = torch.Generator().manual_seed(1234)
-    vel = torch.randn((s.particle_count, 2), generator=g) * 2.0
-    st = dataclasses.replace(
-        st, position=st.position.to(dev), predicted=st.predicted.to(dev),
-        velocity=vel.to(dev), density=st.density.to(dev),
-        cell=st.cell.to(dev), tick=st.tick.to(dev))
-    gs = resident.from_particles(st, s)
-    px, py, vx, vy, occ = fused.rebin(gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y,
-                                      gs.occ_row, p.delta, s)[:5]
-    dargs = (px, py, vx, vy, occ, p.mass, p.delta, p.pressure_constant,
-             p.rest_density, s)
-    pres, invr = fused.density(*dargs)
-    calls = {
-        "rebin": lambda: fused.rebin(gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y,
-                                     gs.occ_row, p.delta, s),
-        "density": lambda: fused.density(*dargs),
-        "forces": lambda: fused.forces_integrate(
-            px, py, vx, vy, pres, invr, occ, p, s, gs.tick + 1),
-    }
+    s8, p = scene.settings, scene.params
+    res = {}
+
+    def timed(name, fn):
+        a, b = cs.time_ms(fn, 50), cs.time_ms(fn, 50)
+        res[name] = f"{(a + b) / 2:.4f} ({a:.4f}, {b:.4f})"
+
+    def grids(gs, s, prm, **kw):
+        px, py, vx, vy, occ = cs.rebinned(gs, s, prm, **kw)
+        return px, py, vx, vy, occ, gs.tick + 1
+
+    def pair(label, g, s, prm, **kw):
+        """density and forces_integrate (with flags ``kw``) on grids g."""
+        px, py, vx, vy, occ, fr = g
+        wid = kw.get("wid")
+        dargs = (px, py, vx, vy, occ, prm.mass, prm.delta,
+                 prm.pressure_constant, prm.rest_density, s)
+        pres, invr = fused.density(*dargs, wid=wid)
+        if kw.pop("density", True):
+            timed(f"{label} density", lambda: fused.density(*dargs, wid=wid))
+        fargs = (px, py, vx, vy, pres, invr, occ, prm, s, fr)
+        timed(f"{label} forces", lambda: fused.forces_integrate(*fargs, **kw))
+
+    s32 = dataclasses.replace(s8, cell_capacity=32)
+    s16 = dataclasses.replace(s8, cell_capacity=16)
+    gs8 = resident.from_particles(cs.seeded_state(s8, dev), s8)
+    g8 = grids(gs8, s8, p)
+    pair("K=8", g8, s8, p)
+    pair("K=32", grids(resident.from_particles(cs.seeded_state(s32, dev),
+                                               s32), s32, p), s32, p)
+    with contextlib.redirect_stdout(io.StringIO()):
+        app = cli.run(cli.parser().parse_args([
+            "run", "--device", "cuda", "--neighbor-mode", "resident",
+            "--cell-capacity", "8", "--gravity", "0", "-9.8", "--steps",
+            "512", "--report-every", "512"]))
+    k_big = app.settings.cell_capacity
+    pg = tt.TickParams.default(dev, gravity=(0.0, -9.8))
+    pair(f"default scene K={k_big}", grids(app.grid_state, app.settings, pg),
+         app.settings, pg)
+    del app
+
+    wst, _ = cs.wall_state(s8, dev)
+    pair("K=8 wrap", grids(resident.from_particles(wst, s8), s8, p), s8, p,
+         density=False, x_boundary="wrap")
+    p_st = tt.TickParams.default(dev, **cs.ST_PARAMS)
+    pair("K=8 surface_tension", g8, s8, p_st, density=False,
+         surface_tension=True)
+    pair("K=16 clump adaptive",
+         grids(resident.from_particles(cs.clumped_state(s16, dev), s16), s16,
+               p), s16, p, density=False, adaptive_subsampling=True)
+    field = forcefield.obstacle_force_field(
+        forcefield.Objects.from_list(cs.OBSTACLES_1M, dev), s8)
+    pair("K=8 has_ff", g8, s8, p, density=False,
+         ff_cells=resident.forcefield_cells(field, s8))
+    bs, plist = cs.config4(dev)
+    bp = resident.batched_params(plist)
+    gsb = cs.stacked([resident.from_particles(
+        cs.seeded_state(bs, dev, cs.SEED + w), bs)
+        for w in range(cs.CONFIG4_WORLDS)])
+    rows = resident._rows(bs)
+    wid = torch.arange(cs.CONFIG4_WORLDS, dtype=torch.int32,
+                       device=dev).repeat_interleave(rows)
+    pair("config 4 wid", grids(gsb, bs, bp, row_shift=-(wid * rows)), bs, bp,
+         wid=wid)
+
+    timed("K=8 rebin", lambda: fused.rebin(
+        gs8.pos_x, gs8.pos_y, gs8.vel_x, gs8.vel_y, gs8.occ_row, p.delta, s8))
     if hasattr(fused, "physics"):
-        calls["physics"] = lambda: fused.physics(px, py, vx, vy, occ, p, s,
-                                                 gs.tick + 1)
-    res = {n: (time_ms(f), time_ms(f)) for n, f in calls.items()}
-    print(root, torch.cuda.get_device_name(0),
-          {n: f"{(x + y) / 2:.4f} ({x:.4f}, {y:.4f})"
-           for n, (x, y) in res.items()})
+        timed("K=8 physics", lambda: fused.physics(*g8[:5], p, s8, g8[5]))
+    app = FluidApp(s8, p, device=dev, neighbor_mode="resident")
+    app.run(20)
+    steps = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        app.run(200)
+        b.record()
+        torch.cuda.synchronize()
+        steps.append(a.elapsed_time(b) / 200)
+    res["resident ms/step"] = (f"median {sorted(steps)[2]:.4f} ("
+                               + ", ".join(f"{x:.4f}" for x in steps) + ")")
+    prof = cs.profile_steps(app, 20, "resident")
+    if prof is not None:
+        res["resident device busy ms/step"] = (
+            f"{prof['busy_ms_per_step']:.4f} of "
+            f"{prof['window_ms_per_step']:.4f}")
+    print(root, cs.card_line(), res, flush=True)
 
 
 def main() -> int:

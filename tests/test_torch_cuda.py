@@ -16,7 +16,11 @@ are compared whole: density within 9.2e-5, forces as the velocity
 increment f * dt / rho within 3.8e-5 (see tests/test_torch_sph.py). The
 resident engine's variants, its batched stacks and the physics pass are
 held bitwise: to their plain versions, the physics kernel to the split
-kernel pair, a batched step to the single-world steps.
+kernel pair, a batched step to the single-world steps. The tile kernels of
+density and forces are also held bitwise to their plain versions at every
+tile shape the wrappers pick (K=8 to 256, sparse and ragged grids, each
+flag, an obstacle field, two worlds), and the round-1 rebin with a valid
+mask (ops.rebin) bitwise to its plain version.
 """
 
 import dataclasses
@@ -447,3 +451,129 @@ def test_batched_step_matches_single_worlds(cuda):
                     assert torch.equal(getattr(got, f), getattr(ref, f))
         finally:
             del os.environ["TPUFLUID_FUSED_PHYSICS"]
+
+
+def _tile_state(device, k, seed, n_random=1500, fill_row=True):
+    """A 9 x 8 world (47 x 42 cells, Gxp 128) at capacity ``k``:
+    ``n_random`` random particles, a coincident pair, and with
+    ``fill_row`` eight neighbouring cells of row 20 filled to ``k``, so
+    that the row sits at full occupancy; the grid is cut to its first 41
+    rows (the rows dropped are empty), which no tile height of 2, 4 or 8
+    divides. With few particles most tiles stage halo rows of at most one
+    slot."""
+    rng = np.random.default_rng(seed)
+    h, half = 0.2, np.array([4.5, 4.0])
+    full = np.stack(np.meshgrid(np.arange(10, 18), [20]), -1).reshape(-1, 2)
+    rand = rng.uniform(-half, half, (3000, 2))
+    cell = np.floor((rand + half) / h).astype(int) + 1
+    clear = ~((cell[:, 1] == 20) & (cell[:, 0] >= 10) & (cell[:, 0] < 18))
+    rand = rand[clear][:n_random]
+    packed = ((np.repeat(full, k if fill_row else 0, axis=0) - 1
+               + rng.uniform(0.05, 0.95, (len(full) * k * fill_row, 2)))
+              * h - half)
+    pos = np.concatenate([rand, packed]).astype(np.float32)
+    pos[1] = pos[0]
+    vel = rng.normal(size=pos.shape).astype(np.float32) * 2.0
+    vel[1] = vel[0]
+    s = tt.SimSettings(particle_count=len(pos), size=(9.0, 8.0),
+                       cell_capacity=k)
+    st = tt.init_state(s, device)
+    st = dataclasses.replace(
+        st, position=torch.from_numpy(pos).to(device),
+        predicted=torch.from_numpy(pos).to(device),
+        velocity=torch.from_numpy(vel).to(device))
+    gs = resident.from_particles(st, s)
+    return s, dataclasses.replace(gs, **{
+        f: getattr(gs, f)[:41].contiguous()
+        for f in ("pos_x", "pos_y", "vel_x", "vel_y", "occ_row")})
+
+
+ST_PARAMS_CUDA = dict(surface_tension_threshold=0.05,
+                      surface_tension_coefficient=5.0)
+TILE_VARIANTS = {"base": {}, "wrap": dict(x_boundary="wrap"),
+                 "surface_tension": dict(surface_tension=True),
+                 "adaptive": dict(adaptive_subsampling=True),
+                 "has_ff": {}, "wid": {}}
+
+
+@pytest.mark.parametrize("variant", list(TILE_VARIANTS))
+@pytest.mark.parametrize("k", [8, 16, 32, 192, 256, "sparse8", "sparse192"])
+def test_tile_kernels_bitwise(cuda, k, variant):
+    """The tile kernels of density and forces_integrate against their
+    plain versions, bitwise, at every tile shape the wrapper picks from K
+    (above 240 too), on a grid whose rows every tile height leaves
+    ragged, with a row at full occupancy K, with each variant flag, an
+    obstacle field (random push-outs) and two worlds (wid); "sparse" at
+    K=8 and 192 holds 60 particles, so most tiles stage halo rows of at
+    most one slot. Grid widths are multiples of 128, which every tile
+    width divides."""
+    sparse = isinstance(k, str)
+    if sparse:
+        k = int(k[len("sparse"):])
+        s, gs = _tile_state(cuda, k, k, n_random=60, fill_row=False)
+    else:
+        s, gs = _tile_state(cuda, k, k)
+    occ = gs.occ_row
+    assert int(gs.lost) == 0
+    if sparse:  # most rows hold at most one particle a cell
+        assert int((occ <= 1).sum()) > len(occ) // 2
+    else:
+        assert int(occ.max()) == k
+    plist = [tt.TickParams.default(cuda, gravity=(0.0, -9.8),
+                                   **ST_PARAMS_CUDA),
+             tt.TickParams.default(cuda, gravity=(0.0, -2.0),
+                                   viscosity_coefficient=25.0,
+                                   **ST_PARAMS_CUDA)]
+    p, kw = plist[0], dict(TILE_VARIANTS[variant])
+    if variant == "wid":
+        p = resident.batched_params(plist)
+        kw["wid"] = (torch.arange(gs.pos_x.shape[0], device=cuda)
+                     >= gs.pos_x.shape[0] // 2).to(torch.int32)
+    if variant == "has_ff":
+        g = torch.Generator(device="cpu").manual_seed(k)
+        ff = (torch.rand((2, *gs.pos_x.shape[::2]), generator=g) - 0.5) * 4
+        ff[torch.rand(ff.shape, generator=g) < 0.7] = 0.0
+        kw["ff_cells"] = (ff[0].to(cuda), ff[1].to(cuda))
+    dargs = (gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, occ, p.mass, p.delta,
+             p.pressure_constant, p.rest_density, s)
+    wid = kw.get("wid")
+    before = dict(fused.LAUNCHES)
+    got = fused.density(*dargs, wid=wid)
+    want = fused.density_plain(*dargs, wid=wid)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    fargs = (gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, *want, occ, p, s,
+             gs.tick + 1)
+    got = fused.forces_integrate(*fargs, **kw)
+    want = fused.forces_integrate_plain(*fargs, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert fused.LAUNCHES["density"] == before["density"] + 1
+    assert (fused.LAUNCHES["forces_integrate"]
+            == before["forces_integrate"] + 1)
+
+
+
+def test_rebin_valid_matches_plain(cuda):
+    """The round-1 rebin with a valid mask against its plain version,
+    bitwise, on a seeded grid with far movers, coincident pairs and
+    valid_f = 0 slots that keep their stale data."""
+    from tpufluid_torch.ops import rebin as trebin
+
+    s = tt.SimSettings(particle_count=3000, size=(9.0, 8.0), cell_capacity=8)
+    gs = _state(s, cuda, 11)
+    valid = (gs.pos_x < fused.SENTINEL_HALF).float()
+    g = torch.Generator(device="cpu").manual_seed(11)
+    stale = (torch.rand(valid.shape, generator=g) < 0.1).to(cuda) & (
+        valid > 0)
+    valid[stale] = 0.0
+    args = (gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, valid, 0.01, s)
+    before = trebin.LAUNCHES["rebin_valid"]
+    got = trebin.rebin_valid(*args)
+    want = trebin.rebin_valid_plain(*args)
+    torch.cuda.synchronize()
+    assert trebin.LAUNCHES["rebin_valid"] == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert float(want[5].sum()) > 0 and int(stale.sum()) > 0

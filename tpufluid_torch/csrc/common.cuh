@@ -1,5 +1,6 @@
 // Shared device helpers for the resident engine's kernels (rebin.cu,
-// density.cu, forces.cu).
+// rebin_valid.cu, density.cu, forces.cu, physics.cu) and the dense
+// engine's.
 //
 // Layout: every slot grid is f32[Gy][K][Gx], x fastest, Gx a multiple of
 // 128. Empty slots hold pos = TF_SENTINEL. occ_row[y] is the row's max
@@ -43,14 +44,6 @@ __device__ __forceinline__ bool tf_live(float px) {
 __device__ __forceinline__ size_t tf_index(int y, int k, int x, int K,
                                            int gx) {
     return ((size_t)y * K + k) * gx + x;
-}
-
-// max(occ_row[y-1], occ_row[y], occ_row[y+1]), out-of-range rows empty
-__device__ __forceinline__ int tf_occ3(const int* occ_row, int y, int gy) {
-    int o = occ_row[y];
-    if (y > 0) o = max(o, occ_row[y - 1]);
-    if (y + 1 < gy) o = max(o, occ_row[y + 1]);
-    return o;
 }
 
 __device__ __forceinline__ uint32_t tf_xorshift32(uint32_t x) {

@@ -5,91 +5,145 @@
 // on the TPU folded the slot axis into 8-slot sublane sub-blocks and
 // lane-rolled whole candidate rows against whole target rows.
 //
-// Bound: memory traffic through L1/L2. At scene_1m (Gy 524, K 8,
-// Gxp 512, occupancy ~4) each live target reads four fields of about
-// 9 * occ3 candidate slots to recompute their predicted positions; the
-// pair math is ~10 flops per candidate. DRAM sees each field about once,
-// since the blocks of neighbouring rows share the candidate rows in L2.
+// Bound: the instruction throughput of the pair loop, then memory. At
+// scene_1m (Gy 524, K 8, Gxp 512, ~3.95 particles a cell) each live
+// target meets ~36 candidates at ~18 flops; DRAM sees each field about
+// once.
 //
-// Design: one thread per target slot (y, k, x); a block covers 128
-// consecutive columns of one (row, slot). The candidate sum is
-// tf_density_sum (resident_math.cuh), shared with physics.cu: candidate
-// slot kp below occ3[y], and for each the nine (row, dx) blocks summed
-// into a partial that is added to the running total, the TPU kernel's
-// reduction order. Empty candidates (sentinel, or a slot at or beyond
-// their row's occupancy) contribute exactly zero in the TPU kernel and
-// are skipped here. Empty targets write the floor-density defaults, so
-// every output element is written.
+// Design: one block of 256 threads per tile of R x C cells with all K
+// slots (the wrapper picks the tile from K so that it fits shared
+// memory; see tf_tile_smem_bytes).
+//   S: the predictions of the tile's +-1 halo, each slot predicted once
+//      with its row's dt, go to shared memory (float2 per slot); only
+//      slots below their row's occupancy are read, and each halo cell's
+//      occupancy (last live slot + 1) is kept beside them;
+//   L: the tile's live targets are listed in (slot, row, column) order
+//      (tf_tile_targets); every other centre slot gets the floor-density
+//      defaults there, so every output element is written once;
+//   D: the threads take the listed targets, each walking its 3 x 3
+//      candidate cells below each cell's own occupancy (tf_density_sum
+//      over the shared predictions, slot kp outer and (row, dx) inner,
+//      per-kp partials added to the total: the TPU kernel's order).
+// So no lane idles on an empty target, no candidate loop runs past its
+// cell's last particle, each candidate is predicted once per block
+// rather than once per reader, and each row crosses L2 (R + 2) / R times
+// instead of once per slot row of every reader.
 // Batched world stacks: wid[y] (null for one world) picks row y's world
 // in the per-world scalar table sc[W][4] = (mass, dt, pressure constant,
-// rest density). The half extents are the same in every world and come as
-// arguments: read from the constant bank they hold no registers, and with
-// plain loads and at most 40 registers (12 blocks of 128 on an SM) the
-// kernel took 0.135 ms at scene_1m against 0.191 ms at 56 registers with
-// the extents in the table and __ldg loads (H100 at 700 W, one call of
-// scripts/torch_kernel_ab.py).
+// rest density); the half extents are the same in every world and come
+// as arguments.
 #include "resident_math.cuh"
 
-// candidate predictions read from the global grid
-struct TfGlobalPred {
-    const float* px;
-    const float* py;
-    const float* vx;
-    const float* vy;
-    int K, gx;
-    float dt, half_x, half_y;
-
-    __device__ __forceinline__ bool pred(int sy, int kp, int sx, float& nx,
-                                         float& ny) const {
-        const size_t ci = tf_index(sy, kp, sx, K, gx);
-        const float cx = px[ci];
-        if (!tf_live(cx)) return false;
-        nx = tf_pred(cx, vx[ci], dt, half_x);
-        ny = tf_pred(py[ci], vy[ci], dt, half_y);
-        return true;
-    }
-};
-
-__global__ void __launch_bounds__(TF_BLOCK, 12)
+__global__ void __launch_bounds__(TF_TILE_THREADS, 4)
 density_kernel(const float* __restrict__ px, const float* __restrict__ py,
                const float* __restrict__ vx, const float* __restrict__ vy,
                const int* __restrict__ occ_row, const int* __restrict__ wid,
                const float* __restrict__ sc, float* __restrict__ pres,
-               float* __restrict__ invr, int gy, int K, int gx, float h2,
-               float norm, float half_x, float half_y) {
-    const int x = blockIdx.x * TF_BLOCK + threadIdx.x;
-    const int k = blockIdx.y;
-    const int y = blockIdx.z;
-    const float* scw = sc + tf_world(wid, y) * TF_DSC_N;
-    const float dt = scw[TF_DSC_DT];
-    const size_t ti = tf_index(y, k, x, K, gx);
-    const float p0x = px[ti];
-    if (k >= occ_row[y] || !tf_live(p0x)) {
-        tf_density_empty(scw[TF_DSC_KP], scw[TF_DSC_RHO0], pres[ti],
-                         invr[ti]);
-        return;
+               float* __restrict__ invr, int gy, int K, int gx, int lgR,
+               int lgC, float h2, float norm, float half_x, float half_y) {
+    extern __shared__ float2 smem2[];
+    const int R = 1 << lgR, C = 1 << lgC;
+    const int HR = R + 2, HC = C + 2;
+    float2* sp = smem2;
+    const TfTileSmem t = tf_tile_smem(sp + HR * K * HC, K, R, C);
+    const int y0 = blockIdx.y * R;
+    const int x0 = blockIdx.x * C;
+    tf_tile_begin(t, occ_row, wid, sc, TF_DSC_N, TF_DSC_DT, R, C, K, y0, gy);
+
+    // S: predictions of the +-1 halo, TF_STAGE_BATCH slots' loads in
+    // flight per thread
+    const int kh = tf_max_rows(t.srow, HR);
+    const int n = HR * kh * HC;
+    const unsigned m_hc = tf_magic(HC), m_kh = tf_magic(max(kh, 1));
+    for (int i0 = threadIdx.x; i0 < n;
+         i0 += TF_STAGE_BATCH * TF_TILE_THREADS) {
+        float ax[TF_STAGE_BATCH], ay[TF_STAGE_BATCH];
+        float ux[TF_STAGE_BATCH], uy[TF_STAGE_BATCH];
+        int lr[TF_STAGE_BATCH], kk[TF_STAGE_BATCH], lc[TF_STAGE_BATCH];
+        bool ok[TF_STAGE_BATCH];
+#pragma unroll
+        for (int u = 0; u < TF_STAGE_BATCH; ++u) {
+            ok[u] = tf_halo_slot(i0 + u * TF_TILE_THREADS, n, kh, HC, m_hc,
+                                 m_kh, t.srow, x0, gx, lr[u], kk[u], lc[u]);
+            if (ok[u]) {
+                const size_t gi = tf_index(y0 + lr[u] - 1, kk[u],
+                                           x0 + lc[u] - 1, K, gx);
+                ax[u] = px[gi];
+                ay[u] = py[gi];
+                ux[u] = vx[gi];
+                uy[u] = vy[gi];
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < TF_STAGE_BATCH; ++u) {
+            if (!ok[u]) continue;
+            float2 q = make_float2(TF_SENTINEL, TF_SENTINEL);
+            if (tf_live(ax[u])) {
+                const float dt = t.sdt[lr[u]];
+                q = make_float2(tf_pred(ax[u], ux[u], dt, half_x),
+                                tf_pred(ay[u], uy[u], dt, half_y));
+                atomicMax(&t.socc[lr[u] * HC + lc[u]], kk[u] + 1);
+            }
+            sp[(lr[u] * K + kk[u]) * HC + lc[u]] = q;
+        }
     }
-    const float tx = tf_pred(p0x, vx[ti], dt, half_x);
-    const float ty = tf_pred(py[ti], vy[ti], dt, half_y);
-    int occ_nb[3];
-    tf_occ_nb(occ_row, y, gy, occ_nb);
-    const int occ3 = max(max(occ_nb[0], occ_nb[1]), occ_nb[2]);
-    const TfGlobalPred src{px, py, vx, vy, K, gx, dt, half_x, half_y};
-    const float acc = tf_density_sum(src, y, x, gx, occ_nb, occ3, tx, ty, h2);
-    tf_density_out(acc, scw[TF_DSC_MASS], norm, scw[TF_DSC_KP],
-                   scw[TF_DSC_RHO0], pres[ti], invr[ti]);
+    __syncthreads();
+
+    // L: the live targets; empty slots get the floor-density defaults
+    const int n_live = tf_tile_targets(
+        sp, t, tf_max_rows(t.srow + 1, R), lgR, lgC, K, y0, x0, gy,
+        [&](int y, int kk, int x) {
+            const float* scw = sc + tf_world(wid, y) * TF_DSC_N;
+            const size_t ti = tf_index(y, kk, x, K, gx);
+            tf_density_empty(scw[TF_DSC_KP], scw[TF_DSC_RHO0], pres[ti],
+                             invr[ti]);
+        });
+
+    // D: the density sum of each live target
+    const TfSharedPred<false> src{sp, y0 - 1, x0 - 1, K, HC};
+    for (int j = threadIdx.x; j < n_live; j += TF_TILE_THREADS) {
+        const int e = t.list[j];
+        const int kk = e >> 16;
+        const int lr = (e >> 8) & 255;
+        const int lc = e & 255;
+        const int y = y0 + lr;
+        const int x = x0 + lc;
+        const float2 tq = sp[((lr + 1) * K + kk) * HC + lc + 1];
+        int occ_c[9];
+        const int occ_max = tf_occ_tile(t.socc, lr, lc, HC, occ_c);
+        const float acc =
+            tf_density_sum(src, y, x, occ_c, occ_max, tq.x, tq.y, h2);
+        const float* scw = sc + tf_world(wid, y) * TF_DSC_N;
+        const size_t ti = tf_index(y, kk, x, K, gx);
+        tf_density_out(acc, scw[TF_DSC_MASS], norm, scw[TF_DSC_KP],
+                       scw[TF_DSC_RHO0], pres[ti], invr[ti]);
+    }
 }
+
+// dynamic shared memory limit set so far
+static int kDensitySmem;
 
 extern "C" int tf_density(const float* px, const float* py, const float* vx,
                           const float* vy, const int* occ_row, const int* wid,
                           const float* sc, float* pres, float* invr, int gy,
-                          int K, int gx, float h2, float norm, float half_x,
-                          float half_y, cudaStream_t stream) {
-    if (gx % TF_BLOCK != 0 || gy <= 0 || K <= 0 || gy > 65535 || K > 65535)
+                          int K, int gx, int lgR, int lgC, float h2,
+                          float norm, float half_x, float half_y,
+                          cudaStream_t stream) {
+    const long long smem = tf_tile_smem_bytes(1, K, 1 << lgR, 1 << lgC);
+    if (gy <= 0 || K <= 0 || K > 32767 || lgR < 0 || lgR > 7 || lgC < 0 ||
+        lgC > 7 || gx % (1 << lgC) != 0 ||
+        (gy + (1 << lgR) - 1) >> lgR > 65535 || smem > TF_SMEM_MAX)
         return (int)cudaErrorInvalidValue;
-    dim3 grid(gx / TF_BLOCK, K, gy);
-    density_kernel<<<grid, TF_BLOCK, 0, stream>>>(
-        px, py, vx, vy, occ_row, wid, sc, pres, invr, gy, K, gx, h2, norm,
-        half_x, half_y);
+    if (smem > kDensitySmem && smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            density_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        kDensitySmem = (int)smem;
+    }
+    dim3 grid(gx >> lgC, (gy + (1 << lgR) - 1) >> lgR);
+    density_kernel<<<grid, TF_TILE_THREADS, (size_t)smem, stream>>>(
+        px, py, vx, vy, occ_row, wid, sc, pres, invr, gy, K, gx, lgR, lgC, h2,
+        norm, half_x, half_y);
     return (int)cudaGetLastError();
 }

@@ -7,57 +7,43 @@
 // slot axis into 8-slot sublane sub-blocks, lane-rolled six candidate
 // fields per (row, dx) block and carried per-target sums in VMEM scratch.
 //
-// Bound: memory traffic through L1/L2. At scene_1m each live target reads
-// six fields (predicted position from pos/vel, pres, 1/rho) of about
-// 9 * occ3 candidate slots and does ~40 flops and one rsqrt per candidate
-// (surface tension: ~20 more and a sqrt); the grid's own reads and the
-// four output fields cross DRAM about once.
+// Bound: the instruction throughput of the pair loop. At scene_1m (~3.95
+// particles a cell) each live target meets ~36 candidates at ~43 flops
+// and one rsqrt (surface tension: ~27 more and a sqrt); the grid's own
+// reads and the four output fields cross DRAM about once.
 //
-// Design: one thread per target slot (y, k, x), 128 consecutive columns
-// of one (row, slot) per block, so candidate loads of a warp are
-// coalesced. Per-target sums live in registers. The candidate loop and
-// the integration are tf_forces_target (resident_math.cuh), shared with
-// physics.cu. Empty targets write SENTINEL / 0, so every output is
-// written. The four variant flags (wrap_x, has_ff, surface_tension,
-// adaptive) are template parameters, so each instantiation carries only
-// its own code and registers (a runtime branch for has_ff cost the base
-// launch ~12% on the H100); all 16 are built. At most 64 registers (8
-// blocks of 128 on an SM): the base instantiation then takes 54 and
-// 0.254 ms at scene_1m, against 91 and 0.332 ms unbounded (H100 at
-// 700 W, one call of scripts/torch_kernel_ab.py).
+// Design: one block of 256 threads per tile of R x C cells with all K
+// slots (the wrapper picks the tile from K so that it fits shared
+// memory; see tf_tile_smem_bytes).
+//   S: the tile's +-1 halo goes to shared memory, per slot the
+//      prediction (each slot predicted once, with its row's dt) and
+//      (velocity, pressure, 1/rho) as a float4; only slots below their
+//      row's occupancy are read, empty ones staged as SENTINEL and zeros,
+//      and each halo cell's occupancy (last live slot + 1) is kept beside
+//      them;
+//   L: the tile's live targets are listed in (slot, row, column) order
+//      (tf_tile_targets); every other centre slot gets SENTINEL / 0
+//      there, so every output element is written once;
+//   F: the threads take the listed targets: tf_forces_target walks each
+//      target's 3 x 3 candidate cells below each cell's own occupancy over
+//      the shared fields (slot kp outer, (row, dx) inner, per-kp partials
+//      added to the totals: the TPU kernel's order) and integrates. An
+//      empty slot below a cell's occupancy is visited as SENTINEL and
+//      zeros, whose terms are +-0 (TfTileCand): the walk has no liveness
+//      test.
+// So no lane idles on an empty target, no candidate loop runs past its
+// cell's last particle, and a candidate's six fields are read and
+// predicted once per block rather than once per reader. The four variant
+// flags (wrap_x, has_ff, surface_tension, adaptive) are template
+// parameters, so each instantiation carries only its own code and
+// registers (a runtime has_ff branch cost the base launch ~12% on the
+// H100); all 16 are built.
 // Batched world stacks: wid[y] (null for one world) picks row y's world
 // in the per-world scalar table sc[W][17] (TF_SC_* columns).
 #include "resident_math.cuh"
 
-// candidate fields read from the global grid, predicted here
-struct TfGlobalCand {
-    const float* px;
-    const float* py;
-    const float* vx;
-    const float* vy;
-    const float* pres;
-    const float* invr;
-    int K, gx;
-    float dt, half_x, half_y;
-
-    __device__ __forceinline__ bool cand(int sy, int kp, int sx, float& nx,
-                                         float& ny, float& nvx, float& nvy,
-                                         float& p, float& ir) const {
-        const size_t ci = tf_index(sy, kp, sx, K, gx);
-        const float cpx = __ldg(px + ci);
-        if (!tf_live(cpx)) return false;
-        nvx = __ldg(vx + ci);
-        nvy = __ldg(vy + ci);
-        nx = tf_pred(cpx, nvx, dt, half_x);
-        ny = tf_pred(__ldg(py + ci), nvy, dt, half_y);
-        p = __ldg(pres + ci);
-        ir = __ldg(invr + ci);
-        return true;
-    }
-};
-
 template <bool WRAP, bool HAS_FF, bool ST, bool ADAPT>
-__global__ void __launch_bounds__(TF_BLOCK, 8)
+__global__ void __launch_bounds__(TF_TILE_THREADS, 4)
 forces_kernel(const float* __restrict__ px, const float* __restrict__ py,
               const float* __restrict__ vx, const float* __restrict__ vy,
               const float* __restrict__ pres, const float* __restrict__ invr,
@@ -67,41 +53,108 @@ forces_kernel(const float* __restrict__ px, const float* __restrict__ py,
               const float* __restrict__ ffx, const float* __restrict__ ffy,
               float* __restrict__ npx, float* __restrict__ npy,
               float* __restrict__ nvx, float* __restrict__ nvy, int gy, int K,
-              int gx, TfForceConsts c) {
-    const int x = blockIdx.x * TF_BLOCK + threadIdx.x;
-    const int k = blockIdx.y;
-    const int y = blockIdx.z;
-    const size_t ti = tf_index(y, k, x, K, gx);
-    const float pos_x0 = px[ti];
-    if (k >= occ_row[y] || !tf_live(pos_x0)) {
-        npx[ti] = TF_SENTINEL;
-        npy[ti] = TF_SENTINEL;
-        nvx[ti] = 0.0f;
-        nvy[ti] = 0.0f;
-        return;
+              int gx, int lgR, int lgC, TfForceConsts c) {
+    extern __shared__ float4 smem4[];
+    const int R = 1 << lgR, C = 1 << lgC;
+    const int HR = R + 2, HC = C + 2;
+    const int n_h = HR * K * HC;
+    float4* sq = smem4;
+    float2* sp = reinterpret_cast<float2*>(sq + n_h);
+    const TfTileSmem t = tf_tile_smem(sp + n_h, K, R, C);
+    const int y0 = blockIdx.y * R;
+    const int x0 = blockIdx.x * C;
+    tf_tile_begin(t, occ_row, wid, sc, TF_SC_N, TF_SC_DT, R, C, K, y0, gy);
+    // the half extents are the same in every world
+    const float hx = sc[TF_SC_HALF_X];
+    const float hy = sc[TF_SC_HALF_Y];
+
+    // S: predictions, velocities, (pressure, 1/rho) of the +-1 halo,
+    // TF_STAGE_BATCH slots' loads in flight per thread
+    const int kh = tf_max_rows(t.srow, HR);
+    const int n = HR * kh * HC;
+    const unsigned m_hc = tf_magic(HC), m_kh = tf_magic(max(kh, 1));
+    for (int i0 = threadIdx.x; i0 < n;
+         i0 += TF_STAGE_BATCH * TF_TILE_THREADS) {
+        float ax[TF_STAGE_BATCH], ay[TF_STAGE_BATCH];
+        float ux[TF_STAGE_BATCH], uy[TF_STAGE_BATCH];
+        float ap[TF_STAGE_BATCH], ai[TF_STAGE_BATCH];
+        int lr[TF_STAGE_BATCH], kk[TF_STAGE_BATCH], lc[TF_STAGE_BATCH];
+        bool ok[TF_STAGE_BATCH];
+#pragma unroll
+        for (int u = 0; u < TF_STAGE_BATCH; ++u) {
+            ok[u] = tf_halo_slot(i0 + u * TF_TILE_THREADS, n, kh, HC, m_hc,
+                                 m_kh, t.srow, x0, gx, lr[u], kk[u], lc[u]);
+            if (ok[u]) {
+                const size_t gi = tf_index(y0 + lr[u] - 1, kk[u],
+                                           x0 + lc[u] - 1, K, gx);
+                ax[u] = px[gi];
+                ay[u] = py[gi];
+                ux[u] = vx[gi];
+                uy[u] = vy[gi];
+                ap[u] = pres[gi];
+                ai[u] = invr[gi];
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < TF_STAGE_BATCH; ++u) {
+            if (!ok[u]) continue;
+            const int s = (lr[u] * K + kk[u]) * HC + lc[u];
+            if (!tf_live(ax[u])) {
+                sp[s] = make_float2(TF_SENTINEL, TF_SENTINEL);
+                sq[s] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+                continue;
+            }
+            const float dt = t.sdt[lr[u]];
+            sp[s] = make_float2(tf_pred(ax[u], ux[u], dt, hx),
+                                tf_pred(ay[u], uy[u], dt, hy));
+            sq[s] = make_float4(ux[u], uy[u], ap[u], ai[u]);
+            atomicMax(&t.socc[lr[u] * HC + lc[u]], kk[u] + 1);
+        }
     }
-    const float* scw = sc + tf_world(wid, y) * TF_SC_N;
-    int occ_nb[3];
-    tf_occ_nb(occ_row, y, gy, occ_nb);
-    const int occ3 = max(max(occ_nb[0], occ_nb[1]), occ_nb[2]);
-    const TfGlobalCand src{px, py, vx, vy, pres, invr, K, gx,
-                           scw[TF_SC_DT], scw[TF_SC_HALF_X],
-                           scw[TF_SC_HALF_Y]};
-    float fx = 0.0f, fy = 0.0f;
-    if (HAS_FF) {
-        const size_t fi = (size_t)y * gx + x;
-        fx = ffx[fi];
-        fy = ffy[fi];
+    __syncthreads();
+
+    // L: the live targets; empty slots get SENTINEL / 0
+    const int n_live = tf_tile_targets(
+        sp, t, tf_max_rows(t.srow + 1, R), lgR, lgC, K, y0, x0, gy,
+        [&](int y, int kk, int x) {
+            const size_t ti = tf_index(y, kk, x, K, gx);
+            npx[ti] = TF_SENTINEL;
+            npy[ti] = TF_SENTINEL;
+            nvx[ti] = 0.0f;
+            nvy[ti] = 0.0f;
+        });
+
+    // F: forces and integration of each live target
+    const TfTileCand src{sp, sq, y0 - 1, x0 - 1, K, HC};
+    const uint32_t frame = (uint32_t)frame_p[0];
+    for (int j = threadIdx.x; j < n_live; j += TF_TILE_THREADS) {
+        const int e = t.list[j];
+        const int kk = e >> 16;
+        const int lr = (e >> 8) & 255;
+        const int lc = e & 255;
+        const int y = y0 + lr;
+        const int x = x0 + lc;
+        const int s = ((lr + 1) * K + kk) * HC + lc + 1;
+        const float4 u0 = sq[s];
+        const size_t ti = tf_index(y, kk, x, K, gx);
+        int occ_c[9];
+        const int occ_max = tf_occ_tile(t.socc, lr, lc, HC, occ_c);
+        float fx = 0.0f, fy = 0.0f;
+        if (HAS_FF) {
+            const size_t fi = (size_t)y * gx + x;
+            fx = ffx[fi];
+            fy = ffy[fi];
+        }
+        const float* scw = sc + tf_world(wid, y) * TF_SC_N;
+        float ox, oy, ovx, ovy;
+        tf_forces_target<WRAP, HAS_FF, ST, ADAPT>(
+            src, scw, frame, kk, y, x, occ_c, occ_max, px[ti], py[ti], u0.x,
+            u0.y, u0.z, u0.w, fx, fy, c, ox, oy, ovx, ovy);
+        npx[ti] = ox;
+        npy[ti] = oy;
+        nvx[ti] = ovx;
+        nvy[ti] = ovy;
     }
-    float ox, oy, ovx, ovy;
-    tf_forces_target<WRAP, HAS_FF, ST, ADAPT>(
-        src, scw, (uint32_t)frame_p[0], k, y, x, gx, occ_nb, occ3, pos_x0,
-        py[ti], vx[ti], vy[ti], pres[ti], invr[ti], fx, fy, c, ox, oy, ovx,
-        ovy);
-    npx[ti] = ox;
-    npy[ti] = oy;
-    nvx[ti] = ovx;
-    nvy[ti] = ovy;
 }
 
 typedef void (*ForcesKernel)(const float*, const float*, const float*,
@@ -109,7 +162,7 @@ typedef void (*ForcesKernel)(const float*, const float*, const float*,
                              const int*, const int*, const float*,
                              const long long*, const float*, const float*,
                              float*, float*, float*, float*, int, int, int,
-                             TfForceConsts);
+                             int, int, TfForceConsts);
 
 template <int F>
 static ForcesKernel forces_variant() {
@@ -124,6 +177,8 @@ static const ForcesKernel kForces[16] = {
     forces_variant<9>(),  forces_variant<10>(), forces_variant<11>(),
     forces_variant<12>(), forces_variant<13>(), forces_variant<14>(),
     forces_variant<15>()};
+// dynamic shared memory limit set so far, per variant
+static int kForcesSmem[16];
 
 extern "C" int tf_forces(const float* px, const float* py, const float* vx,
                          const float* vy, const float* pres, const float* invr,
@@ -131,18 +186,28 @@ extern "C" int tf_forces(const float* px, const float* py, const float* vx,
                          const long long* frame, const float* ffx,
                          const float* ffy, float* npx, float* npy,
                          float* nvx, float* nvy, int gy, int K, int gx,
-                         int flags, const float* consts,
+                         int lgR, int lgC, int flags, const float* consts,
                          cudaStream_t stream) {
     const bool has_ff = (flags & TF_HAS_FF) != 0;
-    if (gx % TF_BLOCK != 0 || gy <= 0 || K <= 0 || gy > 65535 || K > 65535 ||
+    const long long smem = tf_tile_smem_bytes(3, K, 1 << lgR, 1 << lgC);
+    if (gy <= 0 || K <= 0 || K > 32767 || lgR < 0 || lgR > 7 || lgC < 0 ||
+        lgC > 7 || gx % (1 << lgC) != 0 ||
+        (gy + (1 << lgR) - 1) >> lgR > 65535 || smem > TF_SMEM_MAX ||
         flags < 0 || flags > 15 || has_ff != (ffx != nullptr) ||
         (ffx == nullptr) != (ffy == nullptr))
         return (int)cudaErrorInvalidValue;
+    if (smem > kForcesSmem[flags] && smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kForces[flags], cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        kForcesSmem[flags] = (int)smem;
+    }
     TfForceConsts c;
     memcpy(&c, consts, sizeof(c));
-    dim3 grid(gx / TF_BLOCK, K, gy);
-    kForces[flags]<<<grid, TF_BLOCK, 0, stream>>>(
+    dim3 grid(gx >> lgC, (gy + (1 << lgR) - 1) >> lgR);
+    kForces[flags]<<<grid, TF_TILE_THREADS, (size_t)smem, stream>>>(
         px, py, vx, vy, pres, invr, occ_row, wid, sc, frame, ffx, ffy, npx,
-        npy, nvx, nvy, gy, K, gx, c);
+        npy, nvx, nvy, gy, K, gx, lgR, lgC, c);
     return (int)cudaGetLastError();
 }

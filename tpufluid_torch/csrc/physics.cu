@@ -22,8 +22,11 @@
 //   F: forces and integration of the R x C centre cells by
 //      tf_forces_target over the shared fields, written out.
 // The density sum and the force loop are the same device functions that
-// density.cu and forces.cu call (resident_math.cuh), over the same values
-// in the same order, so every output is bitwise the split pair's.
+// density.cu and forces.cu call (resident_math.cuh), read from shared
+// memory (TfSharedPred, TfSharedCand) over the same values in the same
+// order, so every output is bitwise the split pair's. Its candidate
+// bounds are the rows' occupancies (tf_occ_rows): the split kernels'
+// tighter per-cell bounds skip only empty slots.
 // Shared memory: 4 K (2 (R + 4)(C + 4) + 4 (R + 2)(C + 2)) bytes, ~44 KB
 // at K = 8 with a 4 x 32 tile; above 48 KB the launch first raises the
 // kernel's dynamic shared memory limit (cudaFuncSetAttribute).
@@ -32,55 +35,6 @@
 #include "resident_math.cuh"
 
 #define TF_PHYS_THREADS 256
-// shared memory a block may use on the H100 (232,448 bytes)
-#define TF_SMEM_MAX 232448
-
-// candidate predictions from the shared +-2 halo tile
-struct TfSharedPred {
-    const float* spx;
-    const float* spy;
-    int oy, ox;  // grid row and column of the tile's [0][.][0]
-    int K, pw;
-
-    __device__ __forceinline__ bool pred(int sy, int kp, int sx, float& nx,
-                                         float& ny) const {
-        const int i = ((sy - oy) * K + kp) * pw + (sx - ox);
-        nx = spx[i];
-        if (!tf_live(nx)) return false;
-        ny = spy[i];
-        return true;
-    }
-};
-
-// candidate fields: predictions from the +-2 tile, velocities, pressure
-// and 1/rho from the +-1 tile
-struct TfSharedCand {
-    const float* spx;
-    const float* spy;
-    const float* svx;
-    const float* svy;
-    const float* spres;
-    const float* sinvr;
-    int oy, ox;  // grid row and column of the +-2 tile's [0][.][0]
-    int K, pw, hw;
-
-    __device__ __forceinline__ bool cand(int sy, int kp, int sx, float& nx,
-                                         float& ny, float& nvx, float& nvy,
-                                         float& p, float& ir) const {
-        const int lr = sy - oy;
-        const int lc = sx - ox;
-        const int i = (lr * K + kp) * pw + lc;
-        nx = spx[i];
-        if (!tf_live(nx)) return false;
-        ny = spy[i];
-        const int j = ((lr - 1) * K + kp) * hw + (lc - 1);
-        nvx = svx[j];
-        nvy = svy[j];
-        p = spres[j];
-        ir = sinvr[j];
-        return true;
-    }
-};
 
 template <bool WRAP, bool HAS_FF, bool ST, bool ADAPT>
 __global__ void __launch_bounds__(TF_PHYS_THREADS)
@@ -94,17 +48,14 @@ physics_kernel(const float* __restrict__ px, const float* __restrict__ py,
                float* __restrict__ nvx, float* __restrict__ nvy, int gy,
                int K, int gx, int R, int C, float dens_h2, float dens_norm,
                TfForceConsts c) {
-    extern __shared__ float smem[];
+    extern __shared__ float2 smem2[];
     const int pw = C + 4, ph = R + 4;  // +-2 tile
     const int hw = C + 2, hh = R + 2;  // +-1 tile
     const int n_p = ph * K * pw;
     const int n_h = hh * K * hw;
-    float* spx = smem;
-    float* spy = spx + n_p;
-    float* svx = spy + n_p;
-    float* svy = svx + n_h;
-    float* spres = svy + n_h;
-    float* sinvr = spres + n_h;
+    float2* sp = smem2;  // predictions
+    float2* sv = sp + n_p;  // velocities
+    float2* sr = sv + n_h;  // (pressure, 1/rho)
     const int y0 = blockIdx.y * R;
     const int x0 = blockIdx.x * C;
 
@@ -128,18 +79,16 @@ physics_kernel(const float* __restrict__ px, const float* __restrict__ py,
                 qy = tf_pred(py[gi], uy, dt, scw[TF_SC_HALF_Y]);
             }
         }
-        spx[i] = qx;
-        spy[i] = qy;
+        sp[i] = make_float2(qx, qy);
         if (lr >= 1 && lr <= hh && lc >= 1 && lc <= hw) {
             const int j = ((lr - 1) * K + kk) * hw + (lc - 1);
-            svx[j] = ux;
-            svy[j] = uy;
+            sv[j] = make_float2(ux, uy);
         }
     }
     __syncthreads();
 
     // D: pressure and 1/rho of the +-1 tile
-    const TfSharedPred dsrc{spx, spy, y0 - 2, x0 - 2, K, pw};
+    const TfSharedPred<true> dsrc{sp, y0 - 2, x0 - 2, K, pw};
     for (int j = threadIdx.x; j < n_h; j += blockDim.x) {
         const int lc = j % hw;
         const int kk = (j / hw) % K;
@@ -152,27 +101,26 @@ physics_kernel(const float* __restrict__ px, const float* __restrict__ py,
             const float kp_c = scw[TF_SC_KP];
             const float rho0 = scw[TF_SC_RHO0];
             const int i = ((lr + 1) * K + kk) * pw + (lc + 1);
-            const float tx = spx[i];
-            if (kk >= occ_row[sy] || !tf_live(tx)) {
+            const float2 tq = sp[i];
+            if (kk >= occ_row[sy] || !tf_live(tq.x)) {
                 tf_density_empty(kp_c, rho0, pres, invr);
             } else {
-                int occ_nb[3];
-                tf_occ_nb(occ_row, sy, gy, occ_nb);
-                const int occ3 = max(max(occ_nb[0], occ_nb[1]), occ_nb[2]);
-                const float acc = tf_density_sum(dsrc, sy, sx, gx, occ_nb,
-                                                 occ3, tx, spy[i], dens_h2);
+                int occ_c[9];
+                const int occ_max = tf_occ_rows(occ_row, sy, gy, sx, gx,
+                                                occ_c);
+                const float acc = tf_density_sum(dsrc, sy, sx, occ_c,
+                                                 occ_max, tq.x, tq.y,
+                                                 dens_h2);
                 tf_density_out(acc, scw[TF_SC_MASS], dens_norm, kp_c, rho0,
                                pres, invr);
             }
         }
-        spres[j] = pres;
-        sinvr[j] = invr;
+        sr[j] = make_float2(pres, invr);
     }
     __syncthreads();
 
     // F: forces and integration of the centre cells
-    const TfSharedCand fsrc{spx, spy, svx, svy, spres, sinvr,
-                            y0 - 2, x0 - 2, K, pw, hw};
+    const TfSharedCand fsrc{sp, sv, sr, y0 - 2, x0 - 2, K, pw, hw};
     const uint32_t frame = (uint32_t)frame_p[0];
     const int n_c = R * K * C;
     for (int t = threadIdx.x; t < n_c; t += blockDim.x) {
@@ -192,9 +140,8 @@ physics_kernel(const float* __restrict__ px, const float* __restrict__ py,
             continue;
         }
         const float* scw = sc + tf_world(wid, y) * TF_PSC_N;
-        int occ_nb[3];
-        tf_occ_nb(occ_row, y, gy, occ_nb);
-        const int occ3 = max(max(occ_nb[0], occ_nb[1]), occ_nb[2]);
+        int occ_c[9];
+        const int occ_max = tf_occ_rows(occ_row, y, gy, x, gx, occ_c);
         const int j = ((lr + 1) * K + kk) * hw + (lc + 1);
         float fx = 0.0f, fy = 0.0f;
         if (HAS_FF) {
@@ -204,8 +151,8 @@ physics_kernel(const float* __restrict__ px, const float* __restrict__ py,
         }
         float ox, oy, ovx, ovy;
         tf_forces_target<WRAP, HAS_FF, ST, ADAPT>(
-            fsrc, scw, frame, kk, y, x, gx, occ_nb, occ3, pos_x0, py[ti],
-            svx[j], svy[j], spres[j], sinvr[j], fx, fy, c, ox, oy, ovx, ovy);
+            fsrc, scw, frame, kk, y, x, occ_c, occ_max, pos_x0, py[ti],
+            sv[j].x, sv[j].y, sr[j].x, sr[j].y, fx, fy, c, ox, oy, ovx, ovy);
         npx[ti] = ox;
         npy[ti] = oy;
         nvx[ti] = ovx;

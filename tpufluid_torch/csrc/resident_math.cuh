@@ -1,15 +1,22 @@
 // The resident engine's pair math, shared by density.cu, forces.cu and
-// physics.cu: the per-target density sum over the 3x3 cell stencil and
-// the per-target force loop fused with the integration.
+// physics.cu: the per-target density sum over the 3x3 cell stencil, the
+// per-target force loop fused with the integration, the candidate sources
+// they read, and the tile helpers of density.cu and forces.cu.
 //
-// Each function takes a candidate source: an object whose pred() (density)
-// or cand() (forces) returns a candidate slot's predicted position (and
-// velocity, pressure, 1/rho) or false for an empty slot. density.cu and
-// forces.cu read global memory and predict there; physics.cu reads the
-// predictions, velocities and (pres, 1/rho) it staged in shared memory.
-// The arithmetic is the same code in all three kernels, and every f32
-// operation rounds on its own (-fmad=false), so the fused physics kernel
-// is bitwise equal to the split density + forces pair.
+// Each pair function takes a candidate source: an object whose pred()
+// (density) or cand() (forces) returns a candidate slot's predicted
+// position (and velocity, pressure, 1/rho) or false for an empty slot.
+// All three kernels stage the candidates of a tile in shared memory, each
+// slot predicted once, and read them through TfSharedPred, TfSharedCand
+// (physics.cu) or TfTileCand (forces.cu).
+// A candidate block (row r, column dx) is walked below its own bound
+// occ_c[(r + 1) * 3 + dx + 1]: the cell's occupancy (last live slot + 1)
+// in density.cu and forces.cu, the row's occupancy in physics.cu, 0 for a
+// block outside the grid. Slots beyond a bound are empty and contribute
+// nothing, so the bound changes no bit of a sum. The arithmetic is the
+// same code in all three kernels, and every f32 operation rounds on its
+// own (-fmad=false), so the fused physics kernel is bitwise equal to the
+// split density + forces pair.
 #pragma once
 
 #include <string.h>
@@ -66,32 +73,120 @@ __device__ __forceinline__ int tf_world(const int* wid, int y) {
     return wid != nullptr ? wid[y] : 0;
 }
 
-// occupancy of rows y-1, y, y+1 (0 outside the grid)
-__device__ __forceinline__ void tf_occ_nb(const int* occ_row, int y, int gy,
-                                          int occ_nb[3]) {
+// Candidate bounds of target (y, x) from the row occupancies (rows y-1,
+// y, y+1; a row or column outside the grid gets 0). Returns their max.
+__device__ __forceinline__ int tf_occ_rows(const int* occ_row, int y, int gy,
+                                           int x, int gx, int occ_c[9]) {
+    int m = 0;
     for (int r = -1; r <= 1; ++r) {
         const int sy = y + r;
-        occ_nb[r + 1] = (sy >= 0 && sy < gy) ? occ_row[sy] : 0;
+        const int o = (sy >= 0 && sy < gy) ? occ_row[sy] : 0;
+        for (int dx = -1; dx <= 1; ++dx) {
+            const int sx = x + dx;
+            occ_c[(r + 1) * 3 + dx + 1] = (sx >= 0 && sx < gx) ? o : 0;
+        }
+        m = max(m, o);
     }
+    return m;
 }
 
+// Candidate predictions from a shared tile of float2 (x, y) per slot,
+// laid out [row][slot][column] with pitch pw, grid row and column of
+// [0][.][0] at (oy, ox); empty slots hold SENTINEL. CHECK_LIVE skips an
+// empty slot; without it an empty slot is visited, and its SENTINEL
+// prediction puts it beyond every radius, so it adds exactly 0 to every
+// sum: the tile kernels of density.cu and forces.cu, whose walks reach
+// only staged slots, save the test.
+template <bool CHECK_LIVE>
+struct TfSharedPred {
+    const float2* sp;
+    int oy, ox;
+    int K, pw;
+
+    __device__ __forceinline__ bool pred(int sy, int kp, int sx, float& nx,
+                                         float& ny) const {
+        const float2 q = sp[((sy - oy) * K + kp) * pw + (sx - ox)];
+        if (CHECK_LIVE && !tf_live(q.x)) return false;
+        nx = q.x;
+        ny = q.y;
+        return true;
+    }
+};
+
+// physics.cu's candidate fields: predictions from the +-2 tile sp (as
+// TfSharedPred), velocities sv and (pressure, 1/rho) sr from the +-1 tile
+// of pitch hw, whose [0][.][0] is one row and column inside sp's.
+struct TfSharedCand {
+    const float2* sp;
+    const float2* sv;
+    const float2* sr;
+    int oy, ox;
+    int K, pw, hw;
+
+    __device__ __forceinline__ bool cand(int sy, int kp, int sx, float& nx,
+                                         float& ny, float& nvx, float& nvy,
+                                         float& p, float& ir) const {
+        const int lr = sy - oy;
+        const int lc = sx - ox;
+        const float2 q = sp[(lr * K + kp) * pw + lc];
+        if (!tf_live(q.x)) return false;
+        nx = q.x;
+        ny = q.y;
+        const int j = ((lr - 1) * K + kp) * hw + (lc - 1);
+        const float2 v = sv[j];
+        const float2 pr = sr[j];
+        nvx = v.x;
+        nvy = v.y;
+        p = pr.x;
+        ir = pr.y;
+        return true;
+    }
+};
+
+// forces.cu's candidate fields from one +-1 tile, laid out as
+// TfSharedPred: the prediction sp and (velocity, pressure, 1/rho) sq per
+// slot. An empty slot holds a SENTINEL prediction and zeros in sq and is
+// visited like a particle: every term it yields is +-0 and leaves each
+// sum's bits unchanged (no sum is ever -0), as skipping it would.
+struct TfTileCand {
+    const float2* sp;
+    const float4* sq;
+    int oy, ox;
+    int K, pw;
+
+    __device__ __forceinline__ bool cand(int sy, int kp, int sx, float& nx,
+                                         float& ny, float& nvx, float& nvy,
+                                         float& p, float& ir) const {
+        const int i = ((sy - oy) * K + kp) * pw + (sx - ox);
+        const float2 q = sp[i];
+        const float4 u = sq[i];
+        nx = q.x;
+        ny = q.y;
+        nvx = u.x;
+        nvy = u.y;
+        p = u.z;
+        ir = u.w;
+        return true;
+    }
+};
+
 // Poly6 sum of target (y, x) at predicted (tx, ty): candidate slot kp
-// below occ3, and for each the nine (row, dx) blocks summed into a
-// partial that is then added to the total (the TPU kernel's order).
+// below occ_max, and for each the nine (row, dx) blocks (each below its
+// bound occ_c) summed into a partial that is then added to the total (the
+// TPU kernel's order).
 template <class Src>
 __device__ __forceinline__ float tf_density_sum(const Src& src, int y, int x,
-                                                int gx, const int occ_nb[3],
-                                                int occ3, float tx, float ty,
-                                                float h2) {
+                                                const int occ_c[9],
+                                                int occ_max, float tx,
+                                                float ty, float h2) {
     float acc = 0.0f;
-    for (int kp = 0; kp < occ3; ++kp) {
+    for (int kp = 0; kp < occ_max; ++kp) {
         float part = 0.0f;
         for (int r = -1; r <= 1; ++r) {
-            if (kp >= occ_nb[r + 1]) continue;
             const int sy = y + r;
             for (int dx = -1; dx <= 1; ++dx) {
+                if (kp >= occ_c[(r + 1) * 3 + dx + 1]) continue;
                 const int sx = x + dx;
-                if (sx < 0 || sx >= gx) continue;
                 float nx, ny;
                 if (!src.pred(sy, kp, sx, nx, ny)) continue;
                 const float ddx = nx - tx;
@@ -124,7 +219,9 @@ __device__ __forceinline__ void tf_density_empty(float kp_c, float rho0,
     invr = 10.0f;
 }
 
-// Forces on one live target slot (y, k, x) over the 3x3 stencil, then
+// Forces on one live target slot (y, k, x) over the 3x3 stencil (slot
+// kp outer, below occ_max; each (row, dx) block below its bound occ_c),
+// then
 // the integration. Off-centre blocks use the TPU kernel's clamp form
 // (min(dst - h, 0) and max(kv, 0) are the range gates); the centre block
 // tests r^2 <= h^2, excludes the target itself and gives coincident pairs
@@ -140,7 +237,7 @@ __device__ __forceinline__ void tf_density_empty(float kp_c, float rho0,
 template <bool WRAP, bool HAS_FF, bool ST, bool ADAPT, class Src>
 __device__ __forceinline__ void tf_forces_target(
         const Src& src, const float* __restrict__ scw, uint32_t frame, int k,
-        int y, int x, int gx, const int occ_nb[3], int occ3, float pos_x0,
+        int y, int x, const int occ_c[9], int occ_max, float pos_x0,
         float pos_y0, float vx0, float vy0, float p_self, float invr0,
         float ffx, float ffy, const TfForceConsts& c, float& out_px,
         float& out_py, float& out_vx, float& out_vy) {
@@ -182,7 +279,7 @@ __device__ __forceinline__ void tf_forces_target(
     float sfx = 0.0f, sfy = 0.0f, sgx = 0.0f, sgy = 0.0f;
     float scgx = 0.0f, scgy = 0.0f, sclap = 0.0f;
     uint32_t scc = 0;  // coincident draws so far
-    for (int kp = 0; kp < occ3; ++kp) {
+    for (int kp = 0; kp < occ_max; ++kp) {
         float fac = 1.0f;
         if (ADAPT) {
             if (rho_self >= 200.0f)
@@ -193,11 +290,10 @@ __device__ __forceinline__ void tf_forces_target(
         float fx = 0.0f, fy = 0.0f, gx_ = 0.0f, gy_ = 0.0f;
         float cgx = 0.0f, cgy = 0.0f, cl = 0.0f;
         for (int r = -1; r <= 1; ++r) {
-            if (kp >= occ_nb[r + 1]) continue;
             const int sy = y + r;
             for (int dx = -1; dx <= 1; ++dx) {
+                if (kp >= occ_c[(r + 1) * 3 + dx + 1]) continue;
                 const int sx = x + dx;
-                if (sx < 0 || sx >= gx) continue;
                 float nx, ny, nvx_c, nvy_c, p_nb, inv_rho;
                 if (!src.cand(sy, kp, sx, nx, ny, nvx_c, nvy_c, p_nb,
                               inv_rho))
@@ -361,4 +457,176 @@ __device__ __forceinline__ void tf_forces_target(
     out_py = pyn;
     out_vx = vxn;
     out_vy = vyn;
+}
+
+// ------------------------------------------------------------ tiles
+// density.cu and forces.cu run one block of TF_TILE_THREADS per tile of
+// R x C cells (R and C powers of two, C dividing the grid width) with all
+// K slots, and stage the tile's +-1 halo of (R + 2) x (C + 2) cells in
+// shared memory: n_fields float2 per slot (forces: a float4 and a
+// float2), [row][slot][column], pitch C + 2,
+// then socc, the occupancy (last live slot + 1) of each halo cell, then
+// the list of the tile's live targets, then two per-warp count rows, then
+// the halo rows' occupancies and world dt.
+#define TF_TILE_THREADS 256
+#define TF_TILE_WARPS (TF_TILE_THREADS / 32)
+// halo slots each thread loads before it stores any (memory parallelism)
+#define TF_STAGE_BATCH 4
+// shared memory a block may use on the H100 (232,448 bytes)
+#define TF_SMEM_MAX 232448
+
+__host__ __device__ __forceinline__ long long tf_tile_smem_bytes(
+        int n_fields, int K, int R, int C) {
+    const long long halo = (long long)(R + 2) * (C + 2);
+    return 8LL * n_fields * K * halo + 4LL * halo + 4LL * R * C * K +
+           8LL * TF_TILE_WARPS + 8LL * (R + 2);
+}
+
+// The shared arrays behind a tile's n_fields float2 fields.
+struct TfTileSmem {
+    int* socc;   // [(R + 2) (C + 2)] halo cells' occupancies
+    int* list;   // [R C K] live targets
+    int* wsum;   // [2][TF_TILE_WARPS] per-warp counts
+    int* srow;   // [R + 2] halo rows' occupancies (0 outside the grid)
+    float* sdt;  // [R + 2] halo rows' world dt
+};
+
+__device__ __forceinline__ TfTileSmem tf_tile_smem(float2* fields_end,
+                                                   int K, int R, int C) {
+    TfTileSmem t;
+    t.socc = reinterpret_cast<int*>(fields_end);
+    t.list = t.socc + (R + 2) * (C + 2);
+    t.wsum = t.list + R * C * K;
+    t.srow = t.wsum + 2 * TF_TILE_WARPS;
+    t.sdt = reinterpret_cast<float*>(t.srow + R + 2);
+    return t;
+}
+
+// Zero the halo cells' occupancies and read the halo rows' occupancy
+// (capped at K) and world dt (column dt_col of the per-world table sc,
+// n_col columns). Ends with __syncthreads().
+__device__ __forceinline__ void tf_tile_begin(const TfTileSmem& t,
+                                              const int* occ_row,
+                                              const int* wid, const float* sc,
+                                              int n_col, int dt_col, int R,
+                                              int C, int K, int y0, int gy) {
+    for (int i = threadIdx.x; i < (R + 2) * (C + 2); i += TF_TILE_THREADS)
+        t.socc[i] = 0;
+    for (int lr = threadIdx.x; lr < R + 2; lr += TF_TILE_THREADS) {
+        const int sy = y0 + lr - 1;
+        const bool in = sy >= 0 && sy < gy;
+        t.srow[lr] = in ? min(occ_row[sy], K) : 0;
+        t.sdt[lr] = in ? sc[tf_world(wid, sy) * n_col + dt_col] : 0.0f;
+    }
+    __syncthreads();
+}
+
+// The largest of n row occupancies from srow.
+__device__ __forceinline__ int tf_max_rows(const int* srow, int n) {
+    int m = 0;
+    for (int i = 0; i < n; ++i) m = max(m, srow[i]);
+    return m;
+}
+
+// n / d as tf_div(n, d, tf_magic(d)): a multiply-high by ceil(2^32 / d),
+// exact for n d < 2^32 (d = 1, whose multiplier needs 33 bits, divides
+// by itself). In the staging walk n and d stay below 2^15: n below the
+// halo's slots, d a column pitch or a slot count, and a tile's slots fit
+// shared memory at 8 bytes each.
+__device__ __forceinline__ unsigned tf_magic(int d) {
+    return (unsigned)((0x100000000ull + (unsigned)d - 1u) / (unsigned)d);
+}
+
+__device__ __forceinline__ int tf_div(int n, int d, unsigned m) {
+    return d == 1 ? n : (int)__umulhi((unsigned)n, m);
+}
+
+// Halo slot i of the flat (row, slot below kh, column) walk of the
+// staging; false when i is past the walk, the slot at or beyond its row's
+// occupancy or the column outside the grid. m_hc, m_kh: tf_magic of HC
+// and kh.
+__device__ __forceinline__ bool tf_halo_slot(int i, int n, int kh, int HC,
+                                             unsigned m_hc, unsigned m_kh,
+                                             const int* srow, int x0, int gx,
+                                             int& lr, int& kk, int& lc) {
+    if (i >= n) return false;
+    const int t = tf_div(i, HC, m_hc);
+    lc = i - t * HC;
+    lr = tf_div(t, kh, m_kh);
+    kk = t - lr * kh;
+    const int sx = x0 + lc - 1;
+    return kk < srow[lr] && sx >= 0 && sx < gx;
+}
+
+// The live targets of the tile's centre cells, listed in (slot, row,
+// column) order as kk << 16 | lr << 8 | lc, so that the lanes of a warp
+// take neighbouring columns of one slot row: their global loads and
+// stores are coalesced and their shared reads hit distinct banks. The
+// walk covers the slots below kc, the centre rows' largest occupancy; a
+// centre slot there is live below its cell's socc with a live staged
+// prediction. Every other centre slot in the grid gets empty(y, kk, x).
+// Returns the count, the same in every thread; the list is complete when
+// it returns.
+template <class Empty>
+__device__ __forceinline__ int tf_tile_targets(const float2* sp,
+                                               const TfTileSmem& t, int kc,
+                                               int lgR, int lgC, int K,
+                                               int y0, int x0, int gy,
+                                               Empty empty) {
+    const int R = 1 << lgR, C = 1 << lgC, HC = C + 2;
+    const int lane = threadIdx.x & 31;
+    const int w = threadIdx.x >> 5;
+    // slots at or beyond kc: empty in every centre cell
+    const int n_all = (K * R) << lgC;
+    for (int i = ((kc * R) << lgC) + threadIdx.x; i < n_all;
+         i += TF_TILE_THREADS) {
+        const int lr = (i >> lgC) & (R - 1);
+        if (y0 + lr < gy) empty(y0 + lr, i >> (lgC + lgR), x0 + (i & (C - 1)));
+    }
+    const int n = (kc * R) << lgC;
+    int base = 0;
+    int buf = 0;
+    for (int i0 = 0; i0 < n; i0 += TF_TILE_THREADS, buf ^= 1) {
+        const int i = i0 + threadIdx.x;
+        const int lc = i & (C - 1);
+        const int lr = (i >> lgC) & (R - 1);
+        const int kk = i >> (lgC + lgR);
+        bool live = false;
+        if (i < n && y0 + lr < gy) {
+            live = kk < t.socc[(lr + 1) * HC + lc + 1] &&
+                   tf_live(sp[((lr + 1) * K + kk) * HC + lc + 1].x);
+            if (!live) empty(y0 + lr, kk, x0 + lc);
+        }
+        const unsigned b = __ballot_sync(0xffffffffu, live);
+        // two count rows: a warp may fill this chunk's row while a slower
+        // one still reads the previous chunk's
+        if (lane == 0) t.wsum[buf * TF_TILE_WARPS + w] = __popc(b);
+        __syncthreads();
+        int off = base, tot = 0;
+        for (int j = 0; j < TF_TILE_WARPS; ++j) {
+            const int c = t.wsum[buf * TF_TILE_WARPS + j];
+            off += j < w ? c : 0;
+            tot += c;
+        }
+        if (live)
+            t.list[off + __popc(b & ((1u << lane) - 1u))] =
+                (kk << 16) | (lr << 8) | lc;
+        base += tot;
+    }
+    __syncthreads();
+    return base;
+}
+
+// Candidate bounds of the target in centre cell (lr, lc) from the halo
+// cells' occupancies (0 for a cell outside the grid). Returns their max.
+__device__ __forceinline__ int tf_occ_tile(const int* socc, int lr, int lc,
+                                           int HC, int occ_c[9]) {
+    int m = 0;
+    for (int r = 0; r < 3; ++r)
+        for (int dx = 0; dx < 3; ++dx) {
+            const int o = socc[(lr + r) * HC + lc + dx];
+            occ_c[r * 3 + dx] = o;
+            m = max(m, o);
+        }
+    return m;
 }
