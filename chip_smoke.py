@@ -29,7 +29,7 @@ Builds the CUDA kernels from ``tpufluid_torch/csrc`` and runs, in order:
     with the launch counters reset just before it;
 12. engine parity on bench.py's parity scene (grid, dense and pallas, 10
     steps), and the CLI's default ``run`` (the dense engine) on the
-    reference's default scene for 32 steps;
+    reference's default scene for 64 steps;
 13. forces_integrate's variants against their plain versions, bitwise:
     x wrap at scene_1m with movers across the x walls, surface tension at
     scene_1m (and at h = 1.5, where it acts), adaptive subsampling on the
@@ -50,7 +50,7 @@ Builds the CUDA kernels from ``tpufluid_torch/csrc`` and runs, in order:
     caller on any path) against its plain version at scene_1m's grid with
     valid_f from the seeded state, bitwise, timed;
 18. the tile kernels of density and forces_integrate against their plain
-    versions, bitwise, at every tile shape the wrapper picks: scene_1m
+    versions, bitwise, at every tile shape the kernels pick: scene_1m
     K=8 (its 524 rows ragged for the density tile), the clump at K=16,
     scene_1m K=32, phase 4's K=192 grid (64 rows from its densest one; the
     whole grid timed) and a small grid of 41 rows (ragged for every tile
@@ -59,9 +59,9 @@ Builds the CUDA kernels from ``tpufluid_torch/csrc`` and runs, in order:
     variant flag, an obstacle field and two worlds (wid).
 
 Any failed phase raises and the script exits non-zero. Output: progress
-lines, then the card's name and power limit, then one JSON line of
-per-kernel results, and last one JSON line ``{"ok": true, "device":
-{...}}``. Without a CUDA device it exits non-zero and prints no result.
+lines (each after the seconds since the start), then the card's name and
+power limit, then one JSON line of per-kernel results, and last one JSON
+line ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero and prints no result.
 Imports no JAX.
 """
 
@@ -76,6 +76,9 @@ import tempfile
 import time
 
 import torch
+
+# the script's start, for the progress lines
+T_START = time.perf_counter()
 
 # f32 machine epsilon, the density floor (funcs.wgsl:55)
 EPSILON = 1.19209290e-07
@@ -146,7 +149,8 @@ ST_PARAMS = dict(surface_tension_threshold=0.05,
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A progress line, after the seconds since the script started."""
+    print(f"[{time.perf_counter() - T_START:6.1f} s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -167,21 +171,28 @@ def abs_err(got, want, mask) -> float:
 
 
 def time_ms(fn, reps: int, warm: int = 2) -> float:
-    """Device ms per call, CUDA events around ``reps`` calls. A ~20 ms sleep
+    """Device ms per call, CUDA events around ``reps`` calls. A sleep
     kernel ahead of them lets the host queue the calls first, so a call
     whose host side is slower than its kernel is still timed on the
-    device (unless queuing outlasts the sleep)."""
+    device. Where the device reached the first call before the host had
+    queued the last (a slow host), a reading of 10 calls or more is taken
+    again behind a sleep ten times as long; fewer reps (the plain
+    versions, which may sync) are timed as they run."""
     for _ in range(warm):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(40_000_000)  # cycles: ~20 ms at the H100's 1.98 GHz
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    for cycles in (40_000_000, 400_000_000):  # ~20, ~200 ms at 1.98 GHz
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        queued = not start.query()  # the device still sleeps
+        end.record()
+        torch.cuda.synchronize()
+        if queued or reps < 10:
+            break
     return start.elapsed_time(end) / reps
 
 
@@ -251,6 +262,16 @@ def grid_bytes(a) -> int:
     return a.numel() * a.element_size()
 
 
+def resident_bytes(px, occ_row, n_in: int, n_out: int) -> int:
+    """Bytes a resident kernel must move: of each of its ``n_in`` input
+    fields [Gy, K, Gxp] the slots below their row's occupancy (the slots
+    above are empty by the grid's invariant, and their outputs are fixed),
+    and the whole of each of its ``n_out`` output fields."""
+    k, gx = px.shape[1], px.shape[2]
+    live = int(torch.clamp(occ_row, max=k).sum()) * gx * px.element_size()
+    return n_in * live + n_out * grid_bytes(px)
+
+
 def compare_kernels(settings, params, label):
     """Each kernel against its plain version on one grid. Returns per-kernel
     dicts of max_abs_err and the bound, and the calls for
@@ -306,13 +327,15 @@ def compare_kernels(settings, params, label):
         f"{POS_TOL}) vel {max(errs[2:]):.3g} (bound {VEL_TOL}), max abs err "
         f"{out['forces_integrate']['max_abs_err']:.3g}")
 
-    g = grid_bytes(gs.pos_x)
     n_live = float(live_per_cell(gs.pos_x).sum())
     pairs = stencil_pairs(px)
     for name, n_bytes, n_ops in (
-            ("rebin", 8 * g, OPS["rebin"] * n_live),
-            ("density", 6 * g, OPS["density"] * pairs),
-            ("forces_integrate", 10 * g, OPS["forces_integrate"] * pairs)):
+            ("rebin", resident_bytes(gs.pos_x, gs.occ_row, 4, 4),
+             OPS["rebin"] * n_live),
+            ("density", resident_bytes(px, occ, 4, 2),
+             OPS["density"] * pairs),
+            ("forces_integrate", resident_bytes(px, occ, 6, 4),
+             OPS["forces_integrate"] * pairs)):
         out[name]["bound_ms"], out[name]["bound_by"] = bound(n_bytes, n_ops)
     log(f"{label}: {n_live:.0f} live particles, {pairs:.4e} stencil pairs")
 
@@ -451,7 +474,7 @@ def compare_has_ff(settings, params, field, label):
     k1 = time_ms(kern, 50)
     k2 = time_ms(kern, 50)
     p2 = time_ms(plain, 3, warm=0)
-    n_bytes = 10 * grid_bytes(px) + 2 * grid_bytes(ffc[0])
+    n_bytes = resident_bytes(px, occ, 6, 4) + 2 * grid_bytes(ffc[0])
     b_ms, b_by = bound(n_bytes, OPS["forces_integrate"] * stencil_pairs(px))
     res = dict(max_abs_err=max(abs_err(a, b, live)
                                for a, b in zip(new, new_p)),
@@ -836,11 +859,11 @@ def engine_parity(dev):
 
 def cli_default_run():
     """The CLI's ``run`` with no --neighbor-mode (the dense engine) on the
-    reference's default scene, 32 steps."""
+    reference's default scene, 64 steps."""
     from tpufluid_torch import cli
 
     args = cli.parser().parse_args(["run", "--device", "cuda", "--steps",
-                                    "32", "--report-every", "16"])
+                                    "64", "--report-every", "32"])
     if args.neighbor_mode != "dense":
         raise AssertionError(f"CLI default engine {args.neighbor_mode}")
     torch.cuda.synchronize()
@@ -849,13 +872,13 @@ def cli_default_run():
     wall = time.perf_counter() - t0
     m = app.metrics(deep=True)
     log(f"CLI default run (dense, 100k, 53x53, K={app.settings.cell_capacity}"
-        f"), 32 steps: wall {wall:.2f} s, {1e3 * wall / 32:.1f} ms/step; "
+        f"), 64 steps: wall {wall:.2f} s, {1e3 * wall / 64:.1f} ms/step; "
         f"tick {m['tick']}, NaN {m['nan_positions']}, max occupancy "
         f"{m['max_cell_occupancy']}")
-    if not (m["tick"] == 32 and m["nan_positions"] == 0
+    if not (m["tick"] == 64 and m["nan_positions"] == 0
             and not m["capacity_exceeded"]):
         raise AssertionError(f"CLI default run: {m}")
-    return dict(wall_s=wall, ms_per_step=1e3 * wall / 32,
+    return dict(wall_s=wall, ms_per_step=1e3 * wall / 64,
                 cell_capacity=app.settings.cell_capacity,
                 profile=profile_steps(app, 2, "CLI default dense"))
 
@@ -939,7 +962,8 @@ def compare_variant(gs, settings, params, flags, label, timed=True):
         pairs = stencil_pairs(px)
         extra = sum(OPS_VARIANT[VARIANT_NAMES[f]] for f in flags)
         res["bound_ms"], res["bound_by"] = bound(
-            10 * grid_bytes(px), (OPS["forces_integrate"] + extra) * pairs)
+            resident_bytes(px, occ, 6, 4),
+            (OPS["forces_integrate"] + extra) * pairs)
         res["ms"], res["plain_ms"], raw = timed_pair(
             lambda: fused.forces_integrate(*fargs, **flags),
             lambda: fused.forces_integrate_plain(*fargs, **flags))
@@ -1013,18 +1037,19 @@ def compare_batched(bs, bp, dev):
     bitwise(new, fused.forces_integrate_plain(*fargs, wid=wid),
             "config 4 forces_integrate wid")
     torch.use_deterministic_algorithms(False)
-    g = grid_bytes(px)
     n_live = float(live_per_cell(gs.pos_x).sum())
     pairs = stencil_pairs(px)
+    wid_bytes = 4 * rows * CONFIG4_WORLDS
     calls = {
-        "rebin": (8 * g + 4 * rows * CONFIG4_WORLDS, OPS["rebin"] * n_live,
+        "rebin": (resident_bytes(gs.pos_x, gs.occ_row, 4, 4) + wid_bytes,
+                  OPS["rebin"] * n_live,
                   lambda: fused.rebin(*rargs, row_shift=shift),
                   lambda: fused.rebin_plain(*rargs, row_shift=shift)),
-        "density": (6 * g + 4 * rows * CONFIG4_WORLDS,
+        "density": (resident_bytes(px, occ, 4, 2) + wid_bytes,
                     OPS["density"] * pairs,
                     lambda: fused.density(*dargs, wid=wid),
                     lambda: fused.density_plain(*dargs, wid=wid)),
-        "forces_integrate": (10 * g + 4 * rows * CONFIG4_WORLDS,
+        "forces_integrate": (resident_bytes(px, occ, 6, 4) + wid_bytes,
                              OPS["forces_integrate"] * pairs,
                              lambda: fused.forces_integrate(*fargs, wid=wid),
                              lambda: fused.forces_integrate_plain(*fargs,
@@ -1138,10 +1163,9 @@ def time_physics(grids, settings, params):
     k1, s1 = time_ms(kern, 50), time_ms(split, 50)
     k2, s2 = time_ms(kern, 50), time_ms(split, 50)
     p2 = time_ms(plain, 2, warm=0)
-    g = grid_bytes(px)
     pairs = stencil_pairs(px)
-    b_ms, b_by = bound(8 * g, (OPS["density"] + OPS["forces_integrate"])
-                       * pairs)
+    b_ms, b_by = bound(resident_bytes(px, occ, 4, 4),
+                       (OPS["density"] + OPS["forces_integrate"]) * pairs)
     res = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                split_ms=(s1 + s2) / 2, bound_ms=b_ms, bound_by=b_by,
                library_ms=None, max_abs_err=0.0)
@@ -1340,13 +1364,13 @@ def time_big_k(grids, settings, params, label):
              params.pressure_constant, params.rest_density, settings)
     pres, invr = fused.density(*dargs)
     fargs = (px, py, vx, vy, pres, invr, occ, params, settings, frame)
-    g = grid_bytes(px)
     pairs = stencil_pairs(px)
     out = {}
     for name, n_bytes, kern, plain in (
-            ("density", 6 * g, lambda: fused.density(*dargs),
+            ("density", resident_bytes(px, occ, 4, 2),
+             lambda: fused.density(*dargs),
              lambda: fused.density_plain(*dargs)),
-            ("forces_integrate", 10 * g,
+            ("forces_integrate", resident_bytes(px, occ, 6, 4),
              lambda: fused.forces_integrate(*fargs),
              lambda: fused.forces_integrate_plain(*fargs))):
         b_ms, b_by = bound(n_bytes, OPS[name] * pairs)
@@ -1708,7 +1732,9 @@ def main() -> int:
     rebin_valid = compare_rebin_valid(s8, scene.params, "scene_1m K=8")
     torch.use_deterministic_algorithms(False)
 
-    # 18. the tile kernels of density and forces at every tile shape
+    # 18. the tile kernels of density and forces at every tile shape; at
+    # K=192 and 256 with many particles, where the plain versions take
+    # seconds, "wid" (base flags, two worlds) stands in for "base"
     gates = [tile_gates("scene_1m", s8, grids8,
                         ["adaptive", "has_ff", "wid"])]
     gates.append(tile_gates("scene_1m clump", s16, (
@@ -1727,7 +1753,7 @@ def main() -> int:
     gates.append(tile_gates("default scene after 512 steps, 64 densest rows",
                             s192, (*(a[y0:y0 + 64].contiguous()
                                      for a in g192[:5]), g192[5]),
-                            ["base", "all", "wid"]))
+                            ["all", "wid"]))
     big_k = time_big_k(g192, s192,
                        tt.TickParams.default(dev, gravity=(0.0, -9.8)),
                        "default scene after 512 steps")
@@ -1739,7 +1765,7 @@ def main() -> int:
         sk, gk = small_state(dev, k, n_random, fill)
         gates.append(tile_gates(label, sk, (
             gk.pos_x, gk.pos_y, gk.vel_x, gk.vel_y, gk.occ_row, gk.tick + 1),
-            ["base", "all", "wid"]))
+            ["all", "wid"] if k > 128 and fill else ["base", "all", "wid"]))
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -500,7 +500,7 @@ TILE_VARIANTS = {"base": {}, "wrap": dict(x_boundary="wrap"),
 @pytest.mark.parametrize("k", [8, 16, 32, 192, 256, "sparse8", "sparse192"])
 def test_tile_kernels_bitwise(cuda, k, variant):
     """The tile kernels of density and forces_integrate against their
-    plain versions, bitwise, at every tile shape the wrapper picks from K
+    plain versions, bitwise, at every tile shape the kernels pick from K
     (above 240 too), on a grid whose rows every tile height leaves
     ragged, with a row at full occupancy K, with each variant flag, an
     obstacle field (random push-outs) and two worlds (wid); "sparse" at

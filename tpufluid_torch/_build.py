@@ -36,9 +36,11 @@ _SIGNATURES = {
     + [_I] * 2 + [_P],
     "tf_rebin_valid": [_P] * 6 + [_P] * 6 + [_I] * 3 + [_F] * 3 + [_I] * 2
     + [_F] + [_P],
-    "tf_density": [_P] * 7 + [_P] * 2 + [_I] * 5 + [_F] * 4 + [_P],
-    "tf_forces": [_P] * 10 + [_P] * 2 + [_P] * 4 + [_I] * 5 + [_I, _P]
+    "tf_density": [_P] * 7 + [_P] * 2 + [_I] * 3 + [_F] * 4 + [_P],
+    "tf_density_tile": [_I],
+    "tf_forces": [_P] * 10 + [_P] * 2 + [_P] * 4 + [_I] * 3 + [_I, _P]
     + [_P],
+    "tf_forces_tile": [_I],
     "tf_physics": [_P] * 8 + [_P] * 2 + [_P] * 4 + [_I] * 3 + [_I] * 2
     + [_I] + [_F] * 2 + [_P] + [_P],
     "tf_metaball_coarse": [_P] * 6 + [_I] * 5 + [_F] * 4 + [_P],

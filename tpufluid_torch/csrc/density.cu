@@ -11,8 +11,8 @@
 // once.
 //
 // Design: one block of 256 threads per tile of R x C cells with all K
-// slots (the wrapper picks the tile from K so that it fits shared
-// memory; see tf_tile_smem_bytes).
+// slots (tf_resident_tile picks the tile from K so that it fits shared
+// memory).
 //   S: the predictions of the tile's +-1 halo, each slot predicted once
 //      with its row's dt, go to shared memory (float2 per slot); only
 //      slots below their row's occupancy are read, and each halo cell's
@@ -54,7 +54,6 @@ density_kernel(const float* __restrict__ px, const float* __restrict__ py,
     // flight per thread
     const int kh = tf_max_rows(t.srow, HR);
     const int n = HR * kh * HC;
-    const unsigned m_hc = tf_magic(HC), m_kh = tf_magic(max(kh, 1));
     for (int i0 = threadIdx.x; i0 < n;
          i0 += TF_STAGE_BATCH * TF_TILE_THREADS) {
         float ax[TF_STAGE_BATCH], ay[TF_STAGE_BATCH];
@@ -63,8 +62,8 @@ density_kernel(const float* __restrict__ px, const float* __restrict__ py,
         bool ok[TF_STAGE_BATCH];
 #pragma unroll
         for (int u = 0; u < TF_STAGE_BATCH; ++u) {
-            ok[u] = tf_halo_slot(i0 + u * TF_TILE_THREADS, n, kh, HC, m_hc,
-                                 m_kh, t.srow, x0, gx, lr[u], kk[u], lc[u]);
+            ok[u] = tf_halo_slot(i0 + u * TF_TILE_THREADS, n, kh, HC,
+                                 t.srow, x0, gx, lr[u], kk[u], lc[u]);
             if (ok[u]) {
                 const size_t gi = tf_index(y0 + lr[u] - 1, kk[u],
                                            x0 + lc[u] - 1, K, gx);
@@ -123,17 +122,26 @@ density_kernel(const float* __restrict__ px, const float* __restrict__ py,
 // dynamic shared memory limit set so far
 static int kDensitySmem;
 
+// The tile tf_density runs at capacity K as rows << 8 | columns; 0 when
+// none fits shared memory.
+extern "C" int tf_density_tile(int K) {
+    int lgR, lgC;
+    if (K <= 0 || !tf_resident_tile(1, TF_DENSITY_SLOTS, K, lgR, lgC))
+        return 0;
+    return (1 << lgR) << 8 | (1 << lgC);
+}
+
 extern "C" int tf_density(const float* px, const float* py, const float* vx,
                           const float* vy, const int* occ_row, const int* wid,
                           const float* sc, float* pres, float* invr, int gy,
-                          int K, int gx, int lgR, int lgC, float h2,
-                          float norm, float half_x, float half_y,
-                          cudaStream_t stream) {
-    const long long smem = tf_tile_smem_bytes(1, K, 1 << lgR, 1 << lgC);
-    if (gy <= 0 || K <= 0 || K > 32767 || lgR < 0 || lgR > 7 || lgC < 0 ||
-        lgC > 7 || gx % (1 << lgC) != 0 ||
-        (gy + (1 << lgR) - 1) >> lgR > 65535 || smem > TF_SMEM_MAX)
+                          int K, int gx, float h2, float norm, float half_x,
+                          float half_y, cudaStream_t stream) {
+    int lgR = 0, lgC = 0;
+    if (gy <= 0 || K <= 0 || K > 32767 ||
+        !tf_resident_tile(1, TF_DENSITY_SLOTS, K, lgR, lgC) ||
+        gx % (1 << lgC) != 0 || (gy + (1 << lgR) - 1) >> lgR > 65535)
         return (int)cudaErrorInvalidValue;
+    const long long smem = tf_tile_smem_bytes(1, K, 1 << lgR, 1 << lgC);
     if (smem > kDensitySmem && smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
             density_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

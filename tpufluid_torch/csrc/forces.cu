@@ -13,8 +13,8 @@
 // reads and the four output fields cross DRAM about once.
 //
 // Design: one block of 256 threads per tile of R x C cells with all K
-// slots (the wrapper picks the tile from K so that it fits shared
-// memory; see tf_tile_smem_bytes).
+// slots (tf_resident_tile picks the tile from K so that it fits shared
+// memory).
 //   S: the tile's +-1 halo goes to shared memory, per slot the
 //      prediction (each slot predicted once, with its row's dt) and
 //      (velocity, pressure, 1/rho) as a float4; only slots below their
@@ -72,7 +72,6 @@ forces_kernel(const float* __restrict__ px, const float* __restrict__ py,
     // TF_STAGE_BATCH slots' loads in flight per thread
     const int kh = tf_max_rows(t.srow, HR);
     const int n = HR * kh * HC;
-    const unsigned m_hc = tf_magic(HC), m_kh = tf_magic(max(kh, 1));
     for (int i0 = threadIdx.x; i0 < n;
          i0 += TF_STAGE_BATCH * TF_TILE_THREADS) {
         float ax[TF_STAGE_BATCH], ay[TF_STAGE_BATCH];
@@ -82,8 +81,8 @@ forces_kernel(const float* __restrict__ px, const float* __restrict__ py,
         bool ok[TF_STAGE_BATCH];
 #pragma unroll
         for (int u = 0; u < TF_STAGE_BATCH; ++u) {
-            ok[u] = tf_halo_slot(i0 + u * TF_TILE_THREADS, n, kh, HC, m_hc,
-                                 m_kh, t.srow, x0, gx, lr[u], kk[u], lc[u]);
+            ok[u] = tf_halo_slot(i0 + u * TF_TILE_THREADS, n, kh, HC,
+                                 t.srow, x0, gx, lr[u], kk[u], lc[u]);
             if (ok[u]) {
                 const size_t gi = tf_index(y0 + lr[u] - 1, kk[u],
                                            x0 + lc[u] - 1, K, gx);
@@ -180,22 +179,32 @@ static const ForcesKernel kForces[16] = {
 // dynamic shared memory limit set so far, per variant
 static int kForcesSmem[16];
 
+// The tile tf_forces runs at capacity K as rows << 8 | columns; 0 when
+// none fits shared memory.
+extern "C" int tf_forces_tile(int K) {
+    int lgR, lgC;
+    if (K <= 0 || !tf_resident_tile(3, TF_FORCES_SLOTS, K, lgR, lgC))
+        return 0;
+    return (1 << lgR) << 8 | (1 << lgC);
+}
+
 extern "C" int tf_forces(const float* px, const float* py, const float* vx,
                          const float* vy, const float* pres, const float* invr,
                          const int* occ_row, const int* wid, const float* sc,
                          const long long* frame, const float* ffx,
                          const float* ffy, float* npx, float* npy,
                          float* nvx, float* nvy, int gy, int K, int gx,
-                         int lgR, int lgC, int flags, const float* consts,
+                         int flags, const float* consts,
                          cudaStream_t stream) {
     const bool has_ff = (flags & TF_HAS_FF) != 0;
-    const long long smem = tf_tile_smem_bytes(3, K, 1 << lgR, 1 << lgC);
-    if (gy <= 0 || K <= 0 || K > 32767 || lgR < 0 || lgR > 7 || lgC < 0 ||
-        lgC > 7 || gx % (1 << lgC) != 0 ||
-        (gy + (1 << lgR) - 1) >> lgR > 65535 || smem > TF_SMEM_MAX ||
+    int lgR = 0, lgC = 0;
+    if (gy <= 0 || K <= 0 || K > 32767 ||
+        !tf_resident_tile(3, TF_FORCES_SLOTS, K, lgR, lgC) ||
+        gx % (1 << lgC) != 0 || (gy + (1 << lgR) - 1) >> lgR > 65535 ||
         flags < 0 || flags > 15 || has_ff != (ffx != nullptr) ||
         (ffx == nullptr) != (ffy == nullptr))
         return (int)cudaErrorInvalidValue;
+    const long long smem = tf_tile_smem_bytes(3, K, 1 << lgR, 1 << lgC);
     if (smem > kForcesSmem[flags] && smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
             kForces[flags], cudaFuncAttributeMaxDynamicSharedMemorySize,

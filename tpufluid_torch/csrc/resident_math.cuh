@@ -461,10 +461,10 @@ __device__ __forceinline__ void tf_forces_target(
 
 // ------------------------------------------------------------ tiles
 // density.cu and forces.cu run one block of TF_TILE_THREADS per tile of
-// R x C cells (R and C powers of two, C dividing the grid width) with all
-// K slots, and stage the tile's +-1 halo of (R + 2) x (C + 2) cells in
-// shared memory: n_fields float2 per slot (forces: a float4 and a
-// float2), [row][slot][column], pitch C + 2,
+// R x C cells (R and C powers of two, C dividing the grid width, picked
+// from K by tf_resident_tile) with all K slots, and stage the tile's +-1
+// halo of (R + 2) x (C + 2) cells in shared memory: n_fields float2 per
+// slot (forces: a float4 and a float2), [row][slot][column], pitch C + 2,
 // then socc, the occupancy (last live slot + 1) of each halo cell, then
 // the list of the tile's live targets, then two per-warp count rows, then
 // the halo rows' occupancies and world dt.
@@ -480,6 +480,36 @@ __host__ __device__ __forceinline__ long long tf_tile_smem_bytes(
     const long long halo = (long long)(R + 2) * (C + 2);
     return 8LL * n_fields * K * halo + 4LL * halo + 4LL * R * C * K +
            8LL * TF_TILE_WARPS + 8LL * (R + 2);
+}
+
+// The tiles as (log2 rows, log2 columns), by cells and then by halo
+// share (the columns divide the 128-aligned grid width), and each
+// kernel's cap on a tile's target slots (rows x columns x K). The caps
+// come from a sweep of every tile at K=8, 32 and 192 on the H100
+// (PERF.md): the fastest tile had 1,536-2,048 slots for density and
+// 1,024-1,536 for forces; past that the few blocks over a dense region
+// run long, below it the halo is re-read too often.
+static const int kTfTiles[][2] = {{3, 5}, {2, 5}, {1, 5}, {1, 4}, {0, 5},
+                                  {0, 4}, {0, 3}, {0, 2}, {0, 1}, {0, 0}};
+#define TF_DENSITY_SLOTS 2048
+#define TF_FORCES_SLOTS 1536
+
+// The tile of a kernel that stages n_fields float2 fields at capacity K:
+// the first of kTfTiles within max_slots target slots whose shared memory
+// fits, else the smallest that fits. False when none fits (K above ~1,000
+// for forces).
+static inline bool tf_resident_tile(int n_fields, int max_slots, int K,
+                                    int& lgR, int& lgC) {
+    bool fits = false;
+    for (const auto& t : kTfTiles) {
+        const int R = 1 << t[0], C = 1 << t[1];
+        if (tf_tile_smem_bytes(n_fields, K, R, C) > TF_SMEM_MAX) continue;
+        lgR = t[0];
+        lgC = t[1];
+        fits = true;
+        if ((long long)R * C * K <= max_slots) break;
+    }
+    return fits;
 }
 
 // The shared arrays behind a tile's n_fields float2 fields.
@@ -528,31 +558,16 @@ __device__ __forceinline__ int tf_max_rows(const int* srow, int n) {
     return m;
 }
 
-// n / d as tf_div(n, d, tf_magic(d)): a multiply-high by ceil(2^32 / d),
-// exact for n d < 2^32 (d = 1, whose multiplier needs 33 bits, divides
-// by itself). In the staging walk n and d stay below 2^15: n below the
-// halo's slots, d a column pitch or a slot count, and a tile's slots fit
-// shared memory at 8 bytes each.
-__device__ __forceinline__ unsigned tf_magic(int d) {
-    return (unsigned)((0x100000000ull + (unsigned)d - 1u) / (unsigned)d);
-}
-
-__device__ __forceinline__ int tf_div(int n, int d, unsigned m) {
-    return d == 1 ? n : (int)__umulhi((unsigned)n, m);
-}
-
 // Halo slot i of the flat (row, slot below kh, column) walk of the
 // staging; false when i is past the walk, the slot at or beyond its row's
-// occupancy or the column outside the grid. m_hc, m_kh: tf_magic of HC
-// and kh.
+// occupancy or the column outside the grid.
 __device__ __forceinline__ bool tf_halo_slot(int i, int n, int kh, int HC,
-                                             unsigned m_hc, unsigned m_kh,
                                              const int* srow, int x0, int gx,
                                              int& lr, int& kk, int& lc) {
     if (i >= n) return false;
-    const int t = tf_div(i, HC, m_hc);
+    const int t = i / HC;
     lc = i - t * HC;
-    lr = tf_div(t, kh, m_kh);
+    lr = t / kh;
     kk = t - lr * kh;
     const int sx = x0 + lc - 1;
     return kk < srow[lr] && sx >= 0 && sx < gx;

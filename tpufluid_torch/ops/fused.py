@@ -31,9 +31,10 @@ each candidate cell only below its own occupancy; the slots they skip
 are empty and add nothing, so the bits are the same.
 
 The density and forces kernels run one block per tile of cells with all
-K slots, staged in shared memory; :func:`density_tile` and
-:func:`forces_tile` pick the tile from K (one design at every K, smaller
-tiles as K grows; the wrapper raises if even a 1 x 1 tile does not fit).
+K slots, staged in shared memory; the kernels pick the tile from K (one
+design at every K, smaller tiles as K grows; a launch fails if even a
+1 x 1 tile does not fit), and :func:`density_tile` and
+:func:`forces_tile` report it.
 """
 
 from __future__ import annotations
@@ -76,61 +77,28 @@ _WRAP, _HAS_FF, _ST, _ADAPT = 1, 2, 4, 8
 PHYSICS_TILES = ((4, 32), (2, 32), (1, 32), (1, 16), (1, 8))
 SMEM_MAX = 232448
 SMEM_TWO_BLOCKS = 116 * 1024
-# (rows, columns) tiles of the density and forces kernels, by cells and
-# then by halo share (powers of two; columns divide the 128-aligned grid
-# width), the threads of a block, and each kernel's cap on the target
-# slots of a tile (rows x columns x K). The caps come from a sweep of every
-# tile at K=8, 32 and 192 on the H100 (PERF.md): the fastest tile
-# had 1,536-2,048 slots for density and 1,024-1,536 for forces; past that
-# the few blocks over a dense region run long, below it the halo is
-# re-read too often.
-RESIDENT_TILES = ((8, 32), (4, 32), (2, 32), (2, 16), (1, 32), (1, 16),
-                  (1, 8), (1, 4), (1, 2), (1, 1))
-TILE_THREADS = 256
-# float2 fields staged per slot: density the prediction; forces the
-# prediction, velocity and (pressure, 1/rho)
-_DENSITY_FIELDS, _FORCES_FIELDS = 1, 3
-_DENSITY_SLOTS, _FORCES_SLOTS = 2048, 1536
 
 
-def tile_smem_bytes(n_fields: int, k: int, rows: int, cols: int) -> int:
-    """Shared memory of one density (1 field) or forces (3) block: the
-    float2 fields of the tile's +-1 halo, its cells' occupancies, the
-    live-target list, two per-warp count rows and the halo rows'
-    occupancies and dt (resident_math.cuh)."""
-    halo = (rows + 2) * (cols + 2)
-    return (8 * n_fields * k * halo + 4 * halo + 4 * rows * cols * k
-            + 8 * (TILE_THREADS // 32) + 8 * (rows + 2))
-
-
-def _resident_tile(n_fields: int, max_slots: int, k: int, name: str):
-    """The first tile of RESIDENT_TILES within ``max_slots`` target slots
-    whose shared memory fits, else the smallest that fits; raises if none
-    does."""
-    fits = [t for t in RESIDENT_TILES
-            if tile_smem_bytes(n_fields, k, *t) <= SMEM_MAX]
-    if not fits:
-        raise ValueError(f"{name}: cell_capacity {k} does not fit {SMEM_MAX}"
-                         f" bytes of shared memory with a 1 x 1 tile")
-    for rows, cols in fits:
-        if rows * cols * k <= max_slots:
-            return rows, cols
-    return fits[-1]
+def _tile(fn, k: int, name: str):
+    """(rows, columns) of the tile the library's ``fn`` picks at capacity
+    ``k``; raises if none fits shared memory."""
+    packed = fn(k)
+    if packed == 0:
+        raise ValueError(f"{name}: cell_capacity {k} does not fit the "
+                         f"shared memory of a block with a 1 x 1 tile")
+    return packed >> 8, packed & 255
 
 
 def density_tile(k: int):
-    """(rows, columns) of the density kernel's tile at capacity ``k``."""
-    return _resident_tile(_DENSITY_FIELDS, _DENSITY_SLOTS, k, "density")
+    """(rows, columns) of the density kernel's tile at capacity ``k``, as
+    ``csrc/density.cu`` picks it (builds the kernels if needed)."""
+    return _tile(_build.load().tf_density_tile, k, "density")
 
 
 def forces_tile(k: int):
-    """(rows, columns) of the forces kernel's tile at capacity ``k``."""
-    return _resident_tile(_FORCES_FIELDS, _FORCES_SLOTS, k,
-                          "forces_integrate")
-
-
-def _lg(n: int) -> int:
-    return n.bit_length() - 1
+    """(rows, columns) of the forces kernel's tile at capacity ``k``, as
+    ``csrc/forces.cu`` picks it (builds the kernels if needed)."""
+    return _tile(_build.load().tf_forces_tile, k, "forces_integrate")
 
 
 def _f32(x: float) -> float:
@@ -442,8 +410,8 @@ def density(pos_x, pos_y, vel_x, vel_y, occ_row, mass, dt,
     ``pres = k (rho - rho0)`` and ``1/rho`` after the EPSILON and 0.1
     floors. Empty slots get the floor-density defaults. ``wid``: i32[Gy]
     world of each row for batched world stacks; the scalars may then be
-    [W]. On a CUDA device ``csrc/density.cu`` runs on the tile
-    :func:`density_tile` picks from K."""
+    [W]. On a CUDA device ``csrc/density.cu`` runs on the tile it picks
+    from K (:func:`density_tile`)."""
     if not _on_cuda(pos_x, pos_y, vel_x, vel_y, occ_row):
         return density_plain(pos_x, pos_y, vel_x, vel_y, occ_row, mass, dt,
                              pressure_constant, rest_density, settings, wid)
@@ -456,14 +424,13 @@ def density(pos_x, pos_y, vel_x, vel_y, occ_row, mass, dt,
     sc = _sc_table([_as_f32(v, dev) for v in
                     (mass, dt, pressure_constant, rest_density)], wid_t, dev)
     wid_t = _one_world(sc, wid_t)
-    rows, cols = density_tile(k)
     pres = torch.empty((gy, k, gx), dtype=torch.float32, device=dev)
     invr = torch.empty((gy, k, gx), dtype=torch.float32, device=dev)
     lib = _build.load()
     err = lib.tf_density(
         _ptr(pos_x), _ptr(pos_y), _ptr(vel_x), _ptr(vel_y), _ptr(occ_row),
-        _ptr(wid_t), _ptr(sc), _ptr(pres), _ptr(invr), gy, k, gx, _lg(rows),
-        _lg(cols), h2, norm, half_x, half_y, _stream(dev))
+        _ptr(wid_t), _ptr(sc), _ptr(pres), _ptr(invr), gy, k, gx, h2, norm,
+        half_x, half_y, _stream(dev))
     _launched("density", err)
     if wid_t is not None:
         LAUNCHES["density_wid"] += 1
@@ -807,8 +774,8 @@ def forces_integrate(pos_x, pos_y, vel_x, vel_y, pres, invr, occ_row,
     the colour-field force, ``adaptive_subsampling`` strides the pressure
     candidates by the self density. ``wid``: i32[Gy] world of each row for
     batched world stacks; the params may then carry a leading [W]. On a
-    CUDA device ``csrc/forces.cu`` runs on the tile :func:`forces_tile`
-    picks from K."""
+    CUDA device ``csrc/forces.cu`` runs on the tile it picks from K
+    (:func:`forces_tile`)."""
     flags = _flags(x_boundary, ff_cells, surface_tension,
                    adaptive_subsampling)
     ffs = () if ff_cells is None else tuple(ff_cells)
@@ -826,7 +793,6 @@ def forces_integrate(pos_x, pos_y, vel_x, vel_y, pres, invr, occ_row,
     wid_t = _opt_rows(wid, gy, "wid", dev)
     sc = _forces_sc(params, settings, wid_t, dev)
     wid_t = _one_world(sc, wid_t)
-    rows, cols = forces_tile(k)
     fr = torch.as_tensor(frame, dtype=torch.int64, device=dev).reshape(1)
     outs = [torch.empty((gy, k, gx), dtype=torch.float32, device=dev)
             for _ in range(4)]
@@ -835,7 +801,7 @@ def forces_integrate(pos_x, pos_y, vel_x, vel_y, pres, invr, occ_row,
         _ptr(pos_x), _ptr(pos_y), _ptr(vel_x), _ptr(vel_y), _ptr(pres),
         _ptr(invr), _ptr(occ_row), _ptr(wid_t), _ptr(sc), _ptr(fr),
         *([_ptr(f) for f in ffs] if ffs else [None, None]),
-        *(_ptr(o) for o in outs), gy, k, gx, _lg(rows), _lg(cols), flags,
+        *(_ptr(o) for o in outs), gy, k, gx, flags,
         _consts_struct(settings), _stream(dev))
     _launched("forces_integrate", err)
     _count_variants(flags, wid_t)
