@@ -13,8 +13,8 @@ Builds the CUDA kernels from ``tpufluid_torch/csrc`` and runs, in order:
    reading of 20 more steps;
 4. the reference's default scene (100k particles, gravity) through the
    CLI's ``run`` path for 512 steps;
-5. the metaball coarse-field kernel against its plain version at scene_1m
-   (K=8, K=32) and on phase 4's high-occupancy grid, timed;
+5. the metaball coarse-field kernel against its plain version, bitwise,
+   at scene_1m (K=8, K=32) and on phase 4's high-occupancy grid, timed;
 6. forces_integrate's obstacle (has_ff) variant against its plain version
    at scene_1m, and 20 synced obstacle steps, kernel step against plain;
 7. the render path through the CLI's parser: 16 frames at 960x540 of the
@@ -56,7 +56,12 @@ Builds the CUDA kernels from ``tpufluid_torch/csrc`` and runs, in order:
     whole grid timed) and a small grid of 41 rows (ragged for every tile
     height) at K=8 and K=256 with a row at full occupancy, and sparse (60
     particles, halo rows of at most one slot) at K=8 and K=192; with each
-    variant flag, an obstacle field and two worlds (wid).
+    variant flag, an obstacle field and two worlds (wid); rebin bitwise
+    against its plain version on each of those grids, and on the whole
+    K=192 grid, timed; the metaball coarse kernel on the K=256 full-row
+    grid (supersample 8) and the sparse K=192 grid (supersample 1);
+19. ``FluidApp.set_mouse`` at scene_1m: 16 resident ticks with the mouse
+    repelling at the centre against 16 with it off.
 
 Any failed phase raises and the script exits non-zero. Output: progress
 lines (each after the seconds since the start), then the card's name and
@@ -419,6 +424,7 @@ def compare_coarse(gs, settings, label, plain_reps):
     if not (e_rel <= FIELD_TOL and float(want[0].max()) > 1.0):
         raise AssertionError(f"{label} metaball_coarse: rel err {e_rel} > "
                              f"{FIELD_TOL}")
+    bitwise(got, want, f"{label} metaball_coarse")
     kern = lambda: render_coarse.coarse_metaball_fields(*args)
     plain = lambda: render_coarse.coarse_metaball_fields_plain(*args)
     p1 = time_ms(plain, plain_reps, warm=1)
@@ -433,8 +439,8 @@ def compare_coarse(gs, settings, label, plain_reps):
                grid=list(gs.pos_x.shape),
                max_occupancy=int(gs.occ_row.max()))
     log(f"{label} metaball_coarse {tuple(gs.pos_x.shape)} (max occupancy "
-        f"{res['max_occupancy']}, {pairs:.4e} pairs): max rel err "
-        f"{e_rel:.3g} (bound {FIELD_TOL}), max abs err {e_abs:.3g}; kernel "
+        f"{res['max_occupancy']}, {pairs:.4e} pairs): bitwise equal to "
+        f"plain (max rel err {e_rel:.3g}, bound {FIELD_TOL}); kernel "
         f"{res['ms']:.4f} ms ({k1:.4f}, {k2:.4f}), plain "
         f"{res['plain_ms']:.3f} ms ({p1:.3f}, {p2:.3f}), bound {b_ms:.4f} "
         f"ms ({b_by})")
@@ -580,7 +586,8 @@ def render_cli():
 
 def frame_breakdown(app, card):
     """CUDA-event ms of the render path's parts at 960x540 on the app's
-    grid, and of a 16-tick frame plus its render."""
+    grid, and of a 16-tick frame plus its render (the ticks' wall time is
+    host-bound, so also the device's busy ms over two frames)."""
     from tpufluid_torch.ops import render as renderops
     from tpufluid_torch.ops import render_binned, render_coarse, render_grid
 
@@ -611,11 +618,21 @@ def frame_breakdown(app, card):
     end.record()
     torch.cuda.synchronize()
     out["ms_per_frame"] = start.elapsed_time(end) / 5
+
+    def one_frame():
+        app.run(16)
+        app.render_frame(960, 540)
+
+    prof = profile_steps(app, 2, "scene_1m frame (16 ticks + render)",
+                         step=one_frame)
+    out["busy_ms_per_frame"] = (None if prof is None
+                                else prof["busy_ms_per_step"])
     log(f"scene_1m frame at 960x540: coarse kernel {out['coarse_ms']:.4f} "
         f"ms, resample (2 x 2 matmuls) {out['resample_ms']:.4f} ms, shading "
         f"{out['shade_ms']:.4f} ms, render_frame {out['render_frame_ms']:.4f}"
         f" ms; 16 ticks + render {out['ms_per_frame']:.3f} ms/frame (CUDA "
-        f"events over 5 frames; {card})")
+        f"events over 5 frames), device busy "
+        f"{out['busy_ms_per_frame'] or 0:.4f} ms/frame ({card})")
     return out
 
 
@@ -774,12 +791,13 @@ def synced_pallas_steps(settings, params, n_steps: int) -> None:
         f"{worst['density']:.3g}")
 
 
-def profile_steps(app, n_steps: int, label: str):
+def profile_steps(app, n_steps: int, label: str, step=None):
     """Device time by kernel, launches and the device's busy share over
-    ``app.run(n_steps)`` (torch.profiler; the busy share is the union of
-    the kernels' spans over the span from the first kernel's start to the
-    last one's end). Returns None, and says "not measured", when the
-    profiler sees no device time."""
+    ``app.run(n_steps)``, or ``n_steps`` calls of ``step`` (torch.profiler;
+    the busy share is the union of the kernels' spans over the span from
+    the first kernel's start to the last one's end), per step. Returns
+    None, and says "not measured", when the profiler sees no device
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -787,7 +805,11 @@ def profile_steps(app, n_steps: int, label: str):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            app.run(n_steps)
+            if step is None:
+                app.run(n_steps)
+            else:
+                for _ in range(n_steps):
+                    step()
             torch.cuda.synchronize()
         kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     except Exception as exc:  # the profile is a reading, not a gate
@@ -1308,9 +1330,9 @@ TILE_VARIANTS = {
 
 
 def tile_gates(label, settings, grids, variants):
-    """density and forces_integrate against their plain versions, bitwise,
-    on ``grids`` (px, py, vx, vy, occ, frame) with each of ``variants``
-    (TILE_VARIANTS keys). Params: gravity -9.8 and surface tension's
+    """rebin, then density and forces_integrate against their plain
+    versions, bitwise, on ``grids`` (px, py, vx, vy, occ, frame), the
+    latter two with each of ``variants`` (TILE_VARIANTS keys). Params: gravity -9.8 and surface tension's
     test values; "wid" splits the rows between that world and one with
     gravity -2 and viscosity 25."""
     import tpufluid_torch as tt
@@ -1326,6 +1348,12 @@ def tile_gates(label, settings, grids, variants):
     ff = (torch.rand((2, gy, gx), generator=g) - 0.5) * 4.0
     ff[torch.rand(ff.shape, generator=g) < 0.7] = 0.0
     ff = ff.to(dev)
+    # rebin's plain version scatters into distinct slots (and a spare
+    # slot it drops), so it needs no deterministic mode, which would make
+    # its K x 9 scatters take seconds at K=256
+    rargs = (px, py, vx, vy, occ, plist[0].delta, settings)
+    bitwise(fused.rebin(*rargs), fused.rebin_plain(*rargs),
+            f"{label} rebin")
     torch.use_deterministic_algorithms(True)
     for name in variants:
         kw = dict(TILE_VARIANTS[name])
@@ -1347,43 +1375,127 @@ def tile_gates(label, settings, grids, variants):
                 fused.forces_integrate_plain(*fargs, **kw),
                 f"{label} forces_integrate {name}")
     torch.use_deterministic_algorithms(False)
-    log(f"{label} {(gy, k, gx)} (tiles: density "
-        f"{fused.density_tile(k)}, forces {fused.forces_tile(k)}; max "
-        f"occupancy {int(occ.max())}): density and forces_integrate bitwise "
-        f"equal to plain with {', '.join(variants)}")
+    log(f"{label} {(gy, k, gx)} (tiles: rebin {fused.rebin_tile(k)}, "
+        f"density {fused.density_tile(k)}, forces {fused.forces_tile(k)}; "
+        f"max occupancy {int(occ.max())}): rebin bitwise equal to plain; "
+        f"density and forces_integrate bitwise equal to plain with "
+        f"{', '.join(variants)}")
     return f"{label} K={k}: {', '.join(variants)}"
 
 
 def time_big_k(grids, settings, params, label):
-    """density and forces_integrate against their plain versions' time
-    and the bound on a high-occupancy grid."""
+    """rebin (bitwise against its plain version on the whole grid),
+    density and forces_integrate against their plain versions' time and
+    the bound on a high-occupancy grid."""
     from tpufluid_torch.ops import fused
 
     px, py, vx, vy, occ, frame = grids
+    rargs = (px, py, vx, vy, occ, params.delta, settings)
+    bitwise(fused.rebin(*rargs), fused.rebin_plain(*rargs),
+            f"{label} rebin")
     dargs = (px, py, vx, vy, occ, params.mass, params.delta,
              params.pressure_constant, params.rest_density, settings)
     pres, invr = fused.density(*dargs)
     fargs = (px, py, vx, vy, pres, invr, occ, params, settings, frame)
     pairs = stencil_pairs(px)
+    n_live = float(live_per_cell(px).sum())
     out = {}
-    for name, n_bytes, kern, plain in (
+    for name, n_bytes, n_ops, kern, plain in (
+            ("rebin", resident_bytes(px, occ, 4, 4), OPS["rebin"] * n_live,
+             lambda: fused.rebin(*rargs), lambda: fused.rebin_plain(*rargs)),
             ("density", resident_bytes(px, occ, 4, 2),
+             OPS["density"] * pairs,
              lambda: fused.density(*dargs),
              lambda: fused.density_plain(*dargs)),
             ("forces_integrate", resident_bytes(px, occ, 6, 4),
+             OPS["forces_integrate"] * pairs,
              lambda: fused.forces_integrate(*fargs),
              lambda: fused.forces_integrate_plain(*fargs))):
-        b_ms, b_by = bound(n_bytes, OPS[name] * pairs)
+        b_ms, b_by = bound(n_bytes, n_ops)
         k1, k2 = time_ms(kern, 50), time_ms(kern, 50)
         plain_ms = time_ms(plain, 1, warm=0)  # seconds a call: one reading
         out[name] = dict(max_abs_err=0.0, ms=(k1 + k2) / 2,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=None, grid=list(px.shape))
-        log(f"{label} {name} {tuple(px.shape)}: kernel "
-            f"{out[name]['ms']:.4f} ms ({k1:.4f}, {k2:.4f}), plain "
+        log(f"{label} {name} {tuple(px.shape)}"
+            f"{' (bitwise equal to plain)' if name == 'rebin' else ''}: "
+            f"kernel {out[name]['ms']:.4f} ms ({k1:.4f}, {k2:.4f}), plain "
             f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); "
-            f"{pairs:.4e} stencil pairs")
+            f"{n_live:.0f} live, {pairs:.4e} stencil pairs")
     return out
+
+
+def coarse_gate(gs, settings, sup, label) -> str:
+    """The metaball coarse kernel against its plain version, bitwise, on
+    the first 40 rows of a grid (any supersample fits)."""
+    from tpufluid_torch.ops import render_coarse
+
+    gy = gs.pos_x.shape[0] // 8 * 8
+    px, py, vx, vy, occ = (getattr(gs, f)[:gy].contiguous() for f in (
+        "pos_x", "pos_y", "vel_x", "vel_y", "occ_row"))
+    args = (px, py, torch.sqrt(vx * vx + vy * vy), occ, settings, sup)
+    got = render_coarse.coarse_metaball_fields(*args)
+    want = render_coarse.coarse_metaball_fields_plain(*args)
+    full = torch.ones_like(want[0], dtype=torch.bool)
+    e_rel = max(rel_err(a, b, full) for a, b in zip(got, want))
+    if not (e_rel <= FIELD_TOL and float(want[0].max()) > 0.5):
+        raise AssertionError(f"{label} metaball_coarse: rel err {e_rel}")
+    bitwise(got, want, f"{label} metaball_coarse sup {sup}")
+    log(f"{label} metaball_coarse {tuple(px.shape)} supersample {sup}: "
+        f"bitwise equal to plain")
+    return f"{label} metaball_coarse sup {sup}"
+
+
+def mouse_run(dev, card):
+    """FluidApp.set_mouse on the card: scene_1m through the resident
+    engine, 16 ticks with the mouse repelling at the centre against 16
+    with it off, each app with its own params, at mouse power 0.5 (an
+    attracting mouse is a sink that packs its cell past K=8 at any power,
+    and the default 150 packs the front of a repelled ring past it too;
+    the loss audit that regrows comes at tick 256). The call writes the
+    params' tensors in place; nothing is lost, each tick launches the
+    three kernels once, and the particles within 0.5-4 of the mouse gain
+    velocity away from it."""
+    import tpufluid_torch as tt
+    from tpufluid_torch.app import FluidApp
+    from tpufluid_torch.models import scenes
+
+    outward = {}
+    for state in (-1, 0):
+        app = FluidApp(scenes.scene_1m(dev).settings,
+                       tt.TickParams.default(dev, mouse_force_power=0.5),
+                       device=dev, neighbor_mode="resident")
+        pos_t, state_t = app.params.mouse_pos, app.params.mouse_state
+        app.set_mouse(pos=(0.0, 0.0), state=state)
+        if not (app.params.mouse_pos is pos_t
+                and app.params.mouse_state is state_t
+                and int(state_t) == state):
+            raise AssertionError("set_mouse did not write in place")
+        torch.cuda.synchronize()
+        reset_counts()
+        app.run(16)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        m = app.metrics()
+        st = app.state
+        r = torch.linalg.norm(st.position, dim=1)
+        near = (r < 4.0) & (r > 0.5)
+        outward[state] = float(
+            ((st.position * st.velocity).sum(dim=1)[near] / r[near]).mean())
+        if not (m["tick"] == 16 and m["lost_particles"] == 0
+                and bool(torch.isfinite(st.velocity).all())
+                and launches == {**dict.fromkeys(launches, 0),
+                                 "rebin": 16, "density": 16,
+                                 "forces_integrate": 16}):
+            raise AssertionError(f"mouse run (state {state}): {m}, "
+                                 f"launches {launches}")
+    log(f"scene_1m FluidApp.set_mouse((0, 0), -1), power 0.5, then "
+        f"run(16): lost 0, 16 launches of each kernel; mean velocity away "
+        f"from the mouse within 0.5-4 of it {outward[-1]:.3f} (mouse off: "
+        f"{outward[0]:.3g}; {card})")
+    if not (outward[-1] > 0.2 and outward[-1] - outward[0] > 0.2):
+        raise AssertionError(f"mouse impulse: outward velocity {outward}")
+    return dict(outward_repel=outward[-1], outward_off=outward[0])
 
 
 def main() -> int:
@@ -1766,6 +1878,12 @@ def main() -> int:
         gates.append(tile_gates(label, sk, (
             gk.pos_x, gk.pos_y, gk.vel_x, gk.vel_y, gk.occ_row, gk.tick + 1),
             ["all", "wid"] if k > 128 and fill else ["base", "all", "wid"]))
+        if k > 128:  # supersample 8 on the full row, 1 on the sparse grid
+            gates.append(coarse_gate(gk, sk, 8 if fill else 1,
+                                     f"{label} K={k}"))
+
+    # 19. FluidApp.set_mouse: 16 resident ticks at scene_1m, mouse on
+    mouse = mouse_run(dev, card)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -1804,6 +1922,9 @@ def main() -> int:
             for v, vres in variants.items():
                 entry[v] = dict(launches=v_launches[f"forces_integrate_{v}"],
                                 **vres)
+        if name == "rebin":
+            entry["k192"] = big_k[name]
+            entry["tile"] = list(fused.rebin_tile(8))
         if name in ("density", "forces_integrate"):
             entry["k192"] = big_k[name]
             entry["tile"] = list(getattr(fused, {
@@ -1832,7 +1953,8 @@ def main() -> int:
                                       lost_at_step=c4_lost,
                                       world_stats=c4_stats),
                       "resident_physics": resident_physics,
-                      "cli_variants": cli_variants, "tile_gates": gates}))
+                      "cli_variants": cli_variants, "tile_gates": gates,
+                      "mouse": mouse}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

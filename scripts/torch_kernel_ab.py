@@ -1,26 +1,33 @@
 """Time the resident engine's CUDA kernels of one checkout of the port.
 
-    python scripts/torch_kernel_ab.py PATH/TO/CHECKOUT [PATH/TO/OTHER ...]
+    python scripts/torch_kernel_ab.py [--only PARTS] PATH/TO/CHECKOUT [...]
 
 Each checkout runs in its own process (its own ``tpufluid_torch/_build``):
 the script re-runs itself once per path and prints, per checkout, the
-registers and spills ptxas reports for the resident kernels, then the
-device ms (CUDA events around 50 calls behind a sleep kernel, twice; the
-mean and both readings) of:
+registers and spills ptxas reports for the resident kernels and the
+metaball coarse kernel, then the device ms (CUDA events around 50 calls
+behind a sleep kernel, twice; the mean and both readings) of these parts
+(``--only``, comma-separated, picks some; all by default):
 
-* density and forces_integrate at scene_1m K=8 and K=32 (seeded state:
-  the spawn lattice with random velocities, far movers and coincident
-  pairs) and on the reference's default scene after 512 steps under
-  gravity (100k particles; the capacity grows to K=192 there);
-* forces_integrate with each variant at scene_1m: x wrap with movers
+* ``pair``: density and forces_integrate at scene_1m K=8 and K=32 (seeded
+  state: the spawn lattice with random velocities, far movers and
+  coincident pairs) and on the reference's default scene after 512 steps
+  under gravity (100k particles; the capacity grows to K=192 there);
+  forces_integrate with each variant at scene_1m: x wrap with movers
   across the walls, surface tension, adaptive subsampling on the clumped
   K=16 state, an obstacle field (has_ff); density and forces with wid on
-  BASELINE config 4's stack of eight seeded worlds;
-* rebin and, where the checkout has it, physics at scene_1m K=8;
-* the resident step, ``FluidApp(scene_1m, neighbor_mode="resident")``:
-  ms/step over 200 steps of ``run`` five times after a 20-step warm-up
-  (CUDA events; the median and each reading), and the device's busy time
-  per step over 20 more (torch.profiler, ``chip_smoke.profile_steps``).
+  BASELINE config 4's stack of eight seeded worlds; physics at K=8;
+* ``rebin``: rebin at scene_1m K=8 and K=32, with row_shift on config 4's
+  stack, and on the default scene's K=192 grid;
+* ``coarse``: the metaball coarse kernel at scene_1m K=8 and K=32 and on
+  the default scene's K=192 grid;
+* ``step``: the resident step, ``FluidApp(scene_1m,
+  neighbor_mode="resident")``: ms/step over 200 steps of ``run`` five
+  times after a 20-step warm-up (CUDA events; the median and each
+  reading), the device's busy time per step over 20 more (torch.profiler,
+  ``chip_smoke.profile_steps``), and the frame at 960x540 with its parts
+  (``chip_smoke.frame_breakdown``: coarse kernel, resample, shading,
+  ``render_frame``, and 16 ticks plus the render).
 
 The states come from ``chip_smoke.py`` of the tree this script lies in, so
 every checkout times the same inputs. Give the paths as parent, change,
@@ -49,7 +56,7 @@ def registers(log: str):
         elif "spill stores" in line:
             spill = line.strip().split(",")[1].strip()
         elif "Used" in line and "registers" in line and name:
-            if ("sph" not in name and "metaball" not in name
+            if ("sph" not in name
                     and ("ILb" not in name or "ILb0ELb0ELb0ELb0E" in name)):
                 regs = line.split("Used")[1].split(",")[0].strip()
                 out.append((name[:40], regs, spill))
@@ -57,7 +64,10 @@ def registers(log: str):
     return out
 
 
-def bench(root: str) -> None:
+PARTS = ("pair", "rebin", "coarse", "step")
+
+
+def bench(root: str, parts) -> None:
     sys.path.insert(0, root)
     import torch
 
@@ -70,7 +80,7 @@ def bench(root: str) -> None:
     from tpufluid_torch import _build, cli
     from tpufluid_torch.app import FluidApp
     from tpufluid_torch.models import scenes
-    from tpufluid_torch.ops import forcefield, fused, resident
+    from tpufluid_torch.ops import forcefield, fused, render_coarse, resident
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -102,83 +112,122 @@ def bench(root: str) -> None:
         fargs = (px, py, vx, vy, pres, invr, occ, prm, s, fr)
         timed(f"{label} forces", lambda: fused.forces_integrate(*fargs, **kw))
 
+    def rebin(label, gs, s, prm, **kw):
+        timed(f"{label} rebin", lambda: fused.rebin(
+            gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, gs.occ_row, prm.delta, s,
+            **kw))
+
+    def coarse(label, gs, s):
+        speed = torch.sqrt(gs.vel_x * gs.vel_x + gs.vel_y * gs.vel_y)
+        timed(f"{label} metaball_coarse",
+              lambda: render_coarse.coarse_metaball_fields(
+                  gs.pos_x, gs.pos_y, speed, gs.occ_row, s, 2))
+
     s32 = dataclasses.replace(s8, cell_capacity=32)
     s16 = dataclasses.replace(s8, cell_capacity=16)
     gs8 = resident.from_particles(cs.seeded_state(s8, dev), s8)
+    gs32 = resident.from_particles(cs.seeded_state(s32, dev), s32)
     g8 = grids(gs8, s8, p)
-    pair("K=8", g8, s8, p)
-    pair("K=32", grids(resident.from_particles(cs.seeded_state(s32, dev),
-                                               s32), s32, p), s32, p)
-    with contextlib.redirect_stdout(io.StringIO()):
-        app = cli.run(cli.parser().parse_args([
-            "run", "--device", "cuda", "--neighbor-mode", "resident",
-            "--cell-capacity", "8", "--gravity", "0", "-9.8", "--steps",
-            "512", "--report-every", "512"]))
-    k_big = app.settings.cell_capacity
-    pg = tt.TickParams.default(dev, gravity=(0.0, -9.8))
-    pair(f"default scene K={k_big}", grids(app.grid_state, app.settings, pg),
-         app.settings, pg)
-    del app
+    if "pair" in parts:
+        pair("K=8", g8, s8, p)
+        pair("K=32", grids(gs32, s32, p), s32, p)
+    if "rebin" in parts:
+        rebin("K=8", gs8, s8, p)
+        rebin("K=32", gs32, s32, p)
+    if "coarse" in parts:
+        coarse("K=8", gs8, s8)
+        coarse("K=32", gs32, s32)
+    if parts & {"pair", "rebin", "coarse"}:
+        with contextlib.redirect_stdout(io.StringIO()):
+            app = cli.run(cli.parser().parse_args([
+                "run", "--device", "cuda", "--neighbor-mode", "resident",
+                "--cell-capacity", "8", "--gravity", "0", "-9.8", "--steps",
+                "512", "--report-every", "512"]))
+        label = f"default scene K={app.settings.cell_capacity}"
+        pg = tt.TickParams.default(dev, gravity=(0.0, -9.8))
+        if "pair" in parts:
+            pair(label, grids(app.grid_state, app.settings, pg),
+                 app.settings, pg)
+        if "rebin" in parts:
+            rebin(label, app.grid_state, app.settings, pg)
+        if "coarse" in parts:
+            coarse(label, app.grid_state, app.settings)
+        del app
 
-    wst, _ = cs.wall_state(s8, dev)
-    pair("K=8 wrap", grids(resident.from_particles(wst, s8), s8, p), s8, p,
-         density=False, x_boundary="wrap")
-    p_st = tt.TickParams.default(dev, **cs.ST_PARAMS)
-    pair("K=8 surface_tension", g8, s8, p_st, density=False,
-         surface_tension=True)
-    pair("K=16 clump adaptive",
-         grids(resident.from_particles(cs.clumped_state(s16, dev), s16), s16,
-               p), s16, p, density=False, adaptive_subsampling=True)
-    field = forcefield.obstacle_force_field(
-        forcefield.Objects.from_list(cs.OBSTACLES_1M, dev), s8)
-    pair("K=8 has_ff", g8, s8, p, density=False,
-         ff_cells=resident.forcefield_cells(field, s8))
-    bs, plist = cs.config4(dev)
-    bp = resident.batched_params(plist)
-    gsb = cs.stacked([resident.from_particles(
-        cs.seeded_state(bs, dev, cs.SEED + w), bs)
-        for w in range(cs.CONFIG4_WORLDS)])
-    rows = resident._rows(bs)
-    wid = torch.arange(cs.CONFIG4_WORLDS, dtype=torch.int32,
-                       device=dev).repeat_interleave(rows)
-    pair("config 4 wid", grids(gsb, bs, bp, row_shift=-(wid * rows)), bs, bp,
-         wid=wid)
-
-    timed("K=8 rebin", lambda: fused.rebin(
-        gs8.pos_x, gs8.pos_y, gs8.vel_x, gs8.vel_y, gs8.occ_row, p.delta, s8))
-    if hasattr(fused, "physics"):
+    if "pair" in parts:
+        wst, _ = cs.wall_state(s8, dev)
+        pair("K=8 wrap", grids(resident.from_particles(wst, s8), s8, p), s8,
+             p, density=False, x_boundary="wrap")
+        p_st = tt.TickParams.default(dev, **cs.ST_PARAMS)
+        pair("K=8 surface_tension", g8, s8, p_st, density=False,
+             surface_tension=True)
+        pair("K=16 clump adaptive",
+             grids(resident.from_particles(cs.clumped_state(s16, dev), s16),
+                   s16, p), s16, p, density=False, adaptive_subsampling=True)
+        field = forcefield.obstacle_force_field(
+            forcefield.Objects.from_list(cs.OBSTACLES_1M, dev), s8)
+        pair("K=8 has_ff", g8, s8, p, density=False,
+             ff_cells=resident.forcefield_cells(field, s8))
+    if parts & {"pair", "rebin"}:
+        bs, plist = cs.config4(dev)
+        bp = resident.batched_params(plist)
+        gsb = cs.stacked([resident.from_particles(
+            cs.seeded_state(bs, dev, cs.SEED + w), bs)
+            for w in range(cs.CONFIG4_WORLDS)])
+        rows = resident._rows(bs)
+        wid = torch.arange(cs.CONFIG4_WORLDS, dtype=torch.int32,
+                           device=dev).repeat_interleave(rows)
+        if "pair" in parts:
+            pair("config 4 wid", grids(gsb, bs, bp, row_shift=-(wid * rows)),
+                 bs, bp, wid=wid)
+        if "rebin" in parts:
+            rebin("config 4 row_shift", gsb, bs, bp,
+                  row_shift=-(wid * rows))
+    if "pair" in parts and hasattr(fused, "physics"):
         timed("K=8 physics", lambda: fused.physics(*g8[:5], p, s8, g8[5]))
-    app = FluidApp(s8, p, device=dev, neighbor_mode="resident")
-    app.run(20)
-    steps = []
-    for _ in range(5):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        a.record()
-        app.run(200)
-        b.record()
-        torch.cuda.synchronize()
-        steps.append(a.elapsed_time(b) / 200)
-    res["resident ms/step"] = (f"median {sorted(steps)[2]:.4f} ("
-                               + ", ".join(f"{x:.4f}" for x in steps) + ")")
-    prof = cs.profile_steps(app, 20, "resident")
-    if prof is not None:
-        res["resident device busy ms/step"] = (
-            f"{prof['busy_ms_per_step']:.4f} of "
-            f"{prof['window_ms_per_step']:.4f}")
+    if "step" in parts:
+        app = FluidApp(s8, p, device=dev, neighbor_mode="resident")
+        app.run(20)
+        steps = []
+        for _ in range(5):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            a.record()
+            app.run(200)
+            b.record()
+            torch.cuda.synchronize()
+            steps.append(a.elapsed_time(b) / 200)
+        res["resident ms/step"] = (f"median {sorted(steps)[2]:.4f} ("
+                                   + ", ".join(f"{x:.4f}" for x in steps)
+                                   + ")")
+        prof = cs.profile_steps(app, 20, "resident")
+        if prof is not None:
+            res["resident device busy ms/step"] = (
+                f"{prof['busy_ms_per_step']:.4f} of "
+                f"{prof['window_ms_per_step']:.4f}")
+        frame = cs.frame_breakdown(app, cs.card_line())
+        res["frame"] = {k: round(v, 4) for k, v in frame.items()}
     print(root, cs.card_line(), res, flush=True)
 
 
 def main() -> int:
+    args = sys.argv[1:]
+    parts = set(PARTS)
+    if args[:1] == ["--only"]:
+        parts = set(args[1].split(","))
+        if not parts <= set(PARTS):
+            raise SystemExit(f"--only takes some of {','.join(PARTS)}")
+        args = args[2:]
     if os.environ.get("TORCH_KERNEL_AB_CHILD"):
-        bench(os.path.abspath(sys.argv[1]))
+        bench(os.path.abspath(args[0]), parts)
         return 0
     env = dict(os.environ, TORCH_KERNEL_AB_CHILD="1")
     rc = 0
-    for root in sys.argv[1:]:
+    for root in args:
         print(f"== {root}", flush=True)
-        rc |= subprocess.run([sys.executable, __file__, root],
+        rc |= subprocess.run([sys.executable, __file__, "--only",
+                              ",".join(sorted(parts)), root],
                              env=env).returncode
     return rc
 

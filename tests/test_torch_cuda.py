@@ -11,7 +11,7 @@ file imports no JAX, so it also runs where JAX is not installed:
 Rebin must be bitwise; density and forces within BASELINE.md's per-step
 bounds (|drho| <= 9.2e-5, |dpos| <= 4.8e-7, |dvel| <= 3.8e-5, relative
 where the value exceeds 1) on live slots, with dead slots exact; the
-metaball fields within 1e-5 * max(1, |plain|). The dense engine's grids
+metaball fields bitwise. The dense engine's grids
 are compared whole: density within 9.2e-5, forces as the velocity
 increment f * dt / rho within 3.8e-5 (see tests/test_torch_sph.py). The
 resident engine's variants, its batched stacks and the physics pass are
@@ -19,8 +19,10 @@ held bitwise: to their plain versions, the physics kernel to the split
 kernel pair, a batched step to the single-world steps. The tile kernels of
 density and forces are also held bitwise to their plain versions at every
 tile shape the wrappers pick (K=8 to 256, sparse and ragged grids, each
-flag, an obstacle field, two worlds), and the round-1 rebin with a valid
-mask (ops.rebin) bitwise to its plain version.
+flag, an obstacle field, two worlds), and so is rebin's (with far movers,
+an overflow past K and row_shift stacks); the round-1 rebin with a valid
+mask (ops.rebin) bitwise to its plain version; and FluidApp.set_mouse
+drives 16 resident ticks at scene_1m without loss.
 """
 
 import dataclasses
@@ -153,7 +155,8 @@ def _scene_1m_state(cuda, k, seed):
 @pytest.mark.parametrize("k", [8, 32])
 def test_coarse_metaball_matches_plain(cuda, k):
     """The metaball coarse-field kernel against its plain version at
-    scene_1m, within 1e-5 * max(1, |plain|)."""
+    scene_1m, bitwise (the same f32 operations in the same order, and
+    the accurate expf that torch.exp runs)."""
     from tpufluid_torch.ops import render_coarse
 
     s, _, gs = _scene_1m_state(cuda, k, 3)
@@ -166,8 +169,7 @@ def test_coarse_metaball_matches_plain(cuda, k):
     assert render_coarse.LAUNCHES["metaball_coarse"] == before + 1
     for a, b in zip(got, want):
         assert a.shape == (2 * 524, 2 * 512)
-        full = torch.ones_like(b, dtype=torch.bool)
-        assert _rel(a, b, full) <= 1e-5
+        assert torch.equal(a, b)
     assert float(want[0].max()) > 1.0
 
 
@@ -577,3 +579,150 @@ def test_rebin_valid_matches_plain(cuda):
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert float(want[5].sum()) > 0 and int(stale.sum()) > 0
+
+
+def _rebin_grid(device, k, seed, sparse):
+    """_tile_state's grid (41 rows, ragged for every tile height) with
+    far movers (a tenth of the live slots at up to 300 a side, two to
+    twelve cells a step) and, with the full row, its particles at rest
+    and the slots of the rows either side moving into it at 30 (a quarter
+    cell a step), so that its cells overflow K."""
+    s, gs = (_tile_state(device, k, seed, n_random=60, fill_row=False)
+             if sparse else _tile_state(device, k, seed))
+    live = gs.pos_x < fused.SENTINEL_HALF
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    fast = live & (torch.rand(live.shape, generator=g) < 0.1).to(device)
+    kick = ((torch.rand((2, *live.shape), generator=g) - 0.5) * 600.0).to(
+        device)
+    cols = torch.zeros(live.shape[2], dtype=torch.bool, device=device)
+    cols[10:18] = True
+    if not sparse:  # the full row and its feeders keep their course
+        fast[19:22] &= ~cols
+    vx = torch.where(fast, kick[0], gs.vel_x)
+    vy = torch.where(fast, kick[1], gs.vel_y)
+    if not sparse:
+        for row, v in ((19, 30.0), (20, 0.0), (21, -30.0)):
+            into = live[row] & cols
+            vy[row] = torch.where(into, torch.full_like(vy[row], v),
+                                  vy[row])
+            if v == 0.0:
+                vx[row] = torch.where(into, torch.zeros_like(vx[row]),
+                                      vx[row])
+    return s, dataclasses.replace(gs, vel_x=vx.contiguous(),
+                                  vel_y=vy.contiguous())
+
+
+@pytest.mark.parametrize("stack", [False, True])
+@pytest.mark.parametrize("k", [8, 16, 32, 192, 256, "sparse8", "sparse192"])
+def test_rebin_tiles_bitwise(cuda, k, stack):
+    """The tile kernel of rebin against its plain version, bitwise (all
+    four grids and occ_row', far_n, over_n), at every tile shape it picks
+    from K, on grids whose rows every tile height leaves ragged, with far
+    movers, a row whose cells overflow K and the grid's border rows and
+    columns; "sparse" at K=8 and 192 holds 60 particles (halo rows of at
+    most one slot). ``stack``: two such worlds stacked by rows, with
+    row_shift as the batched engine passes it."""
+    sparse = isinstance(k, str)
+    k = int(k[len("sparse"):]) if sparse else k
+    s, gs = _rebin_grid(cuda, k, k, sparse)
+    shift = None
+    if stack:
+        _, gs2 = _rebin_grid(cuda, k, k + 1, sparse)
+        rows = gs.pos_x.shape[0]
+        gs = dataclasses.replace(gs, **{
+            f: torch.cat([getattr(gs, f), getattr(gs2, f)]).contiguous()
+            for f in ("pos_x", "pos_y", "vel_x", "vel_y", "occ_row")})
+        shift = -(torch.arange(2, device=cuda, dtype=torch.int32)
+                  .repeat_interleave(rows) * rows)
+    args = (gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, gs.occ_row,
+            1.0 / 120.0, s)
+    before = dict(fused.LAUNCHES)
+    got = fused.rebin(*args, row_shift=shift)
+    want = fused.rebin_plain(*args, row_shift=shift)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert fused.LAUNCHES["rebin"] == before["rebin"] + 1
+    assert (fused.LAUNCHES["rebin_row_shift"]
+            == before["rebin_row_shift"] + int(stack))
+    assert int(want[5].sum()) > 0  # far movers
+    if not sparse:
+        assert int(want[6].sum()) > 0 and int(want[4].max()) == k
+
+
+def _coarse_case(device, case):
+    """(settings, GridState, supersample) of a coarse-field case."""
+    if case.startswith("scene_1m"):
+        s, _, gs = _scene_1m_state(device, int(case[len("scene_1m"):]), 5)
+        return s, gs, 2
+    k, sparse, sup, width = {
+        "full192": (192, False, 2, 128), "full8_sup8": (8, False, 8, 128),
+        "sparse8": (8, True, 2, 128), "sparse192": (192, True, 1, 128),
+        "full32_sup4": (32, False, 4, 128),
+        "ragged100": (32, False, 2, 100)}[case]
+    s, gs = (_tile_state(device, k, k, n_random=60, fill_row=False)
+             if sparse else _tile_state(device, k, k))
+    # 40 rows (any supersample fits); columns from 47 on are empty, so a
+    # cut to 100 keeps every particle and leaves a ragged column tile
+    cut = lambda a: a[:40, :, :width] if a.dim() == 3 else a[:40]
+    return s, dataclasses.replace(gs, **{
+        f: cut(getattr(gs, f)).contiguous()
+        for f in ("pos_x", "pos_y", "vel_x", "vel_y", "occ_row")}), sup
+
+
+@pytest.mark.parametrize("case", ["scene_1m192", "full192", "full8_sup8",
+                                  "sparse8", "sparse192", "full32_sup4",
+                                  "ragged100"])
+def test_coarse_metaball_tiles_match_plain(cuda, case):
+    """The metaball coarse-field kernel against its plain version,
+    bitwise: at K=192 (scene_1m's grid at K=192 and a row
+    of cells at full occupancy), sparse grids (60 particles) at K=8 and
+    192, supersample 1, 4 and 8 (other tile widths in cells), and a grid
+    100 cells wide, whose 200 coarse columns leave the last 64-column
+    tile ragged (the kernel takes any width)."""
+    from tpufluid_torch.ops import render_coarse
+
+    s, gs, sup = _coarse_case(cuda, case)
+    speed = torch.sqrt(gs.vel_x * gs.vel_x + gs.vel_y * gs.vel_y)
+    args = (gs.pos_x, gs.pos_y, speed, gs.occ_row, s, sup)
+    before = render_coarse.LAUNCHES["metaball_coarse"]
+    got = render_coarse.coarse_metaball_fields(*args)
+    want = render_coarse.coarse_metaball_fields_plain(*args)
+    torch.cuda.synchronize()
+    assert render_coarse.LAUNCHES["metaball_coarse"] == before + 1
+    gy, _, gx = gs.pos_x.shape
+    for a, b in zip(got, want):
+        assert a.shape == (sup * gy, sup * gx)
+        assert torch.equal(a, b)
+    assert float(want[0].max()) > 0.5
+
+
+def test_set_mouse_on_card(cuda):
+    """FluidApp.set_mouse on the card: 16 resident ticks at scene_1m with
+    the mouse repelling at the centre, at power 0.5 (an attracting mouse
+    is a sink that packs its cell past K=8 at any power, and the default
+    150 packs the front of a repelled ring past it too; the loss audit
+    that regrows comes at tick 256); nothing is lost, every tick launches
+    forces_integrate, and the particles within the mouse radius gain
+    velocity away from it."""
+    from tpufluid_torch.app import FluidApp
+    from tpufluid_torch.models import scenes
+
+    scene = scenes.scene_1m(cuda)
+    app = FluidApp(scene.settings,
+                   tt.TickParams.default(cuda, mouse_force_power=0.5),
+                   device=cuda, neighbor_mode="resident")
+    pos_t = app.params.mouse_pos
+    app.set_mouse(pos=(0.0, 0.0), state=-1)
+    assert app.params.mouse_pos is pos_t and pos_t.device.type == "cuda"
+    before = fused.LAUNCHES["forces_integrate"]
+    app.run(16)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["forces_integrate"] == before + 16
+    m = app.metrics()
+    assert m["tick"] == 16 and m["lost_particles"] == 0
+    st = app.state
+    r = torch.linalg.norm(st.position, dim=1)
+    near = (r < 4.0) & (r > 0.5)
+    outward = (st.position * st.velocity).sum(dim=1)[near] / r[near]
+    assert int(near.sum()) > 1000 and float(outward.mean()) > 0.2

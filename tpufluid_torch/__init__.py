@@ -14,7 +14,7 @@ CPU the same functions run their plain PyTorch versions. Imports no JAX.
 
 from .params import EPSILON, MAX_SPEED, KernelNorms, SimSettings, TickParams
 from .state import ParticleState, init_state
-from .step import make_multi_step, make_step
+from .step import make_multi_step, make_step, predict_positions
 
 __all__ = [
     "EPSILON",
@@ -26,6 +26,7 @@ __all__ = [
     "init_state",
     "make_step",
     "make_multi_step",
+    "predict_positions",
 ]
 
 __version__ = "0.1.0"

@@ -34,6 +34,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "tf_rebin": [_P] * 7 + [_P] * 4 + [_P] * 3 + [_I] * 3 + [_F] * 3
     + [_I] * 2 + [_P],
+    "tf_rebin_tile": [_I],
     "tf_rebin_valid": [_P] * 6 + [_P] * 6 + [_I] * 3 + [_F] * 3 + [_I] * 2
     + [_F] + [_P],
     "tf_density": [_P] * 7 + [_P] * 2 + [_I] * 3 + [_F] * 4 + [_P],

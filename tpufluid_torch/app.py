@@ -157,6 +157,20 @@ class FluidApp:
                             if has else None)
         self._rebuild_step()
 
+    def set_mouse(self, pos=None, state: Optional[int] = None) -> None:
+        """World-space impulse source: ``pos`` (x, y) and ``state`` -1
+        repel / +1 attract / 0 off; either may be left as it is. Written
+        into the params' tensors in place, so anything holding them (a
+        captured graph) sees the change."""
+        if pos is not None:
+            pos = torch.as_tensor(pos, dtype=torch.float32)
+            if pos.shape != (2,):
+                raise ValueError(f"mouse pos must be (x, y), got shape "
+                                 f"{tuple(pos.shape)}")
+            self.params.mouse_pos.copy_(pos)
+        if state is not None:
+            self.params.mouse_state.fill_(int(state))
+
     def set_video_field(self, frames) -> None:
         _unported("video force fields", "queue 1, video force fields")
 

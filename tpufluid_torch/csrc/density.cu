@@ -50,43 +50,27 @@ density_kernel(const float* __restrict__ px, const float* __restrict__ py,
     const int x0 = blockIdx.x * C;
     tf_tile_begin(t, occ_row, wid, sc, TF_DSC_N, TF_DSC_DT, R, C, K, y0, gy);
 
-    // S: predictions of the +-1 halo, TF_STAGE_BATCH slots' loads in
-    // flight per thread
-    const int kh = tf_max_rows(t.srow, HR);
-    const int n = HR * kh * HC;
-    for (int i0 = threadIdx.x; i0 < n;
-         i0 += TF_STAGE_BATCH * TF_TILE_THREADS) {
-        float ax[TF_STAGE_BATCH], ay[TF_STAGE_BATCH];
-        float ux[TF_STAGE_BATCH], uy[TF_STAGE_BATCH];
-        int lr[TF_STAGE_BATCH], kk[TF_STAGE_BATCH], lc[TF_STAGE_BATCH];
-        bool ok[TF_STAGE_BATCH];
-#pragma unroll
-        for (int u = 0; u < TF_STAGE_BATCH; ++u) {
-            ok[u] = tf_halo_slot(i0 + u * TF_TILE_THREADS, n, kh, HC,
-                                 t.srow, x0, gx, lr[u], kk[u], lc[u]);
-            if (ok[u]) {
-                const size_t gi = tf_index(y0 + lr[u] - 1, kk[u],
-                                           x0 + lc[u] - 1, K, gx);
-                ax[u] = px[gi];
-                ay[u] = py[gi];
-                ux[u] = vx[gi];
-                uy[u] = vy[gi];
-            }
-        }
-#pragma unroll
-        for (int u = 0; u < TF_STAGE_BATCH; ++u) {
-            if (!ok[u]) continue;
+    // S: predictions of the +-1 halo
+    float ax[TF_STAGE_BATCH], ay[TF_STAGE_BATCH];
+    float ux[TF_STAGE_BATCH], uy[TF_STAGE_BATCH];
+    tf_stage_halo(
+        t, R, C, K, y0, x0, gx,
+        [&](int u, size_t gi) {
+            ax[u] = px[gi];
+            ay[u] = py[gi];
+            ux[u] = vx[gi];
+            uy[u] = vy[gi];
+        },
+        [&](int u, int lr, int kk, int lc) {
             float2 q = make_float2(TF_SENTINEL, TF_SENTINEL);
             if (tf_live(ax[u])) {
-                const float dt = t.sdt[lr[u]];
+                const float dt = t.sdt[lr];
                 q = make_float2(tf_pred(ax[u], ux[u], dt, half_x),
                                 tf_pred(ay[u], uy[u], dt, half_y));
-                atomicMax(&t.socc[lr[u] * HC + lc[u]], kk[u] + 1);
+                atomicMax(&t.socc[lr * HC + lc], kk + 1);
             }
-            sp[(lr[u] * K + kk[u]) * HC + lc[u]] = q;
-        }
-    }
-    __syncthreads();
+            sp[(lr * K + kk) * HC + lc] = q;
+        });
 
     // L: the live targets; empty slots get the floor-density defaults
     const int n_live = tf_tile_targets(
@@ -126,7 +110,7 @@ static int kDensitySmem;
 // none fits shared memory.
 extern "C" int tf_density_tile(int K) {
     int lgR, lgC;
-    if (K <= 0 || !tf_resident_tile(1, TF_DENSITY_SLOTS, K, lgR, lgC))
+    if (K <= 0 || !tf_resident_tile(8, TF_DENSITY_SLOTS, K, lgR, lgC))
         return 0;
     return (1 << lgR) << 8 | (1 << lgC);
 }
@@ -138,10 +122,10 @@ extern "C" int tf_density(const float* px, const float* py, const float* vx,
                           float half_y, cudaStream_t stream) {
     int lgR = 0, lgC = 0;
     if (gy <= 0 || K <= 0 || K > 32767 ||
-        !tf_resident_tile(1, TF_DENSITY_SLOTS, K, lgR, lgC) ||
+        !tf_resident_tile(8, TF_DENSITY_SLOTS, K, lgR, lgC) ||
         gx % (1 << lgC) != 0 || (gy + (1 << lgR) - 1) >> lgR > 65535)
         return (int)cudaErrorInvalidValue;
-    const long long smem = tf_tile_smem_bytes(1, K, 1 << lgR, 1 << lgC);
+    const long long smem = tf_tile_smem_bytes(8, K, 1 << lgR, 1 << lgC);
     if (smem > kDensitySmem && smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
             density_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

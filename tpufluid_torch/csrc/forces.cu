@@ -68,49 +68,33 @@ forces_kernel(const float* __restrict__ px, const float* __restrict__ py,
     const float hx = sc[TF_SC_HALF_X];
     const float hy = sc[TF_SC_HALF_Y];
 
-    // S: predictions, velocities, (pressure, 1/rho) of the +-1 halo,
-    // TF_STAGE_BATCH slots' loads in flight per thread
-    const int kh = tf_max_rows(t.srow, HR);
-    const int n = HR * kh * HC;
-    for (int i0 = threadIdx.x; i0 < n;
-         i0 += TF_STAGE_BATCH * TF_TILE_THREADS) {
-        float ax[TF_STAGE_BATCH], ay[TF_STAGE_BATCH];
-        float ux[TF_STAGE_BATCH], uy[TF_STAGE_BATCH];
-        float ap[TF_STAGE_BATCH], ai[TF_STAGE_BATCH];
-        int lr[TF_STAGE_BATCH], kk[TF_STAGE_BATCH], lc[TF_STAGE_BATCH];
-        bool ok[TF_STAGE_BATCH];
-#pragma unroll
-        for (int u = 0; u < TF_STAGE_BATCH; ++u) {
-            ok[u] = tf_halo_slot(i0 + u * TF_TILE_THREADS, n, kh, HC,
-                                 t.srow, x0, gx, lr[u], kk[u], lc[u]);
-            if (ok[u]) {
-                const size_t gi = tf_index(y0 + lr[u] - 1, kk[u],
-                                           x0 + lc[u] - 1, K, gx);
-                ax[u] = px[gi];
-                ay[u] = py[gi];
-                ux[u] = vx[gi];
-                uy[u] = vy[gi];
-                ap[u] = pres[gi];
-                ai[u] = invr[gi];
-            }
-        }
-#pragma unroll
-        for (int u = 0; u < TF_STAGE_BATCH; ++u) {
-            if (!ok[u]) continue;
-            const int s = (lr[u] * K + kk[u]) * HC + lc[u];
+    // S: predictions, velocities, (pressure, 1/rho) of the +-1 halo
+    float ax[TF_STAGE_BATCH], ay[TF_STAGE_BATCH];
+    float ux[TF_STAGE_BATCH], uy[TF_STAGE_BATCH];
+    float ap[TF_STAGE_BATCH], ai[TF_STAGE_BATCH];
+    tf_stage_halo(
+        t, R, C, K, y0, x0, gx,
+        [&](int u, size_t gi) {
+            ax[u] = px[gi];
+            ay[u] = py[gi];
+            ux[u] = vx[gi];
+            uy[u] = vy[gi];
+            ap[u] = pres[gi];
+            ai[u] = invr[gi];
+        },
+        [&](int u, int lr, int kk, int lc) {
+            const int s = (lr * K + kk) * HC + lc;
             if (!tf_live(ax[u])) {
                 sp[s] = make_float2(TF_SENTINEL, TF_SENTINEL);
                 sq[s] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-                continue;
+                return;
             }
-            const float dt = t.sdt[lr[u]];
+            const float dt = t.sdt[lr];
             sp[s] = make_float2(tf_pred(ax[u], ux[u], dt, hx),
                                 tf_pred(ay[u], uy[u], dt, hy));
             sq[s] = make_float4(ux[u], uy[u], ap[u], ai[u]);
-            atomicMax(&t.socc[lr[u] * HC + lc[u]], kk[u] + 1);
-        }
-    }
-    __syncthreads();
+            atomicMax(&t.socc[lr * HC + lc], kk + 1);
+        });
 
     // L: the live targets; empty slots get SENTINEL / 0
     const int n_live = tf_tile_targets(
@@ -183,7 +167,7 @@ static int kForcesSmem[16];
 // none fits shared memory.
 extern "C" int tf_forces_tile(int K) {
     int lgR, lgC;
-    if (K <= 0 || !tf_resident_tile(3, TF_FORCES_SLOTS, K, lgR, lgC))
+    if (K <= 0 || !tf_resident_tile(24, TF_FORCES_SLOTS, K, lgR, lgC))
         return 0;
     return (1 << lgR) << 8 | (1 << lgC);
 }
@@ -199,12 +183,12 @@ extern "C" int tf_forces(const float* px, const float* py, const float* vx,
     const bool has_ff = (flags & TF_HAS_FF) != 0;
     int lgR = 0, lgC = 0;
     if (gy <= 0 || K <= 0 || K > 32767 ||
-        !tf_resident_tile(3, TF_FORCES_SLOTS, K, lgR, lgC) ||
+        !tf_resident_tile(24, TF_FORCES_SLOTS, K, lgR, lgC) ||
         gx % (1 << lgC) != 0 || (gy + (1 << lgR) - 1) >> lgR > 65535 ||
         flags < 0 || flags > 15 || has_ff != (ffx != nullptr) ||
         (ffx == nullptr) != (ffy == nullptr))
         return (int)cudaErrorInvalidValue;
-    const long long smem = tf_tile_smem_bytes(3, K, 1 << lgR, 1 << lgC);
+    const long long smem = tf_tile_smem_bytes(24, K, 1 << lgR, 1 << lgC);
     if (smem > kForcesSmem[flags] && smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
             kForces[flags], cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -1,7 +1,7 @@
 // The resident engine's pair math, shared by density.cu, forces.cu and
 // physics.cu: the per-target density sum over the 3x3 cell stencil, the
 // per-target force loop fused with the integration, the candidate sources
-// they read, and the tile helpers of density.cu and forces.cu.
+// they read, and the tile helpers of density.cu, forces.cu and rebin.cu.
 //
 // Each pair function takes a candidate source: an object whose pred()
 // (density) or cand() (forces) returns a candidate slot's predicted
@@ -460,14 +460,16 @@ __device__ __forceinline__ void tf_forces_target(
 }
 
 // ------------------------------------------------------------ tiles
-// density.cu and forces.cu run one block of TF_TILE_THREADS per tile of
-// R x C cells (R and C powers of two, C dividing the grid width, picked
-// from K by tf_resident_tile) with all K slots, and stage the tile's +-1
-// halo of (R + 2) x (C + 2) cells in shared memory: n_fields float2 per
-// slot (forces: a float4 and a float2), [row][slot][column], pitch C + 2,
-// then socc, the occupancy (last live slot + 1) of each halo cell, then
-// the list of the tile's live targets, then two per-warp count rows, then
-// the halo rows' occupancies and world dt.
+// density.cu, forces.cu and rebin.cu run one block of TF_TILE_THREADS per
+// tile of R x C cells (R and C powers of two, C dividing the grid width,
+// picked from K by tf_resident_tile) with all K slots, and stage the
+// tile's +-1 halo of (R + 2) x (C + 2) cells in shared memory
+// (tf_stage_halo): slot_bytes per slot (density: a float2; forces: a
+// float4 and a float2; rebin: its packed cell), [row][slot][column],
+// pitch C + 2, then socc, the occupancy (last live slot + 1) of each halo
+// cell, then a list of R x C x K entries (density and forces: the tile's
+// live targets; rebin: each target cell's arrivals), then two per-warp
+// count rows, then the halo rows' occupancies and world dt.
 #define TF_TILE_THREADS 256
 #define TF_TILE_WARPS (TF_TILE_THREADS / 32)
 // halo slots each thread loads before it stores any (memory parallelism)
@@ -476,9 +478,9 @@ __device__ __forceinline__ void tf_forces_target(
 #define TF_SMEM_MAX 232448
 
 __host__ __device__ __forceinline__ long long tf_tile_smem_bytes(
-        int n_fields, int K, int R, int C) {
+        int slot_bytes, int K, int R, int C) {
     const long long halo = (long long)(R + 2) * (C + 2);
-    return 8LL * n_fields * K * halo + 4LL * halo + 4LL * R * C * K +
+    return (long long)slot_bytes * K * halo + 4LL * halo + 4LL * R * C * K +
            8LL * TF_TILE_WARPS + 8LL * (R + 2);
 }
 
@@ -488,22 +490,24 @@ __host__ __device__ __forceinline__ long long tf_tile_smem_bytes(
 // come from a sweep of every tile at K=8, 32 and 192 on the H100
 // (PERF.md): the fastest tile had 1,536-2,048 slots for density and
 // 1,024-1,536 for forces; past that the few blocks over a dense region
-// run long, below it the halo is re-read too often.
+// run long, below it the halo is re-read too often. rebin's cap is its
+// own sweep's (PERF.md).
 static const int kTfTiles[][2] = {{3, 5}, {2, 5}, {1, 5}, {1, 4}, {0, 5},
                                   {0, 4}, {0, 3}, {0, 2}, {0, 1}, {0, 0}};
 #define TF_DENSITY_SLOTS 2048
 #define TF_FORCES_SLOTS 1536
+#define TF_REBIN_SLOTS 4096
 
-// The tile of a kernel that stages n_fields float2 fields at capacity K:
+// The tile of a kernel that stages slot_bytes per slot at capacity K:
 // the first of kTfTiles within max_slots target slots whose shared memory
 // fits, else the smallest that fits. False when none fits (K above ~1,000
 // for forces).
-static inline bool tf_resident_tile(int n_fields, int max_slots, int K,
+static inline bool tf_resident_tile(int slot_bytes, int max_slots, int K,
                                     int& lgR, int& lgC) {
     bool fits = false;
     for (const auto& t : kTfTiles) {
         const int R = 1 << t[0], C = 1 << t[1];
-        if (tf_tile_smem_bytes(n_fields, K, R, C) > TF_SMEM_MAX) continue;
+        if (tf_tile_smem_bytes(slot_bytes, K, R, C) > TF_SMEM_MAX) continue;
         lgR = t[0];
         lgC = t[1];
         fits = true;
@@ -512,7 +516,7 @@ static inline bool tf_resident_tile(int n_fields, int max_slots, int K,
     return fits;
 }
 
-// The shared arrays behind a tile's n_fields float2 fields.
+// The shared arrays behind a tile's staged fields.
 struct TfTileSmem {
     int* socc;   // [(R + 2) (C + 2)] halo cells' occupancies
     int* list;   // [R C K] live targets
@@ -571,6 +575,39 @@ __device__ __forceinline__ bool tf_halo_slot(int i, int n, int kh, int HC,
     kk = t - lr * kh;
     const int sx = x0 + lc - 1;
     return kk < srow[lr] && sx >= 0 && sx < gx;
+}
+
+// Stage the tile's +-1 halo: the flat (row, slot below the halo rows'
+// largest occupancy, column) walk of tf_halo_slot, TF_STAGE_BATCH slots'
+// loads in flight per thread. load(u, gi) reads grid slot gi into batch
+// entry u; store(u, lr, kk, lc) stages entry u at halo row lr, slot kk,
+// column lc. Slots at or beyond their row's occupancy and columns outside
+// the grid are not visited. Ends with __syncthreads().
+template <class Load, class Store>
+__device__ __forceinline__ void tf_stage_halo(const TfTileSmem& t, int R,
+                                              int C, int K, int y0, int x0,
+                                              int gx, Load load,
+                                              Store store) {
+    const int HR = R + 2, HC = C + 2;
+    const int kh = tf_max_rows(t.srow, HR);
+    const int n = HR * kh * HC;
+    for (int i0 = threadIdx.x; i0 < n;
+         i0 += TF_STAGE_BATCH * TF_TILE_THREADS) {
+        int lr[TF_STAGE_BATCH], kk[TF_STAGE_BATCH], lc[TF_STAGE_BATCH];
+        bool ok[TF_STAGE_BATCH];
+#pragma unroll
+        for (int u = 0; u < TF_STAGE_BATCH; ++u) {
+            ok[u] = tf_halo_slot(i0 + u * TF_TILE_THREADS, n, kh, HC,
+                                 t.srow, x0, gx, lr[u], kk[u], lc[u]);
+            if (ok[u])
+                load(u, tf_index(y0 + lr[u] - 1, kk[u], x0 + lc[u] - 1, K,
+                                 gx));
+        }
+#pragma unroll
+        for (int u = 0; u < TF_STAGE_BATCH; ++u)
+            if (ok[u]) store(u, lr[u], kk[u], lc[u]);
+    }
+    __syncthreads();
 }
 
 // The live targets of the tile's centre cells, listed in (slot, row,

@@ -10,6 +10,7 @@ import torch
 
 from ..params import SimSettings, TickParams
 from ..state import ParticleState, init_state
+from ..step import make_step
 
 
 @dataclasses.dataclass
@@ -20,6 +21,9 @@ class Scene:
 
     def init(self) -> ParticleState:
         return init_state(self.settings, self.params.device)
+
+    def make_step(self, **kw):
+        return make_step(self.settings, **kw)
 
 
 def default_scene(device, **overrides) -> Scene:

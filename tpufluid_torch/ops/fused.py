@@ -26,15 +26,15 @@ Plain versions and kernels share one reduction order, which is also the
 TPU kernels': candidates by slot (ascending, below ``occ3``), and for each
 candidate the nine (row, dx) blocks summed into a partial that is then
 added to the running total. Every f32 operation rounds on its own (the
-kernels build with ``-fmad=false``). The density and forces kernels walk
-each candidate cell only below its own occupancy; the slots they skip
-are empty and add nothing, so the bits are the same.
+kernels build with ``-fmad=false``). The rebin, density and forces
+kernels walk each candidate cell only below its own occupancy; the slots
+they skip are empty and add (or pack) nothing, so the bits are the same.
 
-The density and forces kernels run one block per tile of cells with all
-K slots, staged in shared memory; the kernels pick the tile from K (one
-design at every K, smaller tiles as K grows; a launch fails if even a
-1 x 1 tile does not fit), and :func:`density_tile` and
-:func:`forces_tile` report it.
+The rebin, density and forces kernels run one block per tile of cells
+with all K slots, staged in shared memory; the kernels pick the tile from
+K (one design at every K, smaller tiles as K grows; a launch fails if
+even a 1 x 1 tile does not fit), and :func:`rebin_tile`,
+:func:`density_tile` and :func:`forces_tile` report it.
 """
 
 from __future__ import annotations
@@ -99,6 +99,13 @@ def forces_tile(k: int):
     """(rows, columns) of the forces kernel's tile at capacity ``k``, as
     ``csrc/forces.cu`` picks it (builds the kernels if needed)."""
     return _tile(_build.load().tf_forces_tile, k, "forces_integrate")
+
+
+def rebin_tile(k: int):
+    """(rows, columns) of the rebin kernel's tile of target cells at
+    capacity ``k``, as ``csrc/rebin.cu`` picks it (builds the kernels if
+    needed)."""
+    return _tile(_build.load().tf_rebin_tile, k, "rebin")
 
 
 def _f32(x: float) -> float:

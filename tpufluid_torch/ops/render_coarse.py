@@ -27,8 +27,7 @@ import torch
 
 from .. import _build
 from ..params import SimSettings
-from .fused import (_check_grids, _check_occ, _f32, _launched, _on_cuda, _ptr,
-                    _stream)
+from .fused import _check_occ, _f32, _launched, _on_cuda, _ptr, _stream
 
 # cells of horizontal reach: the 2.5h influence radius fits in +-3 cells
 DX_REACH = 3
@@ -46,6 +45,16 @@ def _consts(settings: SimSettings, sup: int):
             _f32(float(settings.size[0]) * 0.5 + h),
             _f32(float(settings.size[1]) * 0.5 + h),
             7 // sup + 1 + 2 * DX_REACH)
+
+
+def _check_fields(shape, *grids) -> None:
+    """Contiguous f32 grids of one shape; the kernel takes any width."""
+    for g in grids:
+        if (g.shape != shape or g.dtype != torch.float32
+                or not g.is_contiguous()):
+            raise ValueError(
+                f"expected contiguous f32{list(shape)}, got "
+                f"{g.dtype}{list(g.shape)} contiguous={g.is_contiguous()}")
 
 
 def _check_supersample(gy: int, sup: int) -> None:
@@ -116,7 +125,7 @@ def coarse_metaball_fields(pos_x, pos_y, speed, occ_row,
     gy, k, gxp = pos_x.shape
     sup = int(supersample)
     _check_supersample(gy, sup)
-    _check_grids((gy, k, gxp), pos_x, pos_y, speed)
+    _check_fields((gy, k, gxp), pos_x, pos_y, speed)
     _check_occ(occ_row, gy)
     neg_inv_tau, h_s, off_x, off_y, n_rows = _consts(settings, sup)
     dev = pos_x.device

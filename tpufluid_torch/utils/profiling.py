@@ -1,8 +1,11 @@
-"""Step timing and the health snapshot (port of ``StepTimer`` and
-``health_check`` of ``tpufluid.utils.profiling``)."""
+"""Step timing, trace capture and the health snapshot (port of
+``StepTimer``, ``trace`` and ``health_check`` of
+``tpufluid.utils.profiling``)."""
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -46,6 +49,28 @@ class StepTimer:
         self._count = 0
         self._t0 = now
         return self.last_rate
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """torch.profiler capture around a block (CPU, and CUDA where a device
+    is present), written on exit as a Chrome trace
+    ``logdir/trace_<pid>_<n>.json`` (chrome://tracing, Perfetto)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        n = len([f for f in os.listdir(logdir) if f.startswith("trace_")])
+        prof.export_chrome_trace(
+            os.path.join(logdir, f"trace_{os.getpid()}_{n}.json"))
 
 
 def health_check(state, settings) -> dict:
