@@ -21,12 +21,18 @@ Builds the CUDA kernels from ``tpufluid_torch/csrc`` and runs, in order:
    default scene falling onto a circle, counters reset just before it;
 8. the frame breakdown at scene_1m, 960x540;
 9. the dense engine's two kernels (sph_density, sph_forces) against their
-   plain versions on the slot grid of a seeded scene_1m state (K=8, K=32),
-   the surface-tension variant on an h = 1.5 scene of 65,536 particles and
-   the adaptive variant on scene_1m with a clump above density 200, timed;
+   plain versions, bitwise over the whole grid, on the slot grid of a
+   seeded scene_1m state (K=8, K=32), the surface-tension variant on an
+   h = 1.5 scene of 65,536 particles and the adaptive variant on scene_1m
+   with a clump above density 200, timed;
 10. 20 synced pallas-mode steps at scene_1m, kernel step against plain step;
 11. ``FluidApp(scene_1m, neighbor_mode="pallas", device="cuda").run(200)``
-    with the launch counters reset just before it;
+    with the launch counters reset just before it, and a torch.profiler
+    reading of 16 more steps (no ``torch.cummax`` scan among its kernels);
+    then the CLI's ``run --neighbor-mode pallas`` on the reference's
+    default scene under gravity (the app sizes K for the compression
+    peak), counters reset just before it, and both kernels bitwise
+    against their plain versions on its last slot grid, timed there;
 12. engine parity on bench.py's parity scene (grid, dense and pallas, 10
     steps), and the CLI's default ``run`` (the dense engine) on the
     reference's default scene for 64 steps;
@@ -59,7 +65,12 @@ Builds the CUDA kernels from ``tpufluid_torch/csrc`` and runs, in order:
     variant flag, an obstacle field and two worlds (wid); rebin bitwise
     against its plain version on each of those grids, and on the whole
     K=192 grid, timed; the metaball coarse kernel on the K=256 full-row
-    grid (supersample 8) and the sparse K=192 grid (supersample 1);
+    grid (supersample 8) and the sparse K=192 grid (supersample 1); the
+    dense engine's sph_density and sph_forces, bitwise with each flag, on
+    the slot grids of the same particles (41 rows at K=8 and 256, sparse
+    at K=8 and 192), on a hand-made grid with live slots in the clamped
+    first and last rows and the wrapped first and last columns, and on
+    the K=8 grid with its empty slots at nonzero positions;
 19. ``FluidApp.set_mouse`` at scene_1m: 16 resident ticks with the mouse
     repelling at the centre against 16 with it off.
 
@@ -110,16 +121,22 @@ OPS = {"rebin": 14, "rebin_valid": 14, "density": 18,
 # wrap changes only the per-particle wall test.
 OPS_VARIANT = {"wrap": 0, "surface_tension": 27, "adaptive": 1}
 # the dense engine's kernels, per (target, live candidate) pair of the 3x3
-# stencil: (the distance test, the rest of an in-range pair), counted from
-# csrc/sph_density.cu (test 6: 2 sub, 2 mul, add, compare; in range 6:
-# sub, 4 mul, add) and csrc/sph_forces.cu (test 6; in range 38: sqrt, 2
-# div, 22 mul/add/sub of the pressure and viscosity terms, 6 of the sums,
-# 7 compares and selects). sph_density has a value at every slot, so every
-# slot is a target; sph_forces only live slots.
-OPS_SPH = {"sph_density": (6, 6), "sph_forces": (6, 38)}
-# bytes per slot: each input read once, each output written once
-# (f32 fields, the bool valid mask)
-BYTES_SPH = {"sph_density": 2 * 4 + 1 + 4, "sph_forces": 5 * 4 + 1 + 4 * 4}
+# stencil: (every pair, a pair in range), and per live slot: what the
+# function needs, counted from csrc/sph_density.cu (every pair 6: distance
+# 5 (2 sub, 2 mul, add), the range compare; in range 6: h^2 - r^2, the
+# cube's 2 mul, mass and norm 2 mul, the sum; the kernel runs the in-range
+# work on every pair, branch-free, but an out-of-range pair needs none of
+# it) and csrc/sph_forces.cu (every pair 6: distance 5, the range
+# compare; in range 36: sqrt, the 1/dst division, 2 direction mul, 4
+# compares and selects, the pressure term 8, the viscosity term 12, the
+# four sums 8; per live slot 4: the pressure k (rho - rho0) and 1/rho,
+# staged once). sph_density's targets are the live slots and, per cell
+# with an empty slot, its first one (the cell's other empty slots share
+# that sum); sph_forces' the live slots.
+OPS_SPH = {"sph_density": (6, 6, 0), "sph_forces": (6, 36, 4)}
+# (f32 input fields read below each cell's occupancy, f32 output fields
+# written whole); the bool valid mask is read whole
+IO_SPH = {"sph_density": (2, 1), "sph_forces": (5, 4)}
 KERNELS = {
     "rebin": ("tpufluid_torch/csrc/rebin.cu",
               "tpufluid/ops/pallas/fused.py:396"),
@@ -654,44 +671,57 @@ def dense_grid_of(state, settings, params):
 def sph_pairs(g, settings) -> dict:
     """(target, live candidate) pairs of the 3x3 stencil (rows clamped,
     columns wrapped, as the kernels walk it), and those in range: for
-    sph_density every slot is a target (r^2 < h^2), for sph_forces the
-    live slots (r^2 <= h^2)."""
+    sph_density the targets are each cell's live slots and its first
+    empty one (r^2 < h^2), for sph_forces the live slots (r^2 <= h^2).
+    Also the live slots."""
     from tpufluid_torch.ops import sph
 
     h2 = sph._f32(settings.sqr_radius)
-    out = dict(density_pairs=0, density_in=0, forces_pairs=0, forces_in=0)
+    k = g.px.shape[1]
+    occ = g.valid.sum(dim=1)  # [Gy, Gxp]: each cell's valid prefix
+    targets = occ + (occ < k).to(occ.dtype)  # density's walks per cell
+    walked = (torch.arange(k, device=occ.device)[None, :, None]
+              <= occ[:, None])  # density's targets: live or first empty
+    out = dict(density_pairs=0, density_in=0, forces_pairs=0, forces_in=0,
+               live=int(occ.sum()))
     live = g.valid
     for cx, cy, cv in zip(sph._rows3(g.px), sph._rows3(g.py),
                           sph._rows3(g.valid)):
         for dx in (-1, 0, 1):
             nx, ny, nv = (sph._roll_x(a, dx) for a in (cx, cy, cv))
-            for kp in range(g.px.shape[1]):
+            for kp in range(k):
                 v = nv[:, kp:kp + 1]
                 if not bool(v.any()):
                     continue
                 ddx = nx[:, kp:kp + 1] - g.px
                 ddy = ny[:, kp:kp + 1] - g.py
                 r2 = ddx * ddx + ddy * ddy
-                out["density_pairs"] += int(v.sum()) * g.px.shape[1]
-                out["density_in"] += int((v & (r2 < h2)).sum())
+                out["density_pairs"] += int((v[:, 0] * targets).sum())
+                out["density_in"] += int((v & walked & (r2 < h2)).sum())
                 out["forces_pairs"] += int((v & live).sum())
                 out["forces_in"] += int((v & live & (r2 <= h2)).sum())
     return out
 
 
 def sph_bound(name, g, pairs):
-    n_test, n_in = OPS_SPH[name]
+    """The bound of a dense kernel on grid ``g``: its input fields below
+    each cell's occupancy, the valid mask and its outputs whole (as
+    ``resident_bytes`` counts the resident kernels'), against OPS_SPH per
+    pair and live slot."""
+    n_pair, n_in, n_slot = OPS_SPH[name]
     key = "density" if name == "sph_density" else "forces"
-    n_ops = n_test * pairs[f"{key}_pairs"] + n_in * pairs[f"{key}_in"]
-    return bound(BYTES_SPH[name] * g.px.numel(), n_ops)
+    n_ops = (n_pair * pairs[f"{key}_pairs"] + n_in * pairs[f"{key}_in"]
+             + n_slot * pairs["live"])
+    f_in, f_out = IO_SPH[name]
+    n_bytes = (4 * f_in * pairs["live"] + g.valid.numel()
+               + 4 * f_out * g.px.numel())
+    return bound(n_bytes, n_ops)
 
 
 def compare_sph(state, settings, params, label, flags=None):
     """sph_density and sph_forces (with ``flags``) against their plain
-    versions on a state's slot grid, over the whole grid: density within
-    RHO_TOL relative, forces as the velocity increment f * dt / rho within
-    VEL_TOL, empty target slots bitwise. Returns per-kernel dicts and the
-    calls for ``time_kernels``."""
+    versions on a state's slot grid, bitwise over the whole grid. Returns
+    per-kernel dicts and the calls for ``time_kernels``."""
     from tpufluid_torch.ops import sph
 
     flags = flags or {}
@@ -700,21 +730,13 @@ def compare_sph(state, settings, params, label, flags=None):
     rho = sph.density(g, params.mass, h)
     rho_p = sph.density_plain(g, params.mass, h)
     full = torch.ones_like(g.valid)
-    e_rho = rel_err(rho, rho_p, full)
-    if not e_rho <= RHO_TOL:
-        raise AssertionError(f"{label} sph_density: rel err {e_rho}")
+    bitwise((rho,), (rho_p,), f"{label} sph_density")
     d = torch.clamp(torch.clamp(rho_p, min=EPSILON), min=0.1)
     fargs = (g, d, params, h, settings.sqr_radius, n.spiky_derivative,
              n.viscosity, torch.tensor(9, device=d.device))
     got = sph.forces(*fargs, **flags)
     want = sph.forces_plain(*fargs, **flags)
-    dv = params.delta / d
-    e_f = max(rel_err(a * dv, b * dv, full) for a, b in zip(got, want))
-    dead = ~g.valid
-    if not (e_f <= VEL_TOL and all(torch.equal(a[dead], b[dead])
-                                   for a, b in zip(got, want))):
-        raise AssertionError(f"{label} sph_forces {flags}: rel err (f dt / "
-                             f"rho) {e_f}")
+    bitwise(got, want, f"{label} sph_forces {flags}")
     if flags:  # the flag changes the forces
         base = sph.forces(*fargs)
         changed = int(((base[0] != got[0]) & g.valid).sum())
@@ -734,13 +756,12 @@ def compare_sph(state, settings, params, label, flags=None):
         (5, (live & (d >= 150.0) & (d < 200.0)).sum()),
         (13, (live & (d >= 200.0)).sum()))}
     out["sph_forces"].update(strides)
-    log(f"{label} {tuple(g.px.shape)} {flags or 'base'}: {int(live.sum())} "
+    log(f"{label} {tuple(g.px.shape)} {flags or 'base'} (tiles: density "
+        f"{sph.density_tile(g.px.shape[1])}, forces "
+        f"{sph.forces_tile(g.px.shape[1])}): {int(live.sum())} "
         f"live slots (dropped {int(g.n_dropped)}), max density "
         f"{float(d[live].max()):.1f}, slots per stride {strides}, "
-        f"{pairs}; sph_density rel err {e_rho:.3g} (bound {RHO_TOL}), max "
-        f"abs err {out['sph_density']['max_abs_err']:.3g}; sph_forces rel err "
-        f"(f dt / rho) {e_f:.3g} (bound {VEL_TOL}), max abs err "
-        f"{out['sph_forces']['max_abs_err']:.3g}")
+        f"{pairs}; sph_density and sph_forces bitwise equal to plain")
     calls = {
         "sph_density": (lambda: sph.density(g, params.mass, h),
                         lambda: sph.density_plain(g, params.mass, h)),
@@ -764,7 +785,8 @@ def clumped_state(settings, device):
 def synced_pallas_steps(settings, params, n_steps: int) -> None:
     """The pallas-mode kernel step against the same step on the plain
     versions, each step from the plain step's state: cells and tick
-    bitwise, floats within the per-step bounds."""
+    bitwise, and the floats too (both kernels are bitwise; the rest of the
+    step is the same code)."""
     from tpufluid_torch.step import make_plain_step, make_step
 
     kstep = make_step(settings, neighbor_mode="pallas")
@@ -780,15 +802,15 @@ def synced_pallas_steps(settings, params, n_steps: int) -> None:
             want = getattr(p, f)
             e = rel_err(getattr(k, f), want,
                         torch.ones_like(want, dtype=torch.bool))
-            if e > tol:
-                raise AssertionError(f"synced pallas step {i}: {f} rel err "
-                                     f"{e} > {tol}")
+            if e > tol or not torch.equal(getattr(k, f), want):
+                raise AssertionError(f"synced pallas step {i}: {f} not "
+                                     f"bitwise (rel err {e}, bound {tol})")
             worst[f] = max(worst[f], e)
         st = p
     log(f"synced {n_steps} pallas steps at scene_1m (K="
-        f"{settings.cell_capacity}): cells and tick bitwise; worst rel err "
-        f"pos {worst['position']:.3g} vel {worst['velocity']:.3g} rho "
-        f"{worst['density']:.3g}")
+        f"{settings.cell_capacity}): cells, tick, positions, velocities "
+        f"and densities bitwise; worst rel err pos {worst['position']:.3g} "
+        f"vel {worst['velocity']:.3g} rho {worst['density']:.3g}")
 
 
 def profile_steps(app, n_steps: int, label: str, step=None):
@@ -877,6 +899,77 @@ def engine_parity(dev):
     if not max(d.values()) < PARITY_TOL:
         raise AssertionError(f"engine parity: {d}")
     return dict(max_dpos=d, ms_per_step=ms)
+
+
+def cli_pallas_run(card):
+    """The CLI's ``run --neighbor-mode pallas`` on the reference's default
+    scene under gravity, 200 steps, counters reset just before it (the
+    app sizes K for the compression peak); then 100 more steps timed with
+    CUDA events; then both kernels against their plain versions, bitwise,
+    on the next step's slot grid, and timed there. Returns K, the wall and
+    device ms/step, the particles that grid drops, the launch counts and
+    per-kernel results."""
+    from tpufluid_torch import cli
+    from tpufluid_torch.ops import sph
+
+    args = cli.parser().parse_args([
+        "run", "--device", "cuda", "--neighbor-mode", "pallas", "--gravity",
+        "0", "-9.8", "--steps", "200", "--report-every", "100"])
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    app = cli.run(args)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    app.run(100)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / 100
+    m = app.metrics(deep=True)
+    s, prm = app.settings, app.params
+    g = dense_grid_of(app.state, s, prm)
+    dropped = int(g.n_dropped)
+    res = dict(cell_capacity=s.cell_capacity,
+               wall_ms_per_step=1e3 * wall / 200, ms_per_step=ms,
+               dropped=dropped, max_cell_occupancy=m["max_cell_occupancy"],
+               launches={k: v for k, v in counts.items() if v})
+    h, n = s.smoothing_radius, s.kernel_norms()
+    torch.use_deterministic_algorithms(True)
+    rho_p = sph.density_plain(g, prm.mass, h)
+    bitwise((sph.density(g, prm.mass, h),), (rho_p,),
+            "CLI pallas sph_density")
+    d = torch.clamp(torch.clamp(rho_p, min=EPSILON), min=0.1)
+    fargs = (g, d, prm, h, s.sqr_radius, n.spiky_derivative, n.viscosity,
+             torch.tensor(9, device=d.device))
+    bitwise(sph.forces(*fargs), sph.forces_plain(*fargs),
+            "CLI pallas sph_forces")
+    torch.use_deterministic_algorithms(False)
+    pairs = sph_pairs(g, s)
+    for name, fn in (("sph_density", lambda: sph.density(g, prm.mass, h)),
+                     ("sph_forces", lambda: sph.forces(*fargs))):
+        k1, k2 = time_ms(fn, 50), time_ms(fn, 50)
+        b_ms, b_by = sph_bound(name, g, pairs)
+        res[name] = dict(max_abs_err=0.0, ms=(k1 + k2) / 2, bound_ms=b_ms,
+                         bound_by=b_by, grid=list(g.px.shape))
+        log(f"CLI pallas grid {tuple(g.px.shape)} {name} (tile "
+            f"{getattr(sph, name[4:] + '_tile')(s.cell_capacity)}): bitwise "
+            f"equal to plain; kernel {res[name]['ms']:.4f} ms ({k1:.4f}, "
+            f"{k2:.4f}), bound {b_ms:.4f} ms ({b_by}); {pairs}")
+    log(f"CLI run --neighbor-mode pallas (100k, 53x53, g -9.8, K="
+        f"{res['cell_capacity']}): 200 steps, wall {wall:.2f} s "
+        f"({res['wall_ms_per_step']:.3f} ms/step); 100 more {ms:.4f} ms/step "
+        f"(CUDA events; {card}); tick {m['tick']}, NaN {m['nan_positions']},"
+        f" max occupancy {m['max_cell_occupancy']}, dropped next step "
+        f"{dropped}; launches {res['launches']}")
+    if not (m["tick"] == 300 and m["nan_positions"] == 0):
+        raise AssertionError(f"CLI pallas run: {m}")
+    if counts != {**dict.fromkeys(counts, 0), "sph_density": 200,
+                  "sph_forces": 200}:
+        raise AssertionError(f"CLI pallas run launches: {counts}")
+    return res
 
 
 def cli_default_run():
@@ -1283,9 +1376,23 @@ def small_state(device, k, n_random=1500, fill_row=True, seed=SEED):
     grid is cut to its first 41 rows (the rows dropped are empty), which
     no tile height of 2, 4 or 8 divides. With few particles most tiles
     stage halo rows of at most one slot. Returns (settings, GridState)."""
+    from tpufluid_torch.ops import resident
+
+    s, st = small_particles(device, k, n_random, fill_row, seed)
+    gs = resident.from_particles(st, s)
+    gs = dataclasses.replace(gs, **{
+        f: getattr(gs, f)[:41].contiguous()
+        for f in ("pos_x", "pos_y", "vel_x", "vel_y", "occ_row")})
+    if (fill_row and int(gs.occ_row.max()) != k) or int(gs.lost) != 0:
+        raise AssertionError(f"small state at K={k}: occupancy "
+                             f"{int(gs.occ_row.max())}, lost {int(gs.lost)}")
+    return s, gs
+
+
+def small_particles(device, k, n_random, fill_row, seed=SEED):
+    """(settings, State) of ``small_state``'s particles."""
     import numpy as np
     import tpufluid_torch as tt
-    from tpufluid_torch.ops import resident
 
     rng = np.random.default_rng(seed)
     h, half = 0.2, np.array([4.5, 4.0])
@@ -1308,14 +1415,102 @@ def small_state(device, k, n_random=1500, fill_row=True, seed=SEED):
         st, position=torch.from_numpy(pos).to(device),
         predicted=torch.from_numpy(pos).to(device),
         velocity=torch.from_numpy(vel).to(device))
-    gs = resident.from_particles(st, s)
-    gs = dataclasses.replace(gs, **{
-        f: getattr(gs, f)[:41].contiguous()
-        for f in ("pos_x", "pos_y", "vel_x", "vel_y", "occ_row")})
-    if (fill_row and int(gs.occ_row.max()) != k) or int(gs.lost) != 0:
-        raise AssertionError(f"small state at K={k}: occupancy "
-                             f"{int(gs.occ_row.max())}, lost {int(gs.lost)}")
-    return s, gs
+    return s, st
+
+
+def sph_tile_grid(device, case):
+    """(settings, DenseGrid) of a tile gate of the dense kernels:
+    "full row 8" / "full row 256": ``small_particles`` at K=8 / 256 (a row
+    of full cells) binned by ``dense.build_grid``, cut to 41 rows;
+    "sparse 8" / "sparse 192": 60 of them (halo cells of at most one
+    slot); "edges": a hand-made [6, 4, 128] grid with live slots in rows 0
+    and 5 and columns 0 and 127 (each cell's valid slots a prefix), every
+    position within 0.15 of the origin, so that the clamped rows and the
+    wrapped columns meet pairs in range; "dead bits": "full row 8" with
+    its empty slots at (0.5, -0.25), a tenth of them elsewhere, and
+    nonzero velocities."""
+    import numpy as np
+    import tpufluid_torch as tt
+    from tpufluid_torch.ops import dense, grid
+
+    rng = np.random.default_rng(SEED + 21)
+    if case == "edges":
+        s = tt.SimSettings(particle_count=64, size=(9.0, 8.0),
+                           cell_capacity=4)
+        gy, k, gx = 6, 4, 128
+        occ = rng.integers(0, k + 1, (gy, gx))
+        occ[rng.random((gy, gx)) < 0.7] = 0
+        occ[:, [0, 1, gx - 2, gx - 1]] = rng.integers(1, k + 1, (gy, 4))
+        occ[[0, 1, gy - 2, gy - 1], :3] = k
+        valid = torch.arange(k)[None, :, None] < torch.from_numpy(occ)[:, None]
+        f = [torch.from_numpy(rng.uniform(-0.15, 0.15, (gy, k, gx))
+                              .astype(np.float32)) * valid for _ in range(4)]
+        f[0][0, 1, 0], f[1][0, 1, 0] = f[0][0, 0, 0], f[1][0, 0, 0]
+        return s, dense.DenseGrid(
+            torch.zeros(0, dtype=torch.int64), *(a.to(device) for a in f),
+            valid.to(device), torch.tensor(0, dtype=torch.int32))
+    k = {"full row 256": 256, "sparse 192": 192}.get(case, 8)
+    sparse = case.startswith("sparse")
+    s, st = small_particles(device, k, 60 if sparse else 1500, not sparse)
+    b = grid.bin_particles(grid.cell_id(st.position, s), s)
+    g = dense.build_grid(st.position[b.perm], st.velocity[b.perm],
+                         b.sorted_cells, s)
+    g = g._replace(**{f: getattr(g, f)[:41].contiguous()
+                      for f in ("px", "py", "vx", "vy", "valid")})
+    occ = g.valid.sum(dim=1)
+    if int(g.n_dropped) != 0 or (not sparse and int(occ.max()) != k):
+        raise AssertionError(f"sph tile grid {case}: dropped "
+                             f"{int(g.n_dropped)}, max occupancy "
+                             f"{int(occ.max())}")
+    if case == "dead bits":
+        gen = torch.Generator(device="cpu").manual_seed(SEED)
+        dead = ~g.valid
+        other = dead & (torch.rand(dead.shape, generator=gen) < 0.1).to(
+            device)
+        rand = ((torch.rand((2, *dead.shape), generator=gen) - 0.5)
+                * 8.0).to(device)
+        g = g._replace(
+            px=torch.where(other, rand[0], torch.where(dead, 0.5, g.px)),
+            py=torch.where(other, rand[1], torch.where(dead, -0.25, g.py)),
+            vx=torch.where(dead, 3.0, g.vx), vy=torch.where(dead, -1.0, g.vy))
+    return s, g
+
+
+def sph_tile_gates(dev) -> list:
+    """sph_density and sph_forces against their plain versions, bitwise
+    over the whole grid, with base flags, surface tension and adaptive,
+    on each ``sph_tile_grid`` case."""
+    import tpufluid_torch as tt
+    from tpufluid_torch.ops import sph
+
+    p = tt.TickParams.default(dev, gravity=(0.0, -9.8), **ST_PARAMS)
+    torch.use_deterministic_algorithms(True)
+    gates = []
+    for case in ("full row 8", "full row 256", "sparse 8", "sparse 192",
+                 "edges", "dead bits"):
+        s, g = sph_tile_grid(dev, case)
+        h, n = s.smoothing_radius, s.kernel_norms()
+        rho_p = sph.density_plain(g, p.mass, h)
+        bitwise((sph.density(g, p.mass, h),), (rho_p,),
+                f"{case} sph_density")
+        d = torch.clamp(torch.clamp(rho_p, min=EPSILON), min=0.1)
+        args = (g, d, p, h, s.sqr_radius, n.spiky_derivative, n.viscosity,
+                torch.tensor(9, device=dev))
+        flags = ("base", "surface_tension", "adaptive_subsampling")
+        for flag in flags:
+            kw = {} if flag == "base" else {flag: True}
+            bitwise(sph.forces(*args, **kw), sph.forces_plain(*args, **kw),
+                    f"{case} sph_forces {flag}")
+        k = g.px.shape[1]
+        occ = g.valid.sum(dim=1)
+        log(f"{case} {tuple(g.px.shape)} (tiles: density "
+            f"{sph.density_tile(k)}, forces {sph.forces_tile(k)}; max "
+            f"occupancy {int(occ.max())}, cells of at most one slot "
+            f"{int((occ <= 1).sum())} of {occ.numel()}): sph_density and "
+            f"sph_forces bitwise equal to plain with {', '.join(flags)}")
+        gates.append(f"sph {case} K={k}: {', '.join(flags)}")
+    torch.use_deterministic_algorithms(False)
+    return gates
 
 
 # the variant sets of the tile gates: forces_integrate's flags, "has_ff"
@@ -1687,6 +1882,15 @@ def main() -> int:
         raise AssertionError(f"pallas run launches: {p_launches}")
     pallas_prof = profile_steps(papp, 16, "scene_1m pallas")
     del papp
+    if pallas_prof is not None:
+        scans = [k for k in pallas_prof["top_ms_per_step"]
+                 if "tensor_kernel_scan" in k]
+        if scans:
+            raise AssertionError(f"a scan among the pallas step's top "
+                                 f"kernels: {scans}")
+        log("scene_1m pallas profile: no torch.cummax scan among its top "
+            "kernels")
+    cli_pallas = cli_pallas_run(card)
 
     # 12. engine parity, and the CLI's default run (the dense engine)
     parity = engine_parity(dev)
@@ -1882,6 +2086,8 @@ def main() -> int:
             gates.append(coarse_gate(gk, sk, 8 if fill else 1,
                                      f"{label} K={k}"))
 
+    gates += sph_tile_gates(dev)
+
     # 19. FluidApp.set_mouse: 16 resident ticks at scene_1m, mouse on
     mouse = mouse_run(dev, card)
 
@@ -1907,7 +2113,8 @@ def main() -> int:
                              k: sph_res[name][k] for k in (
                                  "max_abs_err", "ms", "plain_ms", "bound_ms",
                                  "bound_by")},
-                         library_ms=None, k32=sph32[name])
+                         library_ms=None, k32=sph32[name],
+                         cli_pallas=cli_pallas[name])
         else:
             entry = dict(launches=launches[name],
                          render_path_launches=render_launches[name], **{
@@ -1944,7 +2151,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "ms_per_step": ms_step,
                       "resident_profile": resident_prof,
                       "pallas_ms_per_step": ms_pallas,
-                      "pallas_profile": pallas_prof, "render": render_res,
+                      "pallas_profile": pallas_prof,
+                      "cli_pallas": cli_pallas, "render": render_res,
                       "frame": frame, "parity": parity,
                       "cli_default": cli_res,
                       "variants_ms_per_step": ms_variants,

@@ -1,16 +1,19 @@
 """Count the SASS instructions of a kernel's loops in the built library.
 
-    python scripts/sass_loops.py KERNEL_SUBSTRING [--root DIR]
+    python scripts/sass_loops.py KERNEL_SUBSTRING [--root DIR] [--opcode OP]
 
 Runs ``cuobjdump -sass`` on the kernel library of ``tpufluid_torch`` (of
 this checkout, or of the checkout at DIR; built first if needed; needs the
 CUDA toolkit), takes the functions whose mangled name contains
 KERNEL_SUBSTRING, and lists every loop: a backward branch and the
 instructions from its target to it. For each loop it prints the
-instruction count, how many of them are ``MUFU.EX2`` (the exp2 unit that
-``expf`` ends in) and the counts of the most frequent opcodes. The
-innermost loop that holds one is marked: for the metaball coarse kernel
-that is the pair loop, one candidate against the samples a thread holds.
+instruction count, how many of them are OP (by default ``MUFU.EX2``, the
+exp2 unit that ``expf`` ends in) and the counts of the most frequent
+opcodes. The innermost loop that holds one is marked: for the metaball
+coarse kernel that is the pair loop, one candidate against the samples a
+thread holds; for sph_density (``--opcode FMUL``) the pair loop, and for
+sph_forces (``--opcode MUFU.RSQ``, the sqrt) its pair loop's in-range
+body.
 """
 
 from __future__ import annotations
@@ -69,11 +72,12 @@ def main() -> int:
     ap.add_argument("kernel")
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
+    ap.add_argument("--opcode", default=OPCODE)
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     from tpufluid_torch import _build
 
-    want, opcode = args.kernel, OPCODE
+    want, opcode = args.kernel, args.opcode
     _build.load()
     lib = _build.build_dir() / _build.LIB_NAME
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")

@@ -1,13 +1,14 @@
-"""Time the resident engine's CUDA kernels of one checkout of the port.
+"""Time the CUDA kernels of one checkout of the port.
 
     python scripts/torch_kernel_ab.py [--only PARTS] PATH/TO/CHECKOUT [...]
 
 Each checkout runs in its own process (its own ``tpufluid_torch/_build``):
 the script re-runs itself once per path and prints, per checkout, the
-registers and spills ptxas reports for the resident kernels and the
-metaball coarse kernel, then the device ms (CUDA events around 50 calls
-behind a sleep kernel, twice; the mean and both readings) of these parts
-(``--only``, comma-separated, picks some; all by default):
+registers and spills ptxas reports for the resident kernels, the
+metaball coarse kernel and the dense engine's sph kernels, then the device
+ms (CUDA events around 50 calls behind a sleep kernel, twice; the mean and
+both readings) of these parts (``--only``, comma-separated, picks some; all
+by default):
 
 * ``pair``: density and forces_integrate at scene_1m K=8 and K=32 (seeded
   state: the spawn lattice with random velocities, far movers and
@@ -27,7 +28,16 @@ behind a sleep kernel, twice; the mean and both readings) of these parts
   reading), the device's busy time per step over 20 more (torch.profiler,
   ``chip_smoke.profile_steps``), and the frame at 960x540 with its parts
   (``chip_smoke.frame_breakdown``: coarse kernel, resample, shading,
-  ``render_frame``, and 16 ticks plus the render).
+  ``render_frame``, and 16 ticks plus the render);
+* ``sph``: the dense engine's sph_density and sph_forces on the slot grid
+  of the pallas step (``chip_smoke.dense_grid_of``) at scene_1m K=8 and
+  K=32 (seeded state), sph_forces with surface tension on the h = 1.5
+  scene of 65,536 particles and with adaptive subsampling on the clumped
+  K=16 state, each beside its bound (``chip_smoke.sph_bound``); and the
+  pallas step, ``FluidApp(scene_1m, neighbor_mode="pallas")``: ms/step
+  over 100 steps of ``run`` three times after a 20-step warm-up (CUDA
+  events; the median and each reading) and the device's busy time per
+  step over 16 more (torch.profiler) with its top kernels.
 
 The states come from ``chip_smoke.py`` of the tree this script lies in, so
 every checkout times the same inputs. Give the paths as parent, change,
@@ -56,15 +66,15 @@ def registers(log: str):
         elif "spill stores" in line:
             spill = line.strip().split(",")[1].strip()
         elif "Used" in line and "registers" in line and name:
-            if ("sph" not in name
-                    and ("ILb" not in name or "ILb0ELb0ELb0ELb0E" in name)):
+            if ("ILb" not in name or "ILb0ELb0ELb0ELb0E" in name
+                    or "sph_forces_kernelILb0ELb0E" in name):
                 regs = line.split("Used")[1].split(",")[0].strip()
                 out.append((name[:40], regs, spill))
             name = None
     return out
 
 
-PARTS = ("pair", "rebin", "coarse", "step")
+PARTS = ("pair", "rebin", "coarse", "step", "sph")
 
 
 def bench(root: str, parts) -> None:
@@ -185,6 +195,8 @@ def bench(root: str, parts) -> None:
                   row_shift=-(wid * rows))
     if "pair" in parts and hasattr(fused, "physics"):
         timed("K=8 physics", lambda: fused.physics(*g8[:5], p, s8, g8[5]))
+    if "sph" in parts:
+        sph_part(cs, res, timed, dev, s8, p)
     if "step" in parts:
         app = FluidApp(s8, p, device=dev, neighbor_mode="resident")
         app.run(20)
@@ -209,6 +221,65 @@ def bench(root: str, parts) -> None:
         frame = cs.frame_breakdown(app, cs.card_line())
         res["frame"] = {k: round(v, 4) for k, v in frame.items()}
     print(root, cs.card_line(), res, flush=True)
+
+
+def sph_part(cs, res, timed, dev, s8, p) -> None:
+    """The ``sph`` part (the module docstring)."""
+    import torch
+    import tpufluid_torch as tt
+    from tpufluid_torch.app import FluidApp
+    from tpufluid_torch.ops import sph
+
+    def kernels(label, st, s, prm, flags, density=True):
+        g = cs.dense_grid_of(st, s, prm)
+        h, n = s.smoothing_radius, s.kernel_norms()
+        rho = sph.density(g, prm.mass, h)
+        d = torch.clamp(torch.clamp(rho, min=cs.EPSILON), min=0.1)
+        fargs = (g, d, prm, h, s.sqr_radius, n.spiky_derivative,
+                 n.viscosity, torch.tensor(9, device=dev))
+        pairs = cs.sph_pairs(g, s)
+        if density:
+            timed(f"{label} sph_density", lambda: sph.density(g, prm.mass, h))
+            res[f"{label} sph_density"] += (
+                " bound %.4f (%s)" % cs.sph_bound("sph_density", g, pairs))
+        timed(f"{label} sph_forces", lambda: sph.forces(*fargs, **flags))
+        res[f"{label} sph_forces"] += (
+            " bound %.4f (%s)" % cs.sph_bound("sph_forces", g, pairs))
+
+    for k in (8, 32):
+        s = dataclasses.replace(s8, cell_capacity=k)
+        kernels(f"sph K={k}", cs.seeded_state(s, dev), s, p, {})
+    s_st = tt.SimSettings(particle_count=65536, particle_spacing=0.75,
+                          smoothing_radius=1.5, size=(200.0, 200.0),
+                          cell_capacity=8)
+    kernels("sph h=1.5 surface_tension", cs.seeded_state(s_st, dev), s_st,
+            tt.TickParams.default(dev, **cs.ST_PARAMS),
+            dict(surface_tension=True), density=False)
+    s16 = dataclasses.replace(s8, cell_capacity=16)
+    kernels("sph K=16 clump adaptive", cs.clumped_state(s16, dev), s16, p,
+            dict(adaptive_subsampling=True), density=False)
+
+    app = FluidApp(s8, p, device=dev, neighbor_mode="pallas")
+    app.run(20)
+    steps = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        app.run(100)
+        b.record()
+        torch.cuda.synchronize()
+        steps.append(a.elapsed_time(b) / 100)
+    res["pallas ms/step"] = (f"median {sorted(steps)[1]:.4f} ("
+                             + ", ".join(f"{x:.4f}" for x in steps) + ")")
+    prof = cs.profile_steps(app, 16, "pallas")
+    if prof is not None:
+        res["pallas device busy ms/step"] = (
+            f"{prof['busy_ms_per_step']:.4f} of "
+            f"{prof['window_ms_per_step']:.4f}; top "
+            + ", ".join(f"{k} {v:.4f}"
+                        for k, v in prof["top_ms_per_step"].items()))
 
 
 def main() -> int:

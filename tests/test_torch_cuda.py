@@ -11,12 +11,14 @@ file imports no JAX, so it also runs where JAX is not installed:
 Rebin must be bitwise; density and forces within BASELINE.md's per-step
 bounds (|drho| <= 9.2e-5, |dpos| <= 4.8e-7, |dvel| <= 3.8e-5, relative
 where the value exceeds 1) on live slots, with dead slots exact; the
-metaball fields bitwise. The dense engine's grids
-are compared whole: density within 9.2e-5, forces as the velocity
-increment f * dt / rho within 3.8e-5 (see tests/test_torch_sph.py). The
-resident engine's variants, its batched stacks and the physics pass are
-held bitwise: to their plain versions, the physics kernel to the split
-kernel pair, a batched step to the single-world steps. The tile kernels of
+metaball fields bitwise. The dense engine's kernels are held bitwise to
+their plain versions over the whole grid, also on tile gates (ragged and
+sparse grids, K up to 256, live slots in the clamped edge rows and the
+wrapped edge columns, empty slots at nonzero positions), and raise above
+the largest K they stage. The resident engine's variants, its batched
+stacks and the physics pass are held bitwise: to their plain versions, the
+physics kernel to the split kernel pair, a batched step to the
+single-world steps. The tile kernels of
 density and forces are also held bitwise to their plain versions at every
 tile shape the wrappers pick (K=8 to 256, sparse and ragged grids, each
 flag, an obstacle field, two worlds), and so is rebin's (with far movers,
@@ -240,8 +242,9 @@ def _dense_grid(cuda, k, case):
 @pytest.mark.parametrize("case", ["k8", "k32", "surface_tension",
                                   "adaptive_subsampling"])
 def test_sph_kernels_match_plain(cuda, case):
-    """sph_density and sph_forces against their plain versions over the
-    whole grid, base flags at K=8 and K=32 and each variant flag."""
+    """sph_density and sph_forces against their plain versions, bitwise
+    over the whole grid, base flags at K=8 and K=32 and each variant
+    flag."""
     k = 32 if case == "k32" else 8
     scene = {"surface_tension": "st", "adaptive_subsampling": "clump"}
     s, p, g, d = _dense_grid(cuda, k, scene.get(case, "base"))
@@ -249,8 +252,7 @@ def test_sph_kernels_match_plain(cuda, case):
     before = dict(sph.LAUNCHES)
     rho = sph.density(g, p.mass, h)
     rho_p = sph.density_plain(g, p.mass, h)
-    full = torch.ones_like(g.valid)
-    assert _rel(rho, rho_p, full) <= RHO_TOL
+    assert torch.equal(rho, rho_p)
     flags = {case: True} if case in scene else {}
     args = (g, d, p, h, s.sqr_radius, n.spiky_derivative, n.viscosity,
             torch.tensor(9, device=cuda))
@@ -259,10 +261,8 @@ def test_sph_kernels_match_plain(cuda, case):
     torch.cuda.synchronize()
     assert {n_: sph.LAUNCHES[n_] - before[n_] for n_ in before} == {
         "sph_density": 1, "sph_forces": 1}
-    dv = p.delta / d
     for a, b_ in zip(got, want):
-        assert _rel(a * dv, b_ * dv, full) <= VEL_TOL
-        assert torch.equal(a[~g.valid], b_[~g.valid])
+        assert torch.equal(a, b_)
     if flags:
         base = sph.forces_plain(*args)
         assert not torch.equal(want[0][g.valid], base[0][g.valid])
@@ -463,6 +463,15 @@ def _tile_state(device, k, seed, n_random=1500, fill_row=True):
     rows (the rows dropped are empty), which no tile height of 2, 4 or 8
     divides. With few particles most tiles stage halo rows of at most one
     slot."""
+    s, st = _tile_particles(device, k, seed, n_random, fill_row)
+    gs = resident.from_particles(st, s)
+    return s, dataclasses.replace(gs, **{
+        f: getattr(gs, f)[:41].contiguous()
+        for f in ("pos_x", "pos_y", "vel_x", "vel_y", "occ_row")})
+
+
+def _tile_particles(device, k, seed, n_random, fill_row):
+    """(settings, State) of ``_tile_state``'s particles."""
     rng = np.random.default_rng(seed)
     h, half = 0.2, np.array([4.5, 4.0])
     full = np.stack(np.meshgrid(np.arange(10, 18), [20]), -1).reshape(-1, 2)
@@ -484,10 +493,7 @@ def _tile_state(device, k, seed, n_random=1500, fill_row=True):
         st, position=torch.from_numpy(pos).to(device),
         predicted=torch.from_numpy(pos).to(device),
         velocity=torch.from_numpy(vel).to(device))
-    gs = resident.from_particles(st, s)
-    return s, dataclasses.replace(gs, **{
-        f: getattr(gs, f)[:41].contiguous()
-        for f in ("pos_x", "pos_y", "vel_x", "vel_y", "occ_row")})
+    return s, st
 
 
 ST_PARAMS_CUDA = dict(surface_tension_threshold=0.05,
@@ -555,6 +561,129 @@ def test_tile_kernels_bitwise(cuda, k, variant):
     assert (fused.LAUNCHES["forces_integrate"]
             == before["forces_integrate"] + 1)
 
+
+
+def _sph_tile_grid(device, case):
+    """(settings, DenseGrid) of a tile gate of the dense kernels:
+    "ragged8" / "ragged256": ``_tile_state``'s particles at K=8 / 256 (a
+    row of full cells) binned by ``dense.build_grid``, cut to 41 rows;
+    "sparse8" / "sparse192": 60 of them (halo cells of at most one slot);
+    "edges": a hand-made [6, 4, 128] grid with live slots in rows 0 and 5
+    and columns 0 and 127 (each cell's valid slots a prefix) and every
+    position within 0.15 of the origin, so that the clamped rows and the
+    wrapped columns meet pairs in range; "dead_bits": "ragged8" with its
+    empty slots at (0.5, -0.25), a tenth of them elsewhere, and nonzero
+    velocities."""
+    rng = np.random.default_rng(21)
+    if case == "edges":
+        s = tt.SimSettings(particle_count=64, size=(9.0, 8.0),
+                           cell_capacity=4)
+        gy, k, gx = 6, 4, 128
+        occ = rng.integers(0, k + 1, (gy, gx))
+        occ[rng.random((gy, gx)) < 0.7] = 0
+        occ[:, [0, 1, gx - 2, gx - 1]] = rng.integers(1, k + 1, (gy, 4))
+        occ[[0, 1, gy - 2, gy - 1], :3] = k
+        valid = torch.arange(k)[None, :, None] < torch.from_numpy(occ)[:, None]
+        f = [torch.from_numpy(rng.uniform(-0.15, 0.15, (gy, k, gx))
+                              .astype(np.float32)) * valid for _ in range(4)]
+        f[0][0, 1, 0], f[1][0, 1, 0] = f[0][0, 0, 0], f[1][0, 0, 0]
+        g = dense.DenseGrid(torch.zeros(0, dtype=torch.int64),
+                            *(a.to(device) for a in f), valid.to(device),
+                            torch.tensor(0, dtype=torch.int32))
+        return s, g
+    k = {"ragged256": 256, "sparse192": 192}.get(case, 8)
+    s, st = _tile_particles(device, k, k, 60 if "sparse" in case else 1500,
+                            "sparse" not in case)
+    b = grid.bin_particles(grid.cell_id(st.position, s), s)
+    g = dense.build_grid(st.position[b.perm], st.velocity[b.perm],
+                         b.sorted_cells, s)
+    g = g._replace(**{f: getattr(g, f)[:41].contiguous()
+                      for f in ("px", "py", "vx", "vy", "valid")})
+    assert int(g.n_dropped) == 0
+    if case == "dead_bits":
+        gen = torch.Generator(device="cpu").manual_seed(21)
+        dead = ~g.valid
+        other = dead & (torch.rand(dead.shape, generator=gen) < 0.1).to(
+            device)
+        px = torch.where(dead, 0.5, g.px)
+        py = torch.where(dead, -0.25, g.py)
+        rand = ((torch.rand((2, *dead.shape), generator=gen) - 0.5)
+                * 8.0).to(device)
+        g = g._replace(px=torch.where(other, rand[0], px),
+                       py=torch.where(other, rand[1], py),
+                       vx=torch.where(dead, 3.0, g.vx),
+                       vy=torch.where(dead, -1.0, g.vy))
+    return s, g
+
+
+@pytest.mark.parametrize("flag", ["base", "surface_tension",
+                                  "adaptive_subsampling"])
+@pytest.mark.parametrize("case", ["ragged8", "ragged256", "sparse8",
+                                  "sparse192", "edges", "dead_bits"])
+def test_sph_tile_kernels_bitwise(cuda, case, flag):
+    """The tile kernels of sph_density and sph_forces against their plain
+    versions, bitwise over the whole grid, on grids that take every
+    staging path: a tile height that leaves rows ragged, a cell at full
+    occupancy K (K=256), halo cells of at most one slot, live slots in the
+    clamped first and last rows and the wrapped first and last columns,
+    and empty slots whose positions are nonzero (shared and own sums)."""
+    s, g = _sph_tile_grid(cuda, case)
+    occ = g.valid.sum(dim=1)
+    k = g.px.shape[1]
+    if case.startswith("ragged"):
+        assert int(occ.max()) == k
+    if case.startswith("sparse"):
+        assert int((occ <= 1).sum()) > occ.numel() // 2
+    if case == "edges":
+        assert bool(g.valid[0].any() and g.valid[-1].any()
+                    and g.valid[:, :, 0].any() and g.valid[:, :, -1].any())
+    p = tt.TickParams.default(cuda, gravity=(0.0, -9.8), **ST_PARAMS_CUDA)
+    h, n = s.smoothing_radius, s.kernel_norms()
+    before = dict(sph.LAUNCHES)
+    rho_p = sph.density_plain(g, p.mass, h)
+    assert torch.equal(sph.density(g, p.mass, h), rho_p)
+    d = torch.clamp(torch.clamp(rho_p, min=tt.EPSILON), min=0.1)
+    flags = {} if flag == "base" else {flag: True}
+    args = (g, d, p, h, s.sqr_radius, n.spiky_derivative, n.viscosity,
+            torch.tensor(9, device=cuda))
+    got = sph.forces(*args, **flags)
+    want = sph.forces_plain(*args, **flags)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert {n_: sph.LAUNCHES[n_] - before[n_] for n_ in before} == {
+        "sph_density": 1, "sph_forces": 1}
+
+
+def test_sph_kernels_refuse_k_above_limit(cuda):
+    """Each dense kernel runs at the largest K whose 1 x 1 tile fits
+    shared memory, and its wrapper raises, naming that K, one above it."""
+    s = tt.SimSettings(particle_count=64, size=(9.0, 8.0))
+    p = tt.TickParams.default(cuda)
+    h, n = s.smoothing_radius, s.kernel_norms()
+    k_d, k_f = sph.max_capacity("sph_density"), sph.max_capacity("sph_forces")
+    assert k_d >= k_f >= 256
+    assert sph.density_tile(k_d) == sph.forces_tile(k_f) == (1, 1)
+
+    def grid_at(k):
+        z = torch.zeros((3, k, 128), device=cuda)
+        valid = torch.zeros((3, k, 128), dtype=torch.bool, device=cuda)
+        valid[1, :2, 5] = True
+        px = z.clone()
+        px[1, 1, 5] = 0.05
+        return dense.DenseGrid(torch.zeros(0, dtype=torch.int64), px, z, z,
+                               z, valid, torch.tensor(0))
+
+    rho = sph.density(grid_at(k_d), p.mass, h)
+    assert bool(torch.isfinite(rho).all()) and float(rho[1, 0, 5]) > 0.0
+    forces = lambda g: sph.forces(g, torch.ones_like(g.px), p, h,
+                                  s.sqr_radius, n.spiky_derivative,
+                                  n.viscosity, torch.tensor(1))
+    assert all(bool(torch.isfinite(o).all()) for o in forces(grid_at(k_f)))
+    with pytest.raises(ValueError, match=f"largest .*, {k_d}$"):
+        sph.density(grid_at(k_d + 1), p.mass, h)
+    with pytest.raises(ValueError, match=f"largest .*, {k_f}$"):
+        forces(grid_at(k_f + 1))
 
 
 def test_rebin_valid_matches_plain(cuda):

@@ -4,8 +4,8 @@ of ``ops.dense``, its roll passes, and the plain versions of the two CUDA
 kernels (``ops.sph``) against ``tpufluid.ops.pallas.sph`` in interpret
 mode on the same DenseGrid (6 x 6 world, 256 particles, K=8).
 
-Integers (cell ids, the sort permutation, slots, ``n_dropped``) are held
-bitwise. Floats are held to BASELINE.md's per-step bounds, relative where
+Integers (cell ids, the sort permutation, the ranks within cell runs,
+slots, ``n_dropped``) are held bitwise. Floats are held to BASELINE.md's per-step bounds, relative where
 the value exceeds 1: kernel values and densities |d| <= 9.2e-5; velocities
 |dv| <= 3.8e-5. Force sums are compared as the velocity increment they
 give a particle in one step, f * dt / rho: on a fluid at rest density the
@@ -281,6 +281,37 @@ def test_pairs_match_jax(name):
 
 
 # ---------------------------------------------------------- slot grid
+
+def _sorted_keys(case):
+    """Ascending cell keys of a case, as the callers of ``ranks`` pass
+    them (the resident engine's far movers end in dropped keys 2**30)."""
+    rng = np.random.default_rng(4)
+    if case == "one particle":
+        return np.array([17])
+    if case == "one run":
+        return np.full(9, 33)
+    if case == "all distinct":
+        return np.sort(rng.choice(4096, 64, replace=False))
+    if case == "runs at both ends":
+        mid = np.sort(rng.integers(10, 90, 40))
+        return np.concatenate([np.full(7, 3), mid, np.full(5, 95)])
+    keys = np.sort(rng.integers(0, 50, 30))
+    return np.concatenate([keys, np.full(6, 2**30)])
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", ["one particle", "one run", "all distinct",
+                                  "runs at both ends", "trailing 2**30"])
+def test_ranks_bitwise(case, dtype):
+    """``ops.dense.ranks`` (a binary search of each key) against the JAX
+    package's scan over run starts, on int32 keys (the binning's) and
+    int64 keys (the resident engine's far movers)."""
+    keys = _sorted_keys(case)
+    want = np.asarray(jax.jit(jdense.ranks)(jnp.asarray(keys, jnp.int32)))
+    got = tdense.ranks(torch.from_numpy(keys).to(dtype))
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+
 
 def test_binning_and_slot_grid_bitwise():
     """Cell ids, the stable sort, the slot grid and its overflow count."""

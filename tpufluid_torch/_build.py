@@ -46,8 +46,12 @@ _SIGNATURES = {
     + [_I] + [_F] * 2 + [_P] + [_P],
     "tf_metaball_coarse": [_P] * 6 + [_I] * 5 + [_F] * 4 + [_P],
     "tf_sph_density": [_P] * 5 + [_I] * 3 + [_F] * 2 + [_P],
+    "tf_sph_density_tile": [_I],
+    "tf_sph_density_max_k": [],
     "tf_sph_forces": [_P] * 8 + [_P] * 4 + [_I] * 3 + [_I] * 2 + [_F] * 11
     + [_P],
+    "tf_sph_forces_tile": [_I],
+    "tf_sph_forces_max_k": [],
 }
 
 _lib = None

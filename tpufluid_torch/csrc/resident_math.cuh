@@ -498,22 +498,33 @@ static const int kTfTiles[][2] = {{3, 5}, {2, 5}, {1, 5}, {1, 4}, {0, 5},
 #define TF_FORCES_SLOTS 1536
 #define TF_REBIN_SLOTS 4096
 
-// The tile of a kernel that stages slot_bytes per slot at capacity K:
-// the first of kTfTiles within max_slots target slots whose shared memory
-// fits, else the smallest that fits. False when none fits (K above ~1,000
-// for forces).
-static inline bool tf_resident_tile(int slot_bytes, int max_slots, int K,
-                                    int& lgR, int& lgC) {
+// The tile of a kernel whose block needs smem_bytes(R, C) of shared
+// memory at capacity K: the first of kTfTiles within max_slots target
+// slots whose shared memory fits, else the smallest that fits. False when
+// none fits.
+template <class SmemBytes>
+static inline bool tf_pick_tile(int max_slots, int K, int& lgR, int& lgC,
+                                SmemBytes smem_bytes) {
     bool fits = false;
     for (const auto& t : kTfTiles) {
         const int R = 1 << t[0], C = 1 << t[1];
-        if (tf_tile_smem_bytes(slot_bytes, K, R, C) > TF_SMEM_MAX) continue;
+        if (smem_bytes(R, C) > TF_SMEM_MAX) continue;
         lgR = t[0];
         lgC = t[1];
         fits = true;
         if ((long long)R * C * K <= max_slots) break;
     }
     return fits;
+}
+
+// The tile of a resident kernel that stages slot_bytes per slot at
+// capacity K (tf_tile_smem_bytes). False when none fits (K above ~1,000
+// for forces).
+static inline bool tf_resident_tile(int slot_bytes, int max_slots, int K,
+                                    int& lgR, int& lgC) {
+    return tf_pick_tile(max_slots, K, lgR, lgC, [&](int R, int C) {
+        return tf_tile_smem_bytes(slot_bytes, K, R, C);
+    });
 }
 
 // The shared arrays behind a tile's staged fields.
@@ -610,31 +621,20 @@ __device__ __forceinline__ void tf_stage_halo(const TfTileSmem& t, int R,
     __syncthreads();
 }
 
-// The live targets of the tile's centre cells, listed in (slot, row,
-// column) order as kk << 16 | lr << 8 | lc, so that the lanes of a warp
-// take neighbouring columns of one slot row: their global loads and
-// stores are coalesced and their shared reads hit distinct banks. The
-// walk covers the slots below kc, the centre rows' largest occupancy; a
-// centre slot there is live below its cell's socc with a live staged
-// prediction. Every other centre slot in the grid gets empty(y, kk, x).
-// Returns the count, the same in every thread; the list is complete when
-// it returns.
-template <class Empty>
-__device__ __forceinline__ int tf_tile_targets(const float2* sp,
-                                               const TfTileSmem& t, int kc,
-                                               int lgR, int lgC, int K,
-                                               int y0, int x0, int gy,
-                                               Empty empty) {
-    const int R = 1 << lgR, C = 1 << lgC, HC = C + 2;
+// The slots (kk, lr, lc) of the tile's centre cells below slot kc for
+// which live(lr, kk, lc) holds, listed in (slot, row, column) order as
+// kk << 16 | lr << 8 | lc into list, so that the lanes of a warp take
+// neighbouring columns of one slot row: their global loads and stores are
+// coalesced and their shared reads hit distinct banks. live() runs once
+// for every slot below kc (it may also write the outputs of a slot it
+// rejects); wsum holds two rows of TF_TILE_WARPS counts. Returns the
+// count, the same in every thread; the list is complete when it returns.
+template <class Live>
+__device__ __forceinline__ int tf_tile_list(int* list, int* wsum, int kc,
+                                            int lgR, int lgC, Live live) {
+    const int R = 1 << lgR, C = 1 << lgC;
     const int lane = threadIdx.x & 31;
     const int w = threadIdx.x >> 5;
-    // slots at or beyond kc: empty in every centre cell
-    const int n_all = (K * R) << lgC;
-    for (int i = ((kc * R) << lgC) + threadIdx.x; i < n_all;
-         i += TF_TILE_THREADS) {
-        const int lr = (i >> lgC) & (R - 1);
-        if (y0 + lr < gy) empty(y0 + lr, i >> (lgC + lgR), x0 + (i & (C - 1)));
-    }
     const int n = (kc * R) << lgC;
     int base = 0;
     int buf = 0;
@@ -643,30 +643,53 @@ __device__ __forceinline__ int tf_tile_targets(const float2* sp,
         const int lc = i & (C - 1);
         const int lr = (i >> lgC) & (R - 1);
         const int kk = i >> (lgC + lgR);
-        bool live = false;
-        if (i < n && y0 + lr < gy) {
-            live = kk < t.socc[(lr + 1) * HC + lc + 1] &&
-                   tf_live(sp[((lr + 1) * K + kk) * HC + lc + 1].x);
-            if (!live) empty(y0 + lr, kk, x0 + lc);
-        }
-        const unsigned b = __ballot_sync(0xffffffffu, live);
+        const bool ok = i < n && live(lr, kk, lc);
+        const unsigned b = __ballot_sync(0xffffffffu, ok);
         // two count rows: a warp may fill this chunk's row while a slower
         // one still reads the previous chunk's
-        if (lane == 0) t.wsum[buf * TF_TILE_WARPS + w] = __popc(b);
+        if (lane == 0) wsum[buf * TF_TILE_WARPS + w] = __popc(b);
         __syncthreads();
         int off = base, tot = 0;
         for (int j = 0; j < TF_TILE_WARPS; ++j) {
-            const int c = t.wsum[buf * TF_TILE_WARPS + j];
+            const int c = wsum[buf * TF_TILE_WARPS + j];
             off += j < w ? c : 0;
             tot += c;
         }
-        if (live)
-            t.list[off + __popc(b & ((1u << lane) - 1u))] =
+        if (ok)
+            list[off + __popc(b & ((1u << lane) - 1u))] =
                 (kk << 16) | (lr << 8) | lc;
         base += tot;
     }
     __syncthreads();
     return base;
+}
+
+// The live targets of the tile's centre cells, listed by tf_tile_list.
+// The walk covers the slots below kc, the centre rows' largest occupancy;
+// a centre slot there is live below its cell's socc with a live staged
+// prediction. Every other centre slot in the grid gets empty(y, kk, x).
+template <class Empty>
+__device__ __forceinline__ int tf_tile_targets(const float2* sp,
+                                               const TfTileSmem& t, int kc,
+                                               int lgR, int lgC, int K,
+                                               int y0, int x0, int gy,
+                                               Empty empty) {
+    const int R = 1 << lgR, C = 1 << lgC, HC = C + 2;
+    // slots at or beyond kc: empty in every centre cell
+    const int n_all = (K * R) << lgC;
+    for (int i = ((kc * R) << lgC) + threadIdx.x; i < n_all;
+         i += TF_TILE_THREADS) {
+        const int lr = (i >> lgC) & (R - 1);
+        if (y0 + lr < gy) empty(y0 + lr, i >> (lgC + lgR), x0 + (i & (C - 1)));
+    }
+    return tf_tile_list(t.list, t.wsum, kc, lgR, lgC,
+                        [&](int lr, int kk, int lc) {
+        if (y0 + lr >= gy) return false;
+        const bool live = kk < t.socc[(lr + 1) * HC + lc + 1] &&
+                          tf_live(sp[((lr + 1) * K + kk) * HC + lc + 1].x);
+        if (!live) empty(y0 + lr, kk, x0 + lc);
+        return live;
+    });
 }
 
 // Candidate bounds of the target in centre cell (lr, lc) from the halo

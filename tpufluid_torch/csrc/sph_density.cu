@@ -4,65 +4,212 @@
 //
 // Replaces tpufluid/ops/pallas/sph.py:density (_density_kernel), which on
 // the TPU ran one program per grid row, read rows y-1, y, y+1 through
-// clamped block index maps and lane-rolled whole rows by dx.
+// clamped block index maps and lane-rolled whole rows by dx, giving every
+// slot a value (an empty slot sums the candidates around its own zero
+// position: the JAX contract has no self mask).
 //
-// Bound: memory traffic through L1/L2. Each target reads three fields
-// (px, py, valid) of up to 9 * K candidate slots; the pair math is ~10
-// flops. DRAM sees each input about once, since neighbouring blocks share
-// candidate rows in L2.
+// Bound on the H100: the pair loop's instructions, then memory. At
+// scene_1m K=8 (~4 particles a cell) each target meets ~36 live
+// candidates at 12 f32 operations; the grid's positions and mask cross
+// DRAM about once and the output is written whole. One thread per output
+// slot, the design this replaces, walked every slot of the 3 x 3 cells
+// with three global loads per candidate, and ran its empty slots' walks
+// too: at K=32 302M candidate tests for 12.6M pairs in range (PERF.md).
 //
-// Design: one thread per output slot (y, k, x); a block covers 128
-// consecutive columns of one (row, slot), so candidate loads of a warp are
-// coalesced. Candidates are visited in the TPU kernel's order (row y-1, y,
-// y+1 clamped to [0, Gy-1]; dx -1, 0, +1 wrapping modulo Gxp; slot kp
-// ascending) and each is added to the running sum on its own. A cell's
-// particles fill a prefix of its K slots, so a candidate column ends at
-// its first empty slot; an empty or out-of-range candidate adds exactly
-// +0.0 in the TPU kernel and is skipped here. Every output slot is
-// written, empty ones included (no self mask).
-#include "common.cuh"
+// Design: one block of 256 threads per tile of R x C cells with all K
+// slots (tf_sph_tile picks the tile from K so that it fits shared memory;
+// sph_tile.cuh has the layout and the clamped rows and wrapped columns).
+//   O: each halo cell's occupancy, the length of its valid prefix;
+//   S: the halo's positions below each cell's occupancy go to shared
+//      memory (a float2 per slot), and each centre cell's first empty
+//      slot's position beside them;
+//   L: the targets are listed in (slot, row, column) order: every live
+//      slot and, per centre cell with an empty slot, its first one;
+//   D: the threads take the listed targets, each walking its 3 x 3 cells
+//      below each cell's own occupancy in the TPU kernel's order (row -1,
+//      0, +1; then dx -1, 0, +1; then kp ascending), every term added on
+//      its own as the plain version adds it (an out-of-range candidate
+//      adds exactly +0: no sum is ever -0), so the sum is bitwise the
+//      plain version's; a cell's first empty slot keeps its sum in shared
+//      memory;
+//   W: every other empty slot whose position bits equal those of its
+//      cell's first empty slot (in every grid build_grid_cols makes, all
+//      zeros) gets that sum; one with other bits is walked on its own.
+// So no candidate is loaded from global memory more than once per block,
+// no walk runs past a cell's last particle, and a cell's empty slots cost
+// one walk, not K - occupancy.
+#include "sph_tile.cuh"
 
-__global__ void __launch_bounds__(TF_BLOCK)
-sph_density_kernel(const float* __restrict__ px, const float* __restrict__ py,
-                   const uint8_t* __restrict__ valid,
-                   const float* __restrict__ mass_p, float* __restrict__ out,
-                   int gy, int K, int gx, float h2, float norm) {
-    const int x = blockIdx.x * TF_BLOCK + threadIdx.x;
-    const int k = blockIdx.y;
-    const int y = blockIdx.z;
-    const float mass = mass_p[0];
-    const size_t ti = tf_index(y, k, x, K, gx);
-    const float tx = px[ti];
-    const float ty = py[ti];
+// 8 B a staged slot; a centre cell's first empty slot: a float2 and its
+// float sum
+#define SPH_DENSITY_SLOT_BYTES 8
+#define SPH_DENSITY_CELL_BYTES 12
+
+// The density sum of a target at (tx, ty) in centre cell (lr, lc) over
+// the staged halo sp, each candidate cell walked below its occupancy.
+__device__ __forceinline__ float sph_density_walk(const float2* sp,
+                                                  const int* socc, int K,
+                                                  int HC, int lr, int lc,
+                                                  float tx, float ty,
+                                                  float h2, float mass,
+                                                  float norm) {
     float acc = 0.0f;
-    for (int r = -1; r <= 1; ++r) {
-        const int sy = min(max(y + r, 0), gy - 1);
-        for (int dx = -1; dx <= 1; ++dx) {
-            const int sx = (x + dx + gx) % gx;
-            for (int kp = 0; kp < K; ++kp) {
-                const size_t ci = tf_index(sy, kp, sx, K, gx);
-                if (!valid[ci]) break;
-                const float ddx = px[ci] - tx;
-                const float ddy = py[ci] - ty;
+    for (int r = 0; r < 3; ++r) {
+        for (int dx = 0; dx < 3; ++dx) {
+            const int o = socc[(lr + r) * HC + lc + dx];
+            const float2* q = sp + (lr + r) * K * HC + lc + dx;
+#pragma unroll 2  // two candidates' terms in flight (PERF.md)
+            for (int kp = 0; kp < o; ++kp) {
+                const float2 c = q[kp * HC];
+                const float ddx = c.x - tx;
+                const float ddy = c.y - ty;
                 const float r2 = ddx * ddx + ddy * ddy;
-                if (r2 >= h2) continue;  // poly6 is 0 there
-                const float diff = h2 - r2;
+                float diff = h2 - r2;
+                diff = diff < 0.0f ? 0.0f : diff;  // torch.clamp(min=0)
                 acc = acc + mass * (norm * (diff * diff * diff));
             }
         }
     }
-    out[ti] = acc;
+    return acc;
+}
+
+__global__ void __launch_bounds__(TF_TILE_THREADS, 5)
+sph_density_kernel(const float* __restrict__ px, const float* __restrict__ py,
+                   const uint8_t* __restrict__ valid,
+                   const float* __restrict__ mass_p, float* __restrict__ out,
+                   int gy, int K, int gx, int lgR, int lgC, float h2,
+                   float norm) {
+    extern __shared__ float2 smem2[];
+    const int R = 1 << lgR, C = 1 << lgC;
+    const int HR = R + 2, HC = C + 2;
+    float2* sp = smem2;
+    const TfSphSmem t = tf_sph_smem(sp + HR * K * HC, K, R, C, true);
+    const int y0 = blockIdx.y * R;
+    const int x0 = blockIdx.x * C;
+    const float mass = mass_p[0];
+
+    // O: occupancies
+    tf_sph_occupancy(t, valid, R, C, K, y0, x0, gy, gx);
+
+    // S: the first empty slot of each centre cell, then the halo
+    for (int c = threadIdx.x; c < R * C; c += TF_TILE_THREADS) {
+        const int lr = c >> lgC;
+        const int lc = c & (C - 1);
+        const int o = t.socc[(lr + 1) * HC + lc + 1];
+        if (y0 + lr < gy && o < K) {
+            const size_t gi = tf_index(y0 + lr, o, x0 + lc, K, gx);
+            t.first[c] = make_float2(px[gi], py[gi]);
+        }
+    }
+    float ax[TF_STAGE_BATCH], ay[TF_STAGE_BATCH];
+    tf_sph_stage(
+        t, R, C, K, y0, x0, gy, gx,
+        [&](int u, size_t gi) {
+            ax[u] = px[gi];
+            ay[u] = py[gi];
+        },
+        [&](int u, int lr, int kk, int lc) {
+            sp[(lr * K + kk) * HC + lc] = make_float2(ax[u], ay[u]);
+        });
+
+    // L: live slots and each cell's first empty slot
+    const int kc = min(t.kmax[1] + 1, K);
+    const int n = tf_tile_list(t.list, t.wsum, kc, lgR, lgC,
+                               [&](int lr, int kk, int lc) {
+        return y0 + lr < gy && kk <= t.socc[(lr + 1) * HC + lc + 1];
+    });
+
+    // D: the sums
+    for (int j = threadIdx.x; j < n; j += TF_TILE_THREADS) {
+        int kk, lr, lc;
+        tf_sph_entry(t.list[j], kk, lr, lc);
+        const int o = t.socc[(lr + 1) * HC + lc + 1];
+        const float2 q = kk < o ? sp[((lr + 1) * K + kk) * HC + lc + 1]
+                                : t.first[lr * C + lc];
+        const float acc = sph_density_walk(sp, t.socc, K, HC, lr, lc, q.x,
+                                           q.y, h2, mass, norm);
+        out[tf_index(y0 + lr, kk, x0 + lc, K, gx)] = acc;
+        if (kk == o) t.dead[lr * C + lc] = acc;
+    }
+    __syncthreads();
+
+    // W: the other empty slots, TF_STAGE_BATCH slots' loads in flight
+    const int n_all = (K * R) << lgC;
+    for (int i0 = threadIdx.x; i0 < n_all;
+         i0 += TF_STAGE_BATCH * TF_TILE_THREADS) {
+        int lr[TF_STAGE_BATCH], lc[TF_STAGE_BATCH];
+        size_t gi[TF_STAGE_BATCH];
+        bool ok[TF_STAGE_BATCH];
+#pragma unroll
+        for (int u = 0; u < TF_STAGE_BATCH; ++u) {
+            const int i = i0 + u * TF_TILE_THREADS;
+            lc[u] = i & (C - 1);
+            lr[u] = (i >> lgC) & (R - 1);
+            const int kk = i >> (lgC + lgR);
+            ok[u] = i < n_all && y0 + lr[u] < gy &&
+                    kk > t.socc[(lr[u] + 1) * HC + lc[u] + 1];
+            if (ok[u]) {
+                gi[u] = tf_index(y0 + lr[u], kk, x0 + lc[u], K, gx);
+                ax[u] = px[gi[u]];
+                ay[u] = py[gi[u]];
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < TF_STAGE_BATCH; ++u) {
+            if (!ok[u]) continue;
+            const int c = lr[u] * C + lc[u];
+            const float2 f = t.first[c];
+            out[gi[u]] = __float_as_uint(ax[u]) == __float_as_uint(f.x) &&
+                                 __float_as_uint(ay[u]) == __float_as_uint(f.y)
+                             ? t.dead[c]
+                             : sph_density_walk(sp, t.socc, K, HC, lr[u],
+                                                lc[u], ax[u], ay[u], h2, mass,
+                                                norm);
+        }
+    }
+}
+
+// dynamic shared memory limit set so far
+static int kSphDensitySmem;
+
+static bool sph_density_tile(int K, int& lgR, int& lgC) {
+    return tf_sph_tile(SPH_DENSITY_SLOT_BYTES, SPH_DENSITY_CELL_BYTES,
+                       TF_DENSITY_SLOTS, K, lgR, lgC);
+}
+
+// The tile tf_sph_density runs at capacity K as rows << 8 | columns; 0
+// when none fits shared memory.
+extern "C" int tf_sph_density_tile(int K) {
+    int lgR, lgC;
+    if (!sph_density_tile(K, lgR, lgC)) return 0;
+    return (1 << lgR) << 8 | (1 << lgC);
+}
+
+// The largest K tf_sph_density takes.
+extern "C" int tf_sph_density_max_k(void) {
+    return tf_sph_max_k(SPH_DENSITY_SLOT_BYTES, SPH_DENSITY_CELL_BYTES);
 }
 
 extern "C" int tf_sph_density(const float* px, const float* py,
                               const uint8_t* valid, const float* mass,
                               float* out, int gy, int K, int gx, float h2,
                               float norm, cudaStream_t stream) {
-    if (gx % TF_BLOCK != 0 || gy <= 0 || K <= 0 || gy > 65535 || K > 65535)
+    int lgR = 0, lgC = 0;
+    if (gy <= 0 || gx <= 0 || !sph_density_tile(K, lgR, lgC) ||
+        gx % (1 << lgC) != 0 || (gy + (1 << lgR) - 1) >> lgR > 65535)
         return (int)cudaErrorInvalidValue;
-    dim3 grid(gx / TF_BLOCK, K, gy);
-    sph_density_kernel<<<grid, TF_BLOCK, 0, stream>>>(px, py, valid, mass,
-                                                      out, gy, K, gx, h2,
-                                                      norm);
+    const long long smem =
+        tf_sph_smem_bytes(SPH_DENSITY_SLOT_BYTES, SPH_DENSITY_CELL_BYTES, K,
+                          1 << lgR, 1 << lgC);
+    if (smem > kSphDensitySmem && smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            sph_density_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        kSphDensitySmem = (int)smem;
+    }
+    dim3 grid(gx >> lgC, (gy + (1 << lgR) - 1) >> lgR);
+    sph_density_kernel<<<grid, TF_TILE_THREADS, (size_t)smem, stream>>>(
+        px, py, valid, mass, out, gy, K, gx, lgR, lgC, h2, norm);
     return (int)cudaGetLastError();
 }

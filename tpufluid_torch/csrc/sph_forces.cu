@@ -11,25 +11,40 @@
 // TPU ran one program per grid row over rows y-1, y, y+1 (clamped block
 // index maps) with lane rolls by dx, all slots of a row as one vector.
 //
-// Bound: memory traffic through L1/L2. Each live target reads up to six
-// fields (px, py, valid, then vx, vy, dens within range) of up to 9 * K
-// candidate slots and does ~40 flops, a sqrt and two divisions per
-// in-range candidate.
+// Bound on the H100: the pair loop's instructions (36 f32 operations, a
+// sqrt and a division per pair in range, no FMA), then the four output
+// fields, written whole (at K=32 137 MB of the 165 MB the kernel must
+// move). One thread per output slot, the design this replaces, spent most
+// of its threads on empty slots, reloaded six candidate fields from L1/L2
+// for every pair, recomputed each candidate's pressure and 1/rho (an IEEE
+// division) for every pair, and drew four tie-break directions (8
+// xorshifts, 4 sqrts, 8 divisions) per target up front.
 //
-// Design: one thread per output slot (y, k, x); a block covers 128
-// consecutive columns of one (row, slot), so candidate loads of a warp are
-// coalesced. Candidates run in the TPU kernel's order (row y-1, y, y+1
-// clamped; dx -1, 0, +1 wrapping modulo Gxp; slot kp ascending), each
-// added to the running sums on its own. A cell's particles fill a prefix
-// of its K slots, so a candidate column ends at its first empty slot;
-// a candidate beyond h adds exactly +0.0 in the TPU kernel and is skipped.
-// An empty target adds nothing in the TPU kernel (its validity masks every
-// pair), so it skips the candidates and writes the epilogue's zeros.
-// Coincident pairs take one of four tie-break directions computed once
-// per target: pair-order salt x draw ordinal clamped at 1 (ops/pairs.py).
+// Design: one block of 256 threads per tile of R x C cells with all K
+// slots (tf_sph_tile picks the tile from K so that it fits shared memory;
+// sph_tile.cuh has the layout and the clamped rows and wrapped columns).
+//   O: each halo cell's occupancy, the length of its valid prefix;
+//   S: the halo's slots below each cell's occupancy go to shared memory:
+//      the position (a float2) and (velocity, pressure k (rho - rho0),
+//      1/rho) as a float4, the last two computed once per candidate with
+//      the f32 operations the pair loop did, so their bits are unchanged;
+//   L: the tile's live slots are listed in (slot, row, column) order;
+//   F: the threads take the listed targets, each walking its 3 x 3 cells
+//      below each cell's own occupancy in the TPU kernel's order (row -1,
+//      0, +1; then dx -1, 0, +1; then kp ascending), every term added on
+//      its own as the plain version adds it (a candidate beyond h adds
+//      exactly +0: no sum is ever -0), so the sums are bitwise the plain
+//      version's. A coincident pair draws its tie-break direction when it
+//      is met: pair-order salt x draw ordinal clamped at 1
+//      (ops/pairs.py), the same draw as the table of four;
+//   W: every empty slot gets the epilogue of zero sums (gxs * mu of a
+//      zero sum, not a literal 0).
 // The variants are template parameters, so the base kernel carries none
 // of their code or registers.
-#include "common.cuh"
+#include "sph_tile.cuh"
+
+// 24 B a staged slot: a float2 position, a float4 (vx, vy, p, 1/rho)
+#define SPH_FORCES_SLOT_BYTES 24
 
 // The unit direction of the first two xorshift32 draws after ``seed``.
 __device__ __forceinline__ void unit_draw(uint32_t seed, float* ux,
@@ -44,8 +59,35 @@ __device__ __forceinline__ void unit_draw(uint32_t seed, float* ux,
     *uy = ry / rn;
 }
 
+// The outputs of a target from its sums: the surface-tension composition
+// (pairs.surface_tension, compute.wgsl:303-315) and the viscosity times
+// mu. sc = [pressure_constant, rest_density, mu, mass, st_threshold,
+// st_coefficient].
+template <bool ST>
+__device__ __forceinline__ void sph_forces_out(
+        float fx, float fy, float gxs, float gys, float cgx, float cgy,
+        float clap, const float* __restrict__ sc, float* __restrict__ fx_o,
+        float* __restrict__ fy_o, float* __restrict__ gx_o,
+        float* __restrict__ gy_o, size_t ti) {
+    if (ST) {
+        const float n_len = sqrtf(cgx * cgx + cgy * cgy);
+        const float safe_len = n_len == 0.0f ? 1.0f : n_len;
+        const float k_st = (-clap) / (n_len + 1e-6f);
+        if (n_len > sc[4]) {
+            const float coef = sc[5];
+            fx = fx + -coef * k_st * (cgx / safe_len);
+            fy = fy + -coef * k_st * (cgy / safe_len);
+        }
+    }
+    const float mu = sc[2];
+    fx_o[ti] = fx;
+    fy_o[ti] = fy;
+    gx_o[ti] = gxs * mu;
+    gy_o[ti] = gys * mu;
+}
+
 template <bool ST, bool ADAPTIVE>
-__global__ void __launch_bounds__(TF_BLOCK)
+__global__ void __launch_bounds__(TF_TILE_THREADS, 4)
 sph_forces_kernel(const float* __restrict__ px, const float* __restrict__ py,
                   const float* __restrict__ vx, const float* __restrict__ vy,
                   const uint8_t* __restrict__ valid,
@@ -54,63 +96,99 @@ sph_forces_kernel(const float* __restrict__ px, const float* __restrict__ py,
                   const long long* __restrict__ frame_p,
                   float* __restrict__ fx_o, float* __restrict__ fy_o,
                   float* __restrict__ gx_o, float* __restrict__ gy_o,
-                  int gy, int K, int gx, float h, float h2, float sqr_radius,
-                  float spiky_norm, float visc_norm, float c_r3, float c_r2,
-                  float c_half_h, float st_grad_norm, float st_lap_norm,
-                  float c_3h2) {
-    const int x = blockIdx.x * TF_BLOCK + threadIdx.x;
-    const int k = blockIdx.y;
-    const int y = blockIdx.z;
-    // sc = [pressure_constant, rest_density, mu, mass, st_threshold,
-    //       st_coefficient]
+                  int gy, int K, int gx, int lgR, int lgC, float h, float h2,
+                  float sqr_radius, float spiky_norm, float visc_norm,
+                  float c_r3, float c_r2, float c_half_h, float st_grad_norm,
+                  float st_lap_norm, float c_3h2) {
+    extern __shared__ float4 smem4[];
+    const int R = 1 << lgR, C = 1 << lgC;
+    const int HR = R + 2, HC = C + 2;
+    const int n_h = HR * K * HC;
+    float4* sq = smem4;
+    float2* sp = reinterpret_cast<float2*>(sq + n_h);
+    const TfSphSmem t = tf_sph_smem(sp + n_h, K, R, C, false);
+    const int y0 = blockIdx.y * R;
+    const int x0 = blockIdx.x * C;
     const float k_pressure = sc[0];
     const float rest_density = sc[1];
-    const float mu = sc[2];
-    const size_t ti = tf_index(y, k, x, K, gx);
-    const float px0 = px[ti];
-    const float py0 = py[ti];
+
+    // O: occupancies
+    tf_sph_occupancy(t, valid, R, C, K, y0, x0, gy, gx);
+
+    // S: positions, velocities, pressure and 1/rho of the halo
+    float ax[TF_STAGE_BATCH], ay[TF_STAGE_BATCH];
+    float ux[TF_STAGE_BATCH], uy[TF_STAGE_BATCH], ud[TF_STAGE_BATCH];
+    tf_sph_stage(
+        t, R, C, K, y0, x0, gy, gx,
+        [&](int u, size_t gi) {
+            ax[u] = px[gi];
+            ay[u] = py[gi];
+            ux[u] = vx[gi];
+            uy[u] = vy[gi];
+            ud[u] = dens[gi];
+        },
+        [&](int u, int lr, int kk, int lc) {
+            const int s = (lr * K + kk) * HC + lc;
+            const float ndk = ud[u];
+            sp[s] = make_float2(ax[u], ay[u]);
+            sq[s] = make_float4(ux[u], uy[u],
+                                k_pressure * (ndk - rest_density),
+                                1.0f / (ndk == 0.0f ? 1.0f : ndk));
+        });
+
+    // L: the live slots
+    const int n = tf_tile_list(t.list, t.wsum, t.kmax[1], lgR, lgC,
+                               [&](int lr, int kk, int lc) {
+        return y0 + lr < gy && kk < t.socc[(lr + 1) * HC + lc + 1];
+    });
+
+    // F: the sums of each live target
     const uint32_t frame = (uint32_t)frame_p[0];
+    const float mass = sc[3];
+    for (int j = threadIdx.x; j < n; j += TF_TILE_THREADS) {
+        int k, lr, lc;
+        tf_sph_entry(t.list[j], k, lr, lc);
+        const int s0 = ((lr + 1) * K + k) * HC + lc + 1;
+        const float2 p0 = sp[s0];
+        const float4 u0 = sq[s0];
+        const float px0 = p0.x, py0 = p0.y;
+        const float vx0 = u0.x, vy0 = u0.y;
+        const float p_self = u0.z;  // k (rho - rho0) of the target's slot
+        const size_t ti = tf_index(y0 + lr, k, x0 + lc, K, gx);
 
-    float fx = 0.0f, fy = 0.0f, gxs = 0.0f, gys = 0.0f;
-    float cgx = 0.0f, cgy = 0.0f, clap = 0.0f;
-    if (valid[ti]) {
-        const float vx0 = vx[ti];
-        const float vy0 = vy[ti];
-        const float d0 = dens[ti];
-        const float p_self = k_pressure * (d0 - rest_density);
-
-        // tie-break directions t<pair-order salt * 2 + draw ordinal>
-        uint32_t seed = (__float_as_uint(px0) * 0x9E3779B1u) ^
-                        (__float_as_uint(py0) * 0x85EBCA6Bu);
-        seed = seed + frame * 69u;
-        float t0x, t0y, t1x, t1y, t2x, t2y, t3x, t3y;
-        unit_draw(seed, &t0x, &t0y);
-        unit_draw(seed + 2654435761u, &t1x, &t1y);
-        unit_draw(seed + 0x27220A95u, &t2x, &t2y);
-        unit_draw(seed + 2654435761u + 0x27220A95u, &t3x, &t3y);
+        // the base of the tie-break seeds: the position's bits and frame
+        const uint32_t seed = ((__float_as_uint(px0) * 0x9E3779B1u) ^
+                               (__float_as_uint(py0) * 0x85EBCA6Bu)) +
+                              frame * 69u;
         float st_dx = 0.0f, st_dy = 0.0f;
         if (ST) {  // one draw per target, compute.wgsl:406
             const uint32_t st_i = (uint32_t)(int)fmaxf(px0, 0.0f);
             unit_draw(st_i * 324u + frame * 5632u, &st_dx, &st_dy);
         }
-        const int stride = ADAPTIVE ? (d0 >= 200.0f ? 13 : d0 >= 150.0f ? 5 : 1)
-                                    : 1;
-        const float mass = sc[3];
+        int stride = 1;
+        if (ADAPTIVE) {
+            const float d0 = dens[ti];
+            stride = d0 >= 200.0f ? 13 : d0 >= 150.0f ? 5 : 1;
+        }
 
+        float fx = 0.0f, fy = 0.0f, gxs = 0.0f, gys = 0.0f;
+        float cgx = 0.0f, cgy = 0.0f, clap = 0.0f;
         uint32_t coinc = 0;  // coincident draws so far
-        for (int r = -1; r <= 1; ++r) {
-            const int sy = min(max(y + r, 0), gy - 1);
-            for (int dx = -1; dx <= 1; ++dx) {
-                const int sx = (x + dx + gx) % gx;
-                const bool center = r == 0 && dx == 0;
-                const bool before = r < 0 || (r == 0 && dx < 0);
-                for (int kp = 0; kp < K; ++kp) {
-                    const size_t ci = tf_index(sy, kp, sx, K, gx);
-                    if (!valid[ci]) break;
-                    const float ddx = px[ci] - px0;
-                    const float ddy = py[ci] - py0;
+        for (int r = 0; r < 3; ++r) {
+            for (int dx = 0; dx < 3; ++dx) {
+                const bool center = r == 1 && dx == 1;
+                const bool before = r == 0 || (r == 1 && dx == 0);
+                const int c = (lr + r) * HC + lc + dx;
+                const int o = t.socc[c];
+                const int base = (lr + r) * K * HC + lc + dx;
+                for (int kp = 0; kp < o; ++kp) {
+                    const int ci = base + kp * HC;
+                    const float2 q = sp[ci];
+                    const float ddx = q.x - px0;
+                    const float ddy = q.y - py0;
                     const float r2 = ddx * ddx + ddy * ddy;
                     if (r2 > sqr_radius) continue;
+                    const float4 u = sq[ci];
                     const float dst = sqrtf(r2);
                     const bool in_range = !(center && kp == k);
                     const float safe = dst == 0.0f ? 1.0f : dst;
@@ -119,19 +197,15 @@ sph_forces_kernel(const float* __restrict__ px, const float* __restrict__ py,
                     float diry = ddy * inv_dst;
                     if (in_range && dst == 0.0f) {
                         const bool salted = center ? kp < k : before;
-                        const bool prior = coinc >= 1u;
-                        dirx = salted ? (prior ? t3x : t2x)
-                                      : (prior ? t1x : t0x);
-                        diry = salted ? (prior ? t3y : t2y)
-                                      : (prior ? t1y : t0y);
+                        unit_draw(seed + (coinc >= 1u ? 2654435761u : 0u) +
+                                      (salted ? 0x27220A95u : 0u),
+                                  &dirx, &diry);
                         ++coinc;
                     }
-                    const float ndk = dens[ci];
-                    const float p_nb = k_pressure * (ndk - rest_density);
-                    const float shared_p = (p_self + p_nb) * 0.5f;
+                    const float inv_rho = u.w;
+                    const float shared_p = (p_self + u.z) * 0.5f;
                     const float kern_p =
                         dst <= h ? -(h - dst) * spiky_norm : 0.0f;
-                    const float inv_rho = 1.0f / (ndk == 0.0f ? 1.0f : ndk);
                     const bool in_range_p =
                         in_range && (!ADAPTIVE || kp % stride == 0);
                     const float wp =
@@ -145,8 +219,8 @@ sph_forces_kernel(const float* __restrict__ px, const float* __restrict__ py,
                     if (dst == 0.0f) kv = visc_norm;
                     if (!(dst <= h)) kv = 0.0f;
                     const float wv = in_range ? kv * inv_rho : 0.0f;
-                    gxs = gxs + (vx[ci] - vx0) * wv;
-                    gys = gys + (vy[ci] - vy0) * wv;
+                    gxs = gxs + (u.x - vx0) * wv;
+                    gys = gys + (u.y - vy0) * wv;
 
                     if (ST) {  // self pair included
                         const bool co_st = dst == 0.0f;
@@ -170,32 +244,52 @@ sph_forces_kernel(const float* __restrict__ px, const float* __restrict__ py,
                 }
             }
         }
+        sph_forces_out<ST>(fx, fy, gxs, gys, cgx, cgy, clap, sc, fx_o, fy_o,
+                           gx_o, gy_o, ti);
     }
-    if (ST) {  // pairs.surface_tension composition (compute.wgsl:303-315)
-        const float n_len = sqrtf(cgx * cgx + cgy * cgy);
-        const float safe_len = n_len == 0.0f ? 1.0f : n_len;
-        const float k_st = (-clap) / (n_len + 1e-6f);
-        if (n_len > sc[4]) {
-            const float coef = sc[5];
-            fx = fx + -coef * k_st * (cgx / safe_len);
-            fy = fy + -coef * k_st * (cgy / safe_len);
-        }
+
+    // W: the empty slots
+    for (int i = threadIdx.x; i < (K * R) << lgC; i += TF_TILE_THREADS) {
+        const int lc = i & (C - 1);
+        const int lr = (i >> lgC) & (R - 1);
+        const int kk = i >> (lgC + lgR);
+        if (y0 + lr >= gy || kk < t.socc[(lr + 1) * HC + lc + 1]) continue;
+        sph_forces_out<ST>(0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, sc,
+                           fx_o, fy_o, gx_o, gy_o,
+                           tf_index(y0 + lr, kk, x0 + lc, K, gx));
     }
-    fx_o[ti] = fx;
-    fy_o[ti] = fy;
-    gx_o[ti] = gxs * mu;
-    gy_o[ti] = gys * mu;
 }
 
-template <bool ST, bool ADAPTIVE>
-static void launch(dim3 grid, cudaStream_t stream, const float* px,
-                   const float* py, const float* vx, const float* vy,
-                   const uint8_t* valid, const float* dens, const float* sc,
-                   const long long* frame, float* fx, float* fy, float* gxo,
-                   float* gyo, int gy, int K, int gx, const float* c) {
-    sph_forces_kernel<ST, ADAPTIVE><<<grid, TF_BLOCK, 0, stream>>>(
-        px, py, vx, vy, valid, dens, sc, frame, fx, fy, gxo, gyo, gy, K, gx,
-        c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], c[8], c[9], c[10]);
+typedef void (*SphForcesKernel)(const float*, const float*, const float*,
+                                const float*, const uint8_t*, const float*,
+                                const float*, const long long*, float*,
+                                float*, float*, float*, int, int, int, int,
+                                int, float, float, float, float, float, float,
+                                float, float, float, float, float);
+
+// [surface_tension * 2 + adaptive]
+static const SphForcesKernel kSphForces[4] = {
+    sph_forces_kernel<false, false>, sph_forces_kernel<false, true>,
+    sph_forces_kernel<true, false>, sph_forces_kernel<true, true>};
+// dynamic shared memory limit set so far, per variant
+static int kSphForcesSmem[4];
+
+static bool sph_forces_tile(int K, int& lgR, int& lgC) {
+    return tf_sph_tile(SPH_FORCES_SLOT_BYTES, 0, TF_FORCES_SLOTS, K, lgR,
+                       lgC);
+}
+
+// The tile tf_sph_forces runs at capacity K as rows << 8 | columns; 0
+// when none fits shared memory.
+extern "C" int tf_sph_forces_tile(int K) {
+    int lgR, lgC;
+    if (!sph_forces_tile(K, lgR, lgC)) return 0;
+    return (1 << lgR) << 8 | (1 << lgC);
+}
+
+// The largest K tf_sph_forces takes.
+extern "C" int tf_sph_forces_max_k(void) {
+    return tf_sph_max_k(SPH_FORCES_SLOT_BYTES, 0);
 }
 
 extern "C" int tf_sph_forces(const float* px, const float* py,
@@ -210,17 +304,24 @@ extern "C" int tf_sph_forces(const float* px, const float* py,
                              float c_half_h, float st_grad_norm,
                              float st_lap_norm, float c_3h2,
                              cudaStream_t stream) {
-    if (gx % TF_BLOCK != 0 || gy <= 0 || K <= 0 || gy > 65535 || K > 65535)
+    int lgR = 0, lgC = 0;
+    if (gy <= 0 || gx <= 0 || !sph_forces_tile(K, lgR, lgC) ||
+        gx % (1 << lgC) != 0 || (gy + (1 << lgR) - 1) >> lgR > 65535)
         return (int)cudaErrorInvalidValue;
-    dim3 grid(gx / TF_BLOCK, K, gy);
-    const float c[11] = {h,        h2,   sqr_radius,   spiky_norm,
-                         visc_norm, c_r3, c_r2,         c_half_h,
-                         st_grad_norm, st_lap_norm, c_3h2};
-    auto fn = surface_tension ? (adaptive ? launch<true, true>
-                                          : launch<true, false>)
-                              : (adaptive ? launch<false, true>
-                                          : launch<false, false>);
-    fn(grid, stream, px, py, vx, vy, valid, dens, sc, frame, fx, fy, gxo, gyo,
-       gy, K, gx, c);
+    const int v = (surface_tension ? 2 : 0) + (adaptive ? 1 : 0);
+    const long long smem = tf_sph_smem_bytes(SPH_FORCES_SLOT_BYTES, 0, K,
+                                             1 << lgR, 1 << lgC);
+    if (smem > kSphForcesSmem[v] && smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kSphForces[v], cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        kSphForcesSmem[v] = (int)smem;
+    }
+    dim3 grid(gx >> lgC, (gy + (1 << lgR) - 1) >> lgR);
+    kSphForces[v]<<<grid, TF_TILE_THREADS, (size_t)smem, stream>>>(
+        px, py, vx, vy, valid, dens, sc, frame, fx, fy, gxo, gyo, gy, K, gx,
+        lgR, lgC, h, h2, sqr_radius, spiky_norm, visc_norm, c_r3, c_r2,
+        c_half_h, st_grad_norm, st_lap_norm, c_3h2);
     return (int)cudaGetLastError();
 }

@@ -41,14 +41,12 @@ class DenseGrid(NamedTuple):
 
 
 def ranks(sorted_cells: torch.Tensor) -> torch.Tensor:
-    """Rank of each sorted particle within its cell run (a running max
-    over run-start positions)."""
-    n = sorted_cells.shape[0]
-    iota = torch.arange(n, dtype=torch.int64, device=sorted_cells.device)
-    first = torch.ones(n, dtype=torch.bool, device=sorted_cells.device)
-    first[1:] = sorted_cells[1:] != sorted_cells[:-1]
-    run_start = torch.cummax(torch.where(first, iota, 0), dim=0).values
-    return iota - run_start
+    """Rank of each particle within its cell run, from ascending
+    ``sorted_cells``: its index less the index of the run's first entry,
+    found by a binary search of each key (one launch, no scan)."""
+    iota = torch.arange(sorted_cells.shape[0], dtype=torch.int64,
+                        device=sorted_cells.device)
+    return iota - torch.searchsorted(sorted_cells, sorted_cells, side="left")
 
 
 def build_grid_cols(pxs, pys, vxs, vys, sorted_cells: torch.Tensor,

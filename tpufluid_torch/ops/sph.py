@@ -6,7 +6,9 @@ Each wrapper dispatches on where its tensors lie. On the CPU it runs the
 plain PyTorch version beside it (``density_plain``, ``forces_plain``). On a
 CUDA device it launches the hand-written kernel from
 ``tpufluid_torch/csrc`` (``sph_density.cu``, ``sph_forces.cu``) and counts
-the launch in ``LAUNCHES``, or raises; it never falls back.
+the launch in ``LAUNCHES``, or raises; it never falls back. The kernels
+stage a tile of cells with all K slots in shared memory, so each takes K
+up to a limit (``max_capacity``); above it the wrapper raises.
 
 Both follow the semantics of the TPU kernels, not their layout: the three
 rows y-1, y, y+1 of a target row are clamped to [0, Gy-1] (rows 0 and Gy-1
@@ -17,7 +19,9 @@ added to the running sum on its own. Every f32 operation rounds on its own
 the TPU kernels' (``1/dst`` and ``1/rho`` multiplied in), which is why
 these are not ``ops.dense``'s passes at the ulp level. Every output slot
 gets a value: density has no self mask, so an empty slot sums the
-candidates around the world origin (its zero position).
+candidates around the world origin (its zero position). The kernels take
+any grid whose valid slots form a prefix of each cell, as
+``build_grid_cols`` makes them.
 """
 
 from __future__ import annotations
@@ -55,6 +59,48 @@ def _check_valid(valid: torch.Tensor, shape):
             or not valid.is_contiguous()):
         raise ValueError(f"valid must be contiguous bool{list(shape)}, got "
                          f"{valid.dtype}{list(valid.shape)}")
+
+
+def max_capacity(name: str) -> int:
+    """The largest cell capacity K the kernel ``name`` ("sph_density" or
+    "sph_forces") takes: the largest whose 1 x 1 tile fits a block's
+    shared memory (builds the kernels if needed)."""
+    return getattr(_build.load(), f"tf_{name}_max_k")()
+
+
+def _above_limit(name: str, k: int) -> ValueError:
+    return ValueError(f"{name}: cell_capacity {k} is above the largest the "
+                      f"kernel stages in shared memory, {max_capacity(name)}")
+
+
+def _tile(name: str, k: int):
+    """(rows, columns) of the tile the kernel ``name`` runs at capacity
+    ``k``; raises, naming the largest K it takes, if none fits."""
+    packed = getattr(_build.load(), f"tf_{name}_tile")(k)
+    if packed == 0:
+        raise _above_limit(name, k)
+    return packed >> 8, packed & 255
+
+
+def _launched_at(name: str, err: int, k: int) -> None:
+    """Count a launch of ``name`` at capacity ``k``, or raise: naming the
+    largest K the kernel takes where ``k`` is above it (the launcher finds
+    no tile then), else with the CUDA error."""
+    if err != 0 and k > max_capacity(name):
+        raise _above_limit(name, k)
+    _launched(name, err, LAUNCHES)
+
+
+def density_tile(k: int):
+    """(rows, columns) of ``csrc/sph_density.cu``'s tile at capacity
+    ``k``."""
+    return _tile("sph_density", k)
+
+
+def forces_tile(k: int):
+    """(rows, columns) of ``csrc/sph_forces.cu``'s tile at capacity
+    ``k``."""
+    return _tile("sph_forces", k)
 
 
 # --------------------------------------------------------------- density
@@ -101,7 +147,7 @@ def density(grid, mass, h: float) -> torch.Tensor:
     err = _build.load().tf_sph_density(
         _ptr(grid.px), _ptr(grid.py), _ptr(grid.valid), _ptr(m), _ptr(out),
         gy, k, gx, h2, norm, _stream(dev))
-    _launched("sph_density", err, LAUNCHES)
+    _launched_at("sph_density", err, k)
     return out
 
 
@@ -312,5 +358,5 @@ def forces(grid, dens_g, params, h: float, sqr_radius: float,
         c["h"], c["h2"], c["sqr_radius"], c["spiky_norm"], c["visc_norm"],
         c["c_r3"], c["c_r2"], c["c_half_h"], c["st_grad_norm"],
         c["st_lap_norm"], c["c_3h2"], _stream(dev))
-    _launched("sph_forces", err, LAUNCHES)
+    _launched_at("sph_forces", err, k)
     return tuple(outs)
