@@ -46,15 +46,22 @@ Builds the CUDA kernels from ``tpufluid_torch/csrc`` and runs, in order:
     against their plain versions, bitwise, timed; 10 batched steps
     against 8 single-world runs, bitwise; ms/step of
     ``make_grid_multi_step(n_worlds=8)`` over 200 steps;
-15. the fused physics kernel against the split kernel pair, bitwise, at
-    scene_1m K=8 and K=32, on phase 4's K=192 grid, with has_ff, with the
-    three variant flags and with wid on config 4's stack; timed against
-    the pair; resident ms/step split vs fused at scene_1m;
+15. the fused physics kernel against the split kernel pair and its plain
+    version, bitwise, at scene_1m K=8 and K=32, on phase 4's K=192 grid,
+    with has_ff, with the three variant flags, with wid on config 4's
+    stack, and on phase 18's grids: 41 rows (ragged for every tile
+    height) with a full row at K=8 (base and the three flags) and at the
+    largest K its tile takes, and sparse at K=8 (the three flags), each
+    with its tile logged; timed against the pair; resident ms/step split
+    vs fused at scene_1m;
 16. the CLI's ``run --neighbor-mode resident`` with ``--x-boundary wrap
     --surface-tension --adaptive-subsampling`` on the default scene;
 17. the round-1 rebin with a valid mask (``ops.rebin.rebin_valid``, no
-    caller on any path) against its plain version at scene_1m's grid with
-    valid_f from the seeded state, bitwise, timed;
+    caller on any path) against its plain version, bitwise: at scene_1m's
+    grid with valid_f from the seeded state (timed), the same mask with a
+    tenth of its valid slots set to 0 over their stale data, phase 4's
+    K=192 grid, and a hand-made grid with valid slots in the clamped
+    first and last rows and columns;
 18. the tile kernels of density and forces_integrate against their plain
     versions, bitwise, at every tile shape the kernels pick: scene_1m
     K=8 (its 524 rows ragged for the density tile), the clump at K=16,
@@ -1249,8 +1256,8 @@ def compare_physics(grids, settings, params, label, ff_cells=None,
                 f"{label} physics vs plain")
         torch.use_deterministic_algorithms(False)
     rows, cols = fused.physics_tile(px.shape[1])
-    log(f"{label} physics {tuple(px.shape)} (tile {rows} x {cols}, "
-        f"{fused.physics_smem_bytes(px.shape[1], rows, cols)} B shared) "
+    log(f"{label} physics {tuple(px.shape)} (tile {rows} x {cols}; max "
+        f"occupancy {int(occ.max())}) "
         f"{'has_ff ' if ff_cells is not None else ''}"
         f"{'wid ' if wid is not None else ''}{flags or ''}: bitwise equal "
         f"to the split pair{' and to plain' if plain else ''}")
@@ -1338,34 +1345,96 @@ def cli_variant_run():
     return dict(exit=out.returncode, wall_s=wall)
 
 
-def compare_rebin_valid(settings, params, label):
-    """ops.rebin.rebin_valid against its plain version, bitwise, on the
-    seeded state's grid with valid_f = 1 at the live slots (the empty
-    slots keep their SENTINEL data as stale data), then timed."""
-    from tpufluid_torch.ops import rebin, resident
+def valid_edge_grid(device):
+    """A hand-made [22, 4, 128] grid (a 25.2 x 4 world at h 0.2, so grid_w
+    is the grid's whole width) whose valid slots lie in rows 0, 1, 20, 21
+    and columns 0, 1, 126, 127, positioned near the matching world edges,
+    so that their predicted cells are clamped into rows 1 and 20 and
+    columns 1 and 126 (the first and last rows and columns take no
+    arrival and only lose their slots), a tenth of them far movers; the
+    other slots hold random stale data with valid_f 0, also between valid
+    slots. Also the card tests' edge grid (tests/test_torch_cuda.py).
+    Returns (settings, (px, py, vx, vy, valid_f))."""
+    import numpy as np
+    import tpufluid_torch as tt
 
-    gs = resident.from_particles(seeded_state(settings, params.device),
-                                 settings)
-    valid = (gs.pos_x < 5e8).float()
-    args = (gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, valid, params.delta,
-            settings)
+    s = tt.SimSettings(particle_count=64, size=(25.2, 4.0), cell_capacity=4)
+    gy, k, gx = 22, 4, 128
+    if (s.grid_w, s.grid_h) != (gx, gy):
+        raise AssertionError(f"edge grid: grid {s.grid_w} x {s.grid_h}")
+    rng = np.random.default_rng(SEED + 29)
+    edge_r = np.zeros(gy, bool)
+    edge_r[[0, 1, gy - 2, gy - 1]] = True
+    edge_c = np.zeros(gx, bool)
+    edge_c[[0, 1, gx - 2, gx - 1]] = True
+    cells = edge_r[:, None] | edge_c[None, :]
+    valid = (rng.random((gy, k, gx)) < 0.6) & cells[:, None, :]
+    y = np.arange(gy)[:, None, None]
+    x = np.arange(gx)[None, None, :]
+    px = ((np.clip(x, 1, gx - 2) - 1 + rng.uniform(0.1, 0.9, valid.shape))
+          * 0.2 - 12.6)
+    py = ((np.clip(y, 1, gy - 2) - 1 + rng.uniform(0.1, 0.9, valid.shape))
+          * 0.2 - 2.0)
+    vx = rng.uniform(-15.0, 15.0, valid.shape)
+    vy = rng.uniform(-15.0, 15.0, valid.shape)
+    vx[rng.random(valid.shape) < 0.1] *= 30.0
+    f = [torch.from_numpy(np.where(valid, a, rng.uniform(-10, 10, a.shape))
+                          .astype(np.float32)).to(device)
+         for a in (px, py, vx, vy)]
+    return s, (*f, torch.from_numpy(valid.astype(np.float32)).to(device))
+
+
+def with_holes(grids, frac=0.1):
+    """The grids with a seeded ``frac`` of the valid slots set to
+    valid_f 0, their data left in place as stale data."""
+    valid = grids[4].clone()
+    g = torch.Generator(device="cpu").manual_seed(SEED + 7)
+    holes = (torch.rand(valid.shape, generator=g) < frac).to(
+        valid.device) & (valid > 0)
+    valid[holes] = 0.0
+    if int(holes.sum()) == 0:
+        raise AssertionError("no holes in the valid mask")
+    return (*grids[:4], valid)
+
+
+def compare_rebin_valid(grids, settings, params, label, timed=False,
+                        far=True):
+    """ops.rebin.rebin_valid against its plain version, bitwise, on grids
+    (px, py, vx, vy, valid_f); checks that every valid slot is moved or
+    counted lost, and with ``far`` that some are lost (the grid has far
+    movers); with ``timed``, times it against its plain version.
+    The bound counts what the function reads and writes: valid_f and the
+    six outputs whole, the four input fields at the valid slots."""
+    from tpufluid_torch.ops import rebin
+
+    px, py, vx, vy, valid = grids
+    args = (px, py, vx, vy, valid, params.delta, settings)
     got = rebin.rebin_valid(*args)
     want = rebin.rebin_valid_plain(*args)
     bitwise(got, want, f"{label} rebin_valid")
     n_valid = float(valid.sum())
     lost = float(want[5][:, 0].sum()) * settings.cell_capacity
-    if not (lost > 0 and float(want[4].sum()) + lost == n_valid):
+    if not ((lost > 0 or not far) and float(want[4].sum()) > 0
+            and float(want[4].sum()) + lost == n_valid):
         raise AssertionError(f"{label} rebin_valid: {n_valid} valid, "
                              f"{float(want[4].sum())} moved, {lost} lost")
-    b_ms, b_by = bound(11 * grid_bytes(gs.pos_x), OPS["rebin_valid"] * n_valid)
+    k = px.shape[1]
+    msg = (f"{label} rebin_valid {tuple(px.shape)} (tile "
+           f"{rebin.rebin_valid_tile(k)}): bitwise equal to plain "
+           f"({n_valid:.0f} valid slots, {lost:.0f} lost)")
+    if not timed:
+        log(msg)
+        return None
+    b_ms, b_by = bound(7 * grid_bytes(px) + 4 * 4 * n_valid,
+                       OPS["rebin_valid"] * n_valid)
     ms, plain_ms, raw = timed_pair(lambda: rebin.rebin_valid(*args),
                                    lambda: rebin.rebin_valid_plain(*args))
     res = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-               bound_by=b_by, library_ms=None, grid=list(gs.pos_x.shape))
-    log(f"{label} rebin_valid {tuple(gs.pos_x.shape)}: bitwise equal to "
-        f"plain ({n_valid:.0f} valid slots, {lost:.0f} lost); kernel "
-        f"{ms:.4f} ms ({raw[0]:.4f}, {raw[1]:.4f}), plain {plain_ms:.3f} ms "
-        f"({raw[2]:.3f}, {raw[3]:.3f}), bound {b_ms:.4f} ms ({b_by})")
+               bound_by=b_by, library_ms=None, grid=list(px.shape),
+               tile=list(rebin.rebin_valid_tile(k)))
+    log(f"{msg}; kernel {ms:.4f} ms ({raw[0]:.4f}, {raw[1]:.4f}), plain "
+        f"{plain_ms:.3f} ms ({raw[2]:.3f}, {raw[3]:.3f}), bound {b_ms:.4f} "
+        f"ms ({b_by})")
     return res
 
 
@@ -2005,7 +2074,7 @@ def main() -> int:
     compare_physics((gs192.pos_x, gs192.pos_y, gs192.vel_x, gs192.vel_y,
                      gs192.occ_row, gs192.tick + 1), s192,
                     tt.TickParams.default(dev, gravity=(0.0, -9.8)),
-                    "default scene after 512 steps", plain=False)
+                    "default scene after 512 steps")
     field = forcefield.obstacle_force_field(
         forcefield.Objects.from_list(OBSTACLES_1M, dev), s8)
     compare_physics(grids8, s8, scene.params, "scene_1m K=8",
@@ -2015,6 +2084,21 @@ def main() -> int:
     compare_physics((*rebinned(gcl, s16, p_st), gcl.tick + 1), s16, p_st,
                     "scene_1m clump K=16", **vkw)
     compare_physics(c4_grids, bs, bp, "config 4", wid=c4_wid)
+    # phase 18's grids: 41 rows (ragged for every tile height) with a row
+    # at full occupancy, at K=8 and at the largest K the physics tile
+    # takes (a 1 x 1 tile), and sparse at K=8 (halo rows of one slot)
+    p_g = tt.TickParams.default(dev, gravity=(0.0, -9.8), **ST_PARAMS)
+    # a multiple of 8, as the resident grid rounds K
+    k_max = fused.physics_max_capacity() // 8 * 8
+    for label, k, n_random, fill, kw in (
+            ("full row", 8, 1500, True, {}),
+            ("full row", 8, 1500, True, vkw),
+            ("full row", k_max, 1500, True, {}),
+            ("sparse", 8, 60, False, vkw)):
+        sk, gk = small_state(dev, k, n_random, fill)
+        compare_physics((gk.pos_x, gk.pos_y, gk.vel_x, gk.vel_y, gk.occ_row,
+                         gk.tick + 1), sk, p_g, f"{label} K={k}", **kw)
+    del gk
     physics_res = time_physics(grids8, s8, scene.params)
     ms_split1, l_split, end_split = resident_run(s8, scene.params, False,
                                                  200, dev)
@@ -2043,10 +2127,25 @@ def main() -> int:
     # 16. the CLI with the resident engine's variant flags
     cli_variants = cli_variant_run()
 
-    # 17. kernel 8: the round-1 rebin with a valid mask (no caller)
-    torch.use_deterministic_algorithms(True)
-    rebin_valid = compare_rebin_valid(s8, scene.params, "scene_1m K=8")
-    torch.use_deterministic_algorithms(False)
+    # 17. kernel 8: the round-1 rebin with a valid mask (no caller), on
+    # scene_1m's seeded grid (valid_f 1 at the live slots, the empty ones
+    # keeping their SENTINEL data as stale data; timed), the same mask
+    # with holes, phase 4's K=192 grid and the edge grid. Its plain
+    # version scatters each (y, x) into distinct slots (and a spare slot
+    # it drops), so it needs no deterministic mode.
+    g8 = resident.from_particles(seeded_state(s8, dev), s8)
+    rv8 = (g8.pos_x, g8.pos_y, g8.vel_x, g8.vel_y,
+           (g8.pos_x < 5e8).float())
+    rebin_valid = compare_rebin_valid(rv8, s8, scene.params, "scene_1m K=8",
+                                      timed=True)
+    compare_rebin_valid(with_holes(rv8), s8, scene.params,
+                        "scene_1m K=8 with holes")
+    del g8, rv8
+    compare_rebin_valid((gs192.pos_x, gs192.pos_y, gs192.vel_x, gs192.vel_y,
+                         (gs192.pos_x < 5e8).float()), s192, scene.params,
+                        "default scene after 512 steps", far=False)
+    se, ge = valid_edge_grid(dev)
+    compare_rebin_valid(ge, se, scene.params, "edge rows and columns")
 
     # 18. the tile kernels of density and forces at every tile shape; at
     # K=192 and 256 with many particles, where the plain versions take
@@ -2105,7 +2204,7 @@ def main() -> int:
         elif name == "physics":
             entry = dict(launches=l_fused["physics"],
                          split_path_launches=l_split["physics"],
-                         **physics_res)
+                         tile=list(fused.physics_tile(8)), **physics_res)
         elif name.startswith("sph_"):
             entry = dict(launches=p_launches[name],
                          resident_path_launches=launches[name],

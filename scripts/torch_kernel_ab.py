@@ -17,7 +17,14 @@ by default):
   forces_integrate with each variant at scene_1m: x wrap with movers
   across the walls, surface tension, adaptive subsampling on the clumped
   K=16 state, an obstacle field (has_ff); density and forces with wid on
-  BASELINE config 4's stack of eight seeded worlds; physics at K=8;
+  BASELINE config 4's stack of eight seeded worlds; and on the same four
+  grids (K=8, K=32, the default scene's K=192, config 4 with wid) the
+  fused physics kernel beside the split pair (density then
+  forces_integrate, timed as one call);
+* ``rebin_valid``: the round-1 rebin with a valid mask on scene_1m's
+  seeded K=8 grid (valid_f at the live slots), the same mask with a tenth
+  of its valid slots set to 0 (``chip_smoke.with_holes``), and on the
+  default scene's K=192 grid;
 * ``rebin``: rebin at scene_1m K=8 and K=32, with row_shift on config 4's
   stack, and on the default scene's K=192 grid;
 * ``coarse``: the metaball coarse kernel at scene_1m K=8 and K=32 and on
@@ -41,8 +48,10 @@ by default):
 
 The states come from ``chip_smoke.py`` of the tree this script lies in, so
 every checkout times the same inputs. Give the paths as parent, change,
-change, parent to compare two versions within one call. Needs a CUDA
-device; imports no JAX.
+change, parent to compare two versions within one call. The card's SM
+clock and power draw are sampled every half second (``nvidia-smi``) while
+each checkout runs, and their range is printed after its line. Needs a
+CUDA device; imports no JAX.
 """
 
 import contextlib
@@ -74,7 +83,7 @@ def registers(log: str):
     return out
 
 
-PARTS = ("pair", "rebin", "coarse", "step", "sph")
+PARTS = ("pair", "rebin_valid", "rebin", "coarse", "step", "sph")
 
 
 def bench(root: str, parts) -> None:
@@ -122,6 +131,31 @@ def bench(root: str, parts) -> None:
         fargs = (px, py, vx, vy, pres, invr, occ, prm, s, fr)
         timed(f"{label} forces", lambda: fused.forces_integrate(*fargs, **kw))
 
+    def physics(label, g, s, prm, **kw):
+        """physics and the split pair it replaces on grids g."""
+        px, py, vx, vy, occ, fr = g
+
+        def split():
+            pr, ir = fused.density(px, py, vx, vy, occ, prm.mass, prm.delta,
+                                   prm.pressure_constant, prm.rest_density,
+                                   s, **kw)
+            fused.forces_integrate(px, py, vx, vy, pr, ir, occ, prm, s, fr,
+                                   **kw)
+
+        timed(f"{label} physics", lambda: fused.physics(
+            px, py, vx, vy, occ, prm, s, fr, **kw))
+        timed(f"{label} split pair", split)
+
+    def rebin_valid(label, gs, s, prm, holes=False):
+        from tpufluid_torch.ops import rebin as rv
+
+        g = (gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y,
+             (gs.pos_x < 5e8).float())
+        if holes:
+            g = cs.with_holes(g)
+        timed(f"{label} rebin_valid", lambda: rv.rebin_valid(
+            *g, prm.delta, s))
+
     def rebin(label, gs, s, prm, **kw):
         timed(f"{label} rebin", lambda: fused.rebin(
             gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, gs.occ_row, prm.delta, s,
@@ -139,15 +173,22 @@ def bench(root: str, parts) -> None:
     gs32 = resident.from_particles(cs.seeded_state(s32, dev), s32)
     g8 = grids(gs8, s8, p)
     if "pair" in parts:
+        g32 = grids(gs32, s32, p)
         pair("K=8", g8, s8, p)
-        pair("K=32", grids(gs32, s32, p), s32, p)
+        pair("K=32", g32, s32, p)
+        physics("K=8", g8, s8, p)
+        physics("K=32", g32, s32, p)
+        del g32
+    if "rebin_valid" in parts:
+        rebin_valid("K=8", gs8, s8, p)
+        rebin_valid("K=8 with holes", gs8, s8, p, holes=True)
     if "rebin" in parts:
         rebin("K=8", gs8, s8, p)
         rebin("K=32", gs32, s32, p)
     if "coarse" in parts:
         coarse("K=8", gs8, s8)
         coarse("K=32", gs32, s32)
-    if parts & {"pair", "rebin", "coarse"}:
+    if parts & {"pair", "rebin_valid", "rebin", "coarse"}:
         with contextlib.redirect_stdout(io.StringIO()):
             app = cli.run(cli.parser().parse_args([
                 "run", "--device", "cuda", "--neighbor-mode", "resident",
@@ -156,8 +197,12 @@ def bench(root: str, parts) -> None:
         label = f"default scene K={app.settings.cell_capacity}"
         pg = tt.TickParams.default(dev, gravity=(0.0, -9.8))
         if "pair" in parts:
-            pair(label, grids(app.grid_state, app.settings, pg),
-                 app.settings, pg)
+            g192 = grids(app.grid_state, app.settings, pg)
+            pair(label, g192, app.settings, pg)
+            physics(label, g192, app.settings, pg)
+            del g192
+        if "rebin_valid" in parts:
+            rebin_valid(label, app.grid_state, app.settings, pg)
         if "rebin" in parts:
             rebin(label, app.grid_state, app.settings, pg)
         if "coarse" in parts:
@@ -188,13 +233,13 @@ def bench(root: str, parts) -> None:
         wid = torch.arange(cs.CONFIG4_WORLDS, dtype=torch.int32,
                            device=dev).repeat_interleave(rows)
         if "pair" in parts:
-            pair("config 4 wid", grids(gsb, bs, bp, row_shift=-(wid * rows)),
-                 bs, bp, wid=wid)
+            gw = grids(gsb, bs, bp, row_shift=-(wid * rows))
+            pair("config 4 wid", gw, bs, bp, wid=wid)
+            physics("config 4 wid", gw, bs, bp, wid=wid)
+            del gw
         if "rebin" in parts:
             rebin("config 4 row_shift", gsb, bs, bp,
                   row_shift=-(wid * rows))
-    if "pair" in parts and hasattr(fused, "physics"):
-        timed("K=8 physics", lambda: fused.physics(*g8[:5], p, s8, g8[5]))
     if "sph" in parts:
         sph_part(cs, res, timed, dev, s8, p)
     if "step" in parts:
@@ -295,12 +340,67 @@ def main() -> int:
         return 0
     env = dict(os.environ, TORCH_KERNEL_AB_CHILD="1")
     rc = 0
-    for root in args:
-        print(f"== {root}", flush=True)
-        rc |= subprocess.run([sys.executable, __file__, "--only",
-                              ",".join(sorted(parts)), root],
-                             env=env).returncode
+    with ClockSampler() as clock:
+        for root in args:
+            print(f"== {root}", flush=True)
+            n0 = len(clock.samples)
+            rc |= subprocess.run([sys.executable, __file__, "--only",
+                                  ",".join(sorted(parts)), root],
+                                 env=env).returncode
+            print(f"   clock during {root}: {clock.summary(n0)}", flush=True)
     return rc
+
+
+class ClockSampler:
+    """The card's SM clock (MHz) and power draw (W), sampled every half
+    second by ``nvidia-smi`` in a process of its own, which ``__exit__``
+    stops."""
+
+    def __init__(self):
+        self.samples = []
+        self.proc = None
+
+    def __enter__(self):
+        import threading
+
+        try:
+            self.proc = subprocess.Popen(
+                ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                 "--format=csv,noheader,nounits", "-lms", "500"],
+                stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        except OSError:
+            return self
+
+        def read():
+            for line in self.proc.stdout:
+                try:
+                    mhz, watts = (float(v) for v in line.split(","))
+                except ValueError:
+                    continue
+                self.samples.append((mhz, watts))
+
+        threading.Thread(target=read, daemon=True).start()
+        return self
+
+    def summary(self, start: int, load_watts: float = 150.0) -> str:
+        """The samples since ``start``: the SM clock's range over all and
+        over those drawing more than ``load_watts`` (the timed loops)."""
+        got = self.samples[start:]
+        if not got:
+            return "not sampled"
+        mhz = sorted(m for m, _ in got)
+        busy = sorted(m for m, w in got if w > load_watts)
+        load = (f"{busy[0]:.0f}-{busy[-1]:.0f} MHz in {len(busy)}"
+                if busy else "none")
+        return (f"SM clock {mhz[0]:.0f}-{mhz[-1]:.0f} MHz over {len(got)} "
+                f"samples; above {load_watts:.0f} W: {load}; power "
+                f"{min(w for _, w in got):.1f}-{max(w for _, w in got):.1f} W")
+
+    def __exit__(self, *exc):
+        if self.proc is not None:
+            self.proc.terminate()
+            self.proc.wait()
+        return False
 
 
 if __name__ == "__main__":

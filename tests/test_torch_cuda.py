@@ -23,11 +23,16 @@ density and forces are also held bitwise to their plain versions at every
 tile shape the wrappers pick (K=8 to 256, sparse and ragged grids, each
 flag, an obstacle field, two worlds), and so is rebin's (with far movers,
 an overflow past K and row_shift stacks); the round-1 rebin with a valid
-mask (ops.rebin) bitwise to its plain version; and FluidApp.set_mouse
+mask (ops.rebin) bitwise to its plain version (a prefix mask, one with
+holes over stale data, K=192, valid slots in the clamped edge rows and
+columns); the physics kernel also on ragged and sparse
+grids and at the largest K its tile takes; and FluidApp.set_mouse
 drives 16 resident ticks at scene_1m without loss.
 """
 
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -381,12 +386,30 @@ def test_batched_kernels_match_plain(cuda):
 
 
 @pytest.mark.parametrize("k,flags", [
-    (8, "base"), (32, "base"), (16, "all"), (8, "has_ff"), (8, "wid")])
+    (8, "base"), (32, "base"), (16, "all"), (8, "has_ff"), (8, "wid"),
+    (8, "ragged"), ("max", "ragged"), (8, "sparse")])
 def test_physics_matches_split(cuda, k, flags):
     """The fused physics kernel against the split density +
-    forces_integrate kernels and against physics_plain, bitwise."""
+    forces_integrate kernels and against physics_plain, bitwise. "ragged":
+    _tile_state's 41 rows (ragged for every tile height) with a row at
+    full occupancy, at K=8 (base flags) and at the largest K the physics
+    tile takes (a 1 x 1 tile); "sparse": 60 particles at K=8 (halo rows of
+    at most one slot), with the three variant flags."""
     kw, extra = {}, {}
-    if flags == "all":
+    if flags in ("ragged", "sparse"):
+        if k == "max":  # a multiple of 8, as the resident grid rounds K
+            k = fused.physics_max_capacity() // 8 * 8
+        sparse = flags == "sparse"
+        s, gs = _tile_state(cuda, k, 5, n_random=60 if sparse else 1500,
+                            fill_row=not sparse)
+        p = tt.TickParams.default(cuda, gravity=(0.0, -9.8),
+                                  **ST_PARAMS_CUDA)
+        px, py, vx, vy, occ = (gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y,
+                               gs.occ_row)
+        frame = gs.tick + 1
+        if sparse:
+            kw = VARIANTS["all"]
+    elif flags == "all":
         s, p, frame, (px, py, vx, vy, occ) = _variant_case(cuda, k)
         kw = VARIANTS["all"]
     elif flags == "wid":
@@ -425,6 +448,29 @@ def test_physics_matches_split(cuda, k, flags):
     assert fused.LAUNCHES["physics"] == before + 1
     for a, b, c in zip(got, split, plain):
         assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_physics_tile_fits_shared_memory(cuda):
+    """The physics kernel's tiles (the library picks them): 8 x 32 at
+    K=8, tiles that shrink as K grows, a tile at every K up to 240 (the
+    old kernel's largest) and beyond, and a refusal naming the split pair
+    past the largest K whose +-2 halo fits, from physics_tile and from the
+    wrapper's launch."""
+    assert fused.physics_tile(8) == (8, 32)
+    cells = [r * c for r, c in (fused.physics_tile(k)
+                                for k in (8, 16, 32, 64, 128, 192, 240, 256))]
+    assert cells == sorted(cells, reverse=True)
+    k_max = fused.physics_max_capacity()
+    assert k_max >= 512 and fused.physics_tile(k_max) == (1, 1)
+    with pytest.raises(ValueError, match="split density"):
+        fused.physics_tile(k_max + 1)
+    s, gs = _tile_state(cuda, k_max + 1, 5, n_random=60, fill_row=False)
+    p = tt.TickParams.default(cuda, gravity=(0.0, -9.8))
+    before = fused.LAUNCHES["physics"]
+    with pytest.raises(ValueError, match=f"{k_max}; use the split density"):
+        fused.physics(gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, gs.occ_row, p,
+                      s, gs.tick + 1)
+    assert fused.LAUNCHES["physics"] == before
 
 
 def test_batched_step_matches_single_worlds(cuda):
@@ -686,20 +732,46 @@ def test_sph_kernels_refuse_k_above_limit(cuda):
         forces(grid_at(k_f + 1))
 
 
-def test_rebin_valid_matches_plain(cuda):
+def _valid_edge_grid(device):
+    """chip_smoke.valid_edge_grid: (settings, (px, py, vx, vy, valid_f)) of
+    a hand-made grid with valid slots in the clamped edge rows and
+    columns. The script at the repo root holds the one copy of it."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.valid_edge_grid(device)
+
+
+@pytest.mark.parametrize("case", ["holes", "prefix", "k192", "edges"])
+def test_rebin_valid_matches_plain(cuda, case):
     """The round-1 rebin with a valid mask against its plain version,
-    bitwise, on a seeded grid with far movers, coincident pairs and
-    valid_f = 0 slots that keep their stale data."""
+    bitwise: "holes", a seeded grid with far movers, coincident pairs and
+    a tenth of its valid slots at valid_f = 0 with their stale data kept;
+    "prefix", the same grid's live slots; "k192", _tile_state's full row
+    at K=192; "edges", _valid_edge_grid (valid slots in the clamped edge
+    rows and columns)."""
     from tpufluid_torch.ops import rebin as trebin
 
-    s = tt.SimSettings(particle_count=3000, size=(9.0, 8.0), cell_capacity=8)
-    gs = _state(s, cuda, 11)
-    valid = (gs.pos_x < fused.SENTINEL_HALF).float()
-    g = torch.Generator(device="cpu").manual_seed(11)
-    stale = (torch.rand(valid.shape, generator=g) < 0.1).to(cuda) & (
-        valid > 0)
-    valid[stale] = 0.0
-    args = (gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, valid, 0.01, s)
+    dt = 0.01
+    if case == "edges":
+        s, (px, py, vx, vy, valid) = _valid_edge_grid(cuda)
+    else:
+        if case == "k192":
+            s, gs = _tile_state(cuda, 192, 11)
+        else:
+            s = tt.SimSettings(particle_count=3000, size=(9.0, 8.0),
+                               cell_capacity=8)
+            gs = _state(s, cuda, 11)
+        px, py, vx, vy = gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y
+        valid = (px < fused.SENTINEL_HALF).float()
+    if case == "holes":
+        g = torch.Generator(device="cpu").manual_seed(11)
+        stale = (torch.rand(valid.shape, generator=g) < 0.1).to(cuda) & (
+            valid > 0)
+        valid[stale] = 0.0
+        assert int(stale.sum()) > 0
+    args = (px, py, vx, vy, valid, dt, s)
     before = trebin.LAUNCHES["rebin_valid"]
     got = trebin.rebin_valid(*args)
     want = trebin.rebin_valid_plain(*args)
@@ -707,7 +779,9 @@ def test_rebin_valid_matches_plain(cuda):
     assert trebin.LAUNCHES["rebin_valid"] == before + 1
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    assert float(want[5].sum()) > 0 and int(stale.sum()) > 0
+    assert float(want[4].sum()) > 0
+    if case != "k192":
+        assert float(want[5].sum()) > 0
 
 
 def _rebin_grid(device, k, seed, sparse):

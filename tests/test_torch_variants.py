@@ -91,33 +91,40 @@ def scene(name="variants"):
     """(JAX settings, GridState, TickParams, frame). ``variants``: h 1.5,
     24 x 24, K=16: a dense block (densities up to ~250 at mass 64), a
     coincident triple, and wall movers in both directions. ``small``:
-    h 0.2, 4.8 x 4.8, K=8, the same features at rest density."""
+    h 0.2, 4.8 x 4.8, K=8, the same features at rest density. ``k64``:
+    h 0.2, 4.8 x 2.4, K=64, the same features with ~19 particles a cell
+    over a block of 8 x 4 cells (up to ~30), so that each target meets
+    a few hundred candidates."""
     rng = np.random.default_rng(zlib.crc32(name.encode()))
     if name == "variants":
-        h, size, k, n = 1.5, 24.0, 16, 300
+        h, size, k, n = 1.5, (24.0, 24.0), 16, 300
         cells = _region(5, 12, 5, 12)
         params = dict(mass=64.0, surface_tension_threshold=0.05,
                       surface_tension_coefficient=5.0)
+    elif name == "k64":
+        h, size, k, n = 0.2, (4.8, 2.4), 64, 600
+        cells = _region(9, 17, 4, 8)
+        params = {}
     else:
-        h, size, k, n = 0.2, 4.8, 8, 400
+        h, size, k, n = 0.2, (4.8, 4.8), 8, 400
         cells = _region(3, 23, 3, 23)
         params = {}
-    half = size / 2
-    grid_w = int(size / h) + 2
+    half = np.asarray(size, np.float64) / 2
+    grid_h = int(size[1] / h) + 2
     pred = _points_in_cells(rng, cells, n, h, half)
     vel = (rng.normal(size=pred.shape) * 2.0).astype(np.float32)
     pred[1:3], vel[1:3] = pred[0], vel[0]  # coincident triple
     # wall movers: predicted at the wall (clamped), moving out
-    rows = rng.integers(3, grid_w - 3, 8)
+    rows = rng.integers(3, grid_h - 3, 8)
     pred[3:11, 1] = _points_in_cells(
         rng, np.stack([rows, rows], axis=1), 8, h, half)[:, 1]
-    pred[3:11, 0] = np.where(np.arange(8) % 2 == 0, half, -half)
+    pred[3:11, 0] = np.where(np.arange(8) % 2 == 0, half[0], -half[0])
     vel[3:11, 0] = np.where(np.arange(8) % 2 == 0, 6.0, -6.0)
     pos = (pred - vel * DT).astype(np.float32)
     pos[3:11, 0] = pred[3:11, 0] - np.sign(pred[3:11, 0]) * 0.01
     settings = tpufluid.SimSettings(
         particle_count=n, particle_spacing=h / 2, smoothing_radius=h,
-        size=(size, size), cell_capacity=k)
+        size=size, cell_capacity=k)
     gs = jresident.from_particles(_jstate(pos, vel, 41), settings)
     jp = tpufluid.TickParams.default(gravity=(0.0, -9.8), **params)
     return settings, gs, jp, gs.tick + 1
@@ -301,15 +308,25 @@ def test_physics_matches_jax_and_split(flags):
         assert torch.equal(a, b)
 
 
-def test_physics_tile_fits_shared_memory():
-    assert tfused.physics_tile(8) == (4, 32)
-    assert tfused.physics_tile(32) == (1, 32)
-    assert tfused.physics_tile(192) == (1, 8)
-    for k in (8, 16, 32, 64, 128, 192, 240):
-        r, c = tfused.physics_tile(k)
-        assert tfused.physics_smem_bytes(k, r, c) <= tfused.SMEM_MAX
-    with pytest.raises(ValueError, match="no tile fits"):
-        tfused.physics_tile(256)
+def test_physics_matches_jax_k64():
+    """physics at K=64 against the JAX kernel (one row a program), on a
+    block of cells holding ~19 particles each, with the three variant
+    flags: the capacity at which the card kernel's tiles shrink and its
+    ring density weighs most."""
+    s, gs, p, frame = scene("k64")
+    kw = FLAG_SETS["all"]
+    want = jax.jit(lambda px, py, vx, vy, occ, p, fr: jfused.physics(
+        px, py, vx, vy, occ, p, s, fr, rows_per_program=1, **kw))(
+        gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, gs.occ_row, p, frame)
+    tg = interop.grid_state_from_numpy(gs, "cpu")
+    got = tfused.physics(tg.pos_x, tg.pos_y, tg.vel_x, tg.vel_y, tg.occ_row,
+                         interop.tick_params_from_numpy(p, "cpu"),
+                         interop.settings_from(s), torch.tensor(int(frame)),
+                         **kw)
+    live = np.asarray(gs.pos_x) < jfused.SENTINEL_HALF
+    _check_new_state(got, want, (gs.vel_x, gs.vel_y), live, "k64")
+    occ = np.asarray(gs.occ_row)
+    assert gs.pos_x.shape[1] == 64 and 20 <= occ.max() < 64
 
 
 # ------------------------------------------- ports of the resident tests

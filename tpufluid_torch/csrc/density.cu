@@ -83,7 +83,7 @@ density_kernel(const float* __restrict__ px, const float* __restrict__ py,
         });
 
     // D: the density sum of each live target
-    const TfSharedPred<false> src{sp, y0 - 1, x0 - 1, K, HC};
+    const TfSharedPred src{sp, y0 - 1, x0 - 1, K, HC};
     for (int j = threadIdx.x; j < n_live; j += TF_TILE_THREADS) {
         const int e = t.list[j];
         const int kk = e >> 16;

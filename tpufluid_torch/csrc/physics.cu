@@ -6,38 +6,46 @@
 // predictions (P), density for rblk + 2 rows (D), forces and integration
 // for the rblk centre rows (F).
 //
-// Bound: memory traffic through L1/L2, as for the split pair. Against the
-// pair it saves the pres and 1/rho fields' round trip through device
-// memory (2 x 8.6 MB written and read back at scene_1m) and one launch,
-// and it predicts each slot once instead of once per reader; it pays the
-// density of its halo again, (R + 2)(C + 2) / (R C) of the density work.
+// Bound: the instruction throughput of the pair loops, as for the split
+// pair. Against the pair it saves the pres and 1/rho fields' round trip
+// through device memory (2 x 8.6 MB written and read back at scene_1m)
+// and one launch, and predicts each slot once instead of once per
+// kernel; it pays the density of its +-1 ring again, (R + 2)(C + 2) /
+// (R C) of the density work (1.33 with an 8 x 32 tile).
 //
-// Design: one block per tile of R rows x C columns x all K slots (the
-// wrapper picks R and C from K so that the tile fits shared memory).
-//   P: predicted positions of the (R + 4) x (C + 4) cells around the tile
-//      (a +-2 halo; empty slots and cells outside the grid hold
-//      SENTINEL), and velocities of the +-1 halo, into shared memory;
-//   D: pressure and 1/rho of the (R + 2) x (C + 2) cells of the +-1 halo,
-//      each by tf_density_sum over the shared predictions;
-//   F: forces and integration of the R x C centre cells by
-//      tf_forces_target over the shared fields, written out.
-// The density sum and the force loop are the same device functions that
-// density.cu and forces.cu call (resident_math.cuh), read from shared
-// memory (TfSharedPred, TfSharedCand) over the same values in the same
-// order, so every output is bitwise the split pair's. Its candidate
-// bounds are the rows' occupancies (tf_occ_rows): the split kernels'
-// tighter per-cell bounds skip only empty slots.
-// Shared memory: 4 K (2 (R + 4)(C + 4) + 4 (R + 2)(C + 2)) bytes, ~44 KB
-// at K = 8 with a 4 x 32 tile; above 48 KB the launch first raises the
-// kernel's dynamic shared memory limit (cudaFuncSetAttribute).
+// Design: one block of 512 threads per tile of R x C cells with all K
+// slots (tf_pick_tile picks the tile from K, capped at TF_PHYSICS_SLOTS
+// target slots; tf_physics_tile reports it), on the tile helpers of
+// density.cu and forces.cu with a halo of 2. Its shared memory (82 KB for
+// the 8 x 32 tile at K=8) leaves room for two blocks an SM, so a block
+// takes 512 threads to keep as many warps in flight as forces.cu's four
+// blocks of 256 (the 4 x 32 tile at 256 threads, its ring 1.59x the
+// tile, ran 5% slower at K=8 and 40% at K=32 on the H100: PERF.md):
+//   S: the tile's +-2 halo is staged once (tf_stage_halo): per slot below
+//      its row's occupancy the prediction (with its row's dt; SENTINEL for
+//      an empty slot), and on the +-1 ring (velocity, 0, 0) (zeros for an
+//      empty slot); each halo cell's occupancy (last live slot + 1) is
+//      kept beside them;
+//   D: the ring's live slots are listed (tf_tile_compact, (slot, row,
+//      column) order) and each one's density sum walks its 3 x 3
+//      candidate cells below each cell's own occupancy (tf_density_sum);
+//      its pressure and 1/rho complete the ring's staged record;
+//   F: the centre's live targets are listed (tf_tile_targets; every other
+//      centre slot gets SENTINEL / 0 there), and tf_forces_target walks
+//      each one's 3 x 3 candidate cells below each cell's own occupancy
+//      over the shared fields (TfHaloCand) and integrates.
+// So no lane idles on an empty slot, no walk runs past its cell's last
+// particle, and each slot is read and predicted once per block. The
+// density sum and the force loop are the device functions density.cu and
+// forces.cu call, over the same values in the same order, so every
+// output is bitwise the split pair's. The four variant flags are template
+// parameters, as in forces.cu; all 16 are built.
 // Batched world stacks: wid[y] (null for one world) picks row y's world
 // in the per-world scalar table sc[W][19] (TF_SC_* columns).
 #include "resident_math.cuh"
 
-#define TF_PHYS_THREADS 256
-
 template <bool WRAP, bool HAS_FF, bool ST, bool ADAPT>
-__global__ void __launch_bounds__(TF_PHYS_THREADS)
+__global__ void __launch_bounds__(TF_PHYSICS_THREADS, 2)
 physics_kernel(const float* __restrict__ px, const float* __restrict__ py,
                const float* __restrict__ vx, const float* __restrict__ vy,
                const int* __restrict__ occ_row, const int* __restrict__ wid,
@@ -46,113 +54,122 @@ physics_kernel(const float* __restrict__ px, const float* __restrict__ py,
                const float* __restrict__ ffx, const float* __restrict__ ffy,
                float* __restrict__ npx, float* __restrict__ npy,
                float* __restrict__ nvx, float* __restrict__ nvy, int gy,
-               int K, int gx, int R, int C, float dens_h2, float dens_norm,
-               TfForceConsts c) {
-    extern __shared__ float2 smem2[];
-    const int pw = C + 4, ph = R + 4;  // +-2 tile
-    const int hw = C + 2, hh = R + 2;  // +-1 tile
-    const int n_p = ph * K * pw;
-    const int n_h = hh * K * hw;
-    float2* sp = smem2;  // predictions
-    float2* sv = sp + n_p;  // velocities
-    float2* sr = sv + n_h;  // (pressure, 1/rho)
+               int K, int gx, int lgR, int lgC, float dens_h2,
+               float dens_norm, TfForceConsts c) {
+    extern __shared__ float4 smem4[];
+    const int R = 1 << lgR, C = 1 << lgC;
+    const int HC = C + 4;              // +-2 halo
+    const int QR = R + 2, QC = C + 2;  // +-1 ring
+    float4* sq = smem4;
+    float2* sp = reinterpret_cast<float2*>(sq + QR * K * QC);
+    const TfTileSmem t =
+        tf_tile_smem(sp + (R + 4) * K * HC, K, R, C, 2, TF_PHYSICS_THREADS);
     const int y0 = blockIdx.y * R;
     const int x0 = blockIdx.x * C;
+    tf_tile_begin<TF_PHYSICS_THREADS>(t, occ_row, wid, sc, TF_PSC_N,
+                                      TF_SC_DT, R, C, K, y0, gy);
+    // the half extents are the same in every world
+    const float hx = sc[TF_SC_HALF_X];
+    const float hy = sc[TF_SC_HALF_Y];
 
-    // P: predictions of the +-2 tile, velocities of the +-1 tile
-    for (int i = threadIdx.x; i < n_p; i += blockDim.x) {
-        const int lc = i % pw;
-        const int kk = (i / pw) % K;
-        const int lr = i / (pw * K);
-        const int sy = y0 + lr - 2;
-        const int sx = x0 + lc - 2;
-        float qx = TF_SENTINEL, qy = TF_SENTINEL, ux = 0.0f, uy = 0.0f;
-        if (sy >= 0 && sy < gy && sx >= 0 && sx < gx && kk < occ_row[sy]) {
-            const size_t gi = tf_index(sy, kk, sx, K, gx);
-            const float p = px[gi];
-            if (tf_live(p)) {
-                const float* scw = sc + tf_world(wid, sy) * TF_PSC_N;
-                const float dt = scw[TF_SC_DT];
-                ux = vx[gi];
-                uy = vy[gi];
-                qx = tf_pred(p, ux, dt, scw[TF_SC_HALF_X]);
-                qy = tf_pred(py[gi], uy, dt, scw[TF_SC_HALF_Y]);
+    // S: predictions of the +-2 halo, velocities of the +-1 ring
+    float ax[TF_STAGE_BATCH], ay[TF_STAGE_BATCH];
+    float ux[TF_STAGE_BATCH], uy[TF_STAGE_BATCH];
+    tf_stage_halo<TF_PHYSICS_THREADS>(
+        t, R, C, K, y0, x0, gx,
+        [&](int u, size_t gi) {
+            ax[u] = px[gi];
+            ay[u] = py[gi];
+            ux[u] = vx[gi];
+            uy[u] = vy[gi];
+        },
+        [&](int u, int lr, int kk, int lc) {
+            const bool live = tf_live(ax[u]);
+            float2 q = make_float2(TF_SENTINEL, TF_SENTINEL);
+            if (live) {
+                const float dt = t.sdt[lr];
+                q = make_float2(tf_pred(ax[u], ux[u], dt, hx),
+                                tf_pred(ay[u], uy[u], dt, hy));
+                atomicMax(&t.socc[lr * HC + lc], kk + 1);
             }
-        }
-        sp[i] = make_float2(qx, qy);
-        if (lr >= 1 && lr <= hh && lc >= 1 && lc <= hw) {
-            const int j = ((lr - 1) * K + kk) * hw + (lc - 1);
-            sv[j] = make_float2(ux, uy);
-        }
+            sp[(lr * K + kk) * HC + lc] = q;
+            if (lr >= 1 && lr <= QR && lc >= 1 && lc <= QC)
+                sq[((lr - 1) * K + kk) * QC + lc - 1] =
+                    live ? make_float4(ux[u], uy[u], 0.0f, 0.0f)
+                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        });
+
+    // D: the density of each live slot of the +-1 ring (ring coordinates
+    // (lr, lc): halo cell (lr + 1, lc + 1))
+    const int n_ring = tf_tile_compact<TF_PHYSICS_THREADS>(
+        t.list, t.wsum, tf_max_rows(t.srow + 1, QR) * QR * QC,
+        [&](int i, int& e) {
+            const int q = i / QC;
+            const int lc = i - q * QC;
+            const int kk = q / QR;
+            const int lr = q - kk * QR;
+            e = (kk << 16) | (lr << 8) | lc;
+            return kk < t.socc[(lr + 1) * HC + lc + 1] &&
+                   tf_live(sp[((lr + 1) * K + kk) * HC + lc + 1].x);
+        });
+    const TfSharedPred dsrc{sp, y0 - 2, x0 - 2, K, HC};
+    for (int j = threadIdx.x; j < n_ring; j += TF_PHYSICS_THREADS) {
+        const int e = t.list[j];
+        const int kk = e >> 16;
+        const int lr = (e >> 8) & 255;
+        const int lc = e & 255;
+        const int y = y0 + lr - 1;
+        const int x = x0 + lc - 1;
+        const float2 tq = sp[((lr + 1) * K + kk) * HC + lc + 1];
+        int occ_c[9];
+        const int occ_max = tf_occ_tile(t.socc, lr, lc, HC, occ_c);
+        const float acc = tf_density_sum(dsrc, y, x, occ_c, occ_max, tq.x,
+                                         tq.y, dens_h2);
+        const float* scw = sc + tf_world(wid, y) * TF_PSC_N;
+        float pres, invr;
+        tf_density_out(acc, scw[TF_SC_MASS], dens_norm, scw[TF_SC_KP],
+                       scw[TF_SC_RHO0], pres, invr);
+        float4* s = &sq[(lr * K + kk) * QC + lc];
+        s->z = pres;
+        s->w = invr;
     }
     __syncthreads();
 
-    // D: pressure and 1/rho of the +-1 tile
-    const TfSharedPred<true> dsrc{sp, y0 - 2, x0 - 2, K, pw};
-    for (int j = threadIdx.x; j < n_h; j += blockDim.x) {
-        const int lc = j % hw;
-        const int kk = (j / hw) % K;
-        const int lr = j / (hw * K);
-        const int sy = y0 + lr - 1;
-        const int sx = x0 + lc - 1;
-        float pres = 0.0f, invr = 10.0f;
-        if (sy >= 0 && sy < gy && sx >= 0 && sx < gx) {
-            const float* scw = sc + tf_world(wid, sy) * TF_PSC_N;
-            const float kp_c = scw[TF_SC_KP];
-            const float rho0 = scw[TF_SC_RHO0];
-            const int i = ((lr + 1) * K + kk) * pw + (lc + 1);
-            const float2 tq = sp[i];
-            if (kk >= occ_row[sy] || !tf_live(tq.x)) {
-                tf_density_empty(kp_c, rho0, pres, invr);
-            } else {
-                int occ_c[9];
-                const int occ_max = tf_occ_rows(occ_row, sy, gy, sx, gx,
-                                                occ_c);
-                const float acc = tf_density_sum(dsrc, sy, sx, occ_c,
-                                                 occ_max, tq.x, tq.y,
-                                                 dens_h2);
-                tf_density_out(acc, scw[TF_SC_MASS], dens_norm, kp_c, rho0,
-                               pres, invr);
-            }
-        }
-        sr[j] = make_float2(pres, invr);
-    }
-    __syncthreads();
-
-    // F: forces and integration of the centre cells
-    const TfSharedCand fsrc{sp, sv, sr, y0 - 2, x0 - 2, K, pw, hw};
-    const uint32_t frame = (uint32_t)frame_p[0];
-    const int n_c = R * K * C;
-    for (int t = threadIdx.x; t < n_c; t += blockDim.x) {
-        const int lc = t % C;
-        const int kk = (t / C) % K;
-        const int lr = t / (C * K);
-        const int y = y0 + lr;
-        const int x = x0 + lc;
-        if (y >= gy || x >= gx) continue;
-        const size_t ti = tf_index(y, kk, x, K, gx);
-        const float pos_x0 = px[ti];
-        if (kk >= occ_row[y] || !tf_live(pos_x0)) {
+    // F: forces and integration of each live centre target; empty slots
+    // get SENTINEL / 0
+    const int n_live = tf_tile_targets<TF_PHYSICS_THREADS>(
+        sp, t, tf_max_rows(t.srow + 2, R), lgR, lgC, K, y0, x0, gy,
+        [&](int y, int kk, int x) {
+            const size_t ti = tf_index(y, kk, x, K, gx);
             npx[ti] = TF_SENTINEL;
             npy[ti] = TF_SENTINEL;
             nvx[ti] = 0.0f;
             nvy[ti] = 0.0f;
-            continue;
-        }
-        const float* scw = sc + tf_world(wid, y) * TF_PSC_N;
+        });
+    const TfHaloCand src{sp, sq, y0 - 2, x0 - 2, K, HC, QC};
+    const uint32_t frame = (uint32_t)frame_p[0];
+    for (int j = threadIdx.x; j < n_live; j += TF_PHYSICS_THREADS) {
+        const int e = t.list[j];
+        const int kk = e >> 16;
+        const int lr = (e >> 8) & 255;
+        const int lc = e & 255;
+        const int y = y0 + lr;
+        const int x = x0 + lc;
+        const float4 u0 = sq[((lr + 1) * K + kk) * QC + lc + 1];
+        const size_t ti = tf_index(y, kk, x, K, gx);
         int occ_c[9];
-        const int occ_max = tf_occ_rows(occ_row, y, gy, x, gx, occ_c);
-        const int j = ((lr + 1) * K + kk) * hw + (lc + 1);
+        const int occ_max = tf_occ_tile(t.socc, lr + 1, lc + 1, HC, occ_c);
         float fx = 0.0f, fy = 0.0f;
         if (HAS_FF) {
             const size_t fi = (size_t)y * gx + x;
             fx = ffx[fi];
             fy = ffy[fi];
         }
+        const float* scw = sc + tf_world(wid, y) * TF_PSC_N;
         float ox, oy, ovx, ovy;
         tf_forces_target<WRAP, HAS_FF, ST, ADAPT>(
-            fsrc, scw, frame, kk, y, x, occ_c, occ_max, pos_x0, py[ti],
-            sv[j].x, sv[j].y, sr[j].x, sr[j].y, fx, fy, c, ox, oy, ovx, ovy);
+            src, scw, frame, kk, y, x, occ_c, occ_max, px[ti], py[ti], u0.x,
+            u0.y, u0.z, u0.w, fx, fy, c, ox, oy, ovx, ovy);
         npx[ti] = ox;
         npy[ti] = oy;
         nvx[ti] = ovx;
@@ -183,8 +200,34 @@ static const PhysicsKernel kPhysics[16] = {
 // dynamic shared memory limit set so far, per variant
 static int kPhysicsSmem[16];
 
+// Shared memory of a block: the +-2 halo's predictions and the tile
+// arrays (tf_tile_smem_bytes with a halo of 2), and the ring's float4s.
 static long long physics_smem_bytes(int K, int R, int C) {
-    return 4LL * K * (2LL * (R + 4) * (C + 4) + 4LL * (R + 2) * (C + 2));
+    return tf_tile_smem_bytes(8, K, R, C, 2, TF_PHYSICS_THREADS) +
+           16LL * K * (R + 2) * (C + 2);
+}
+
+static bool physics_tile(int K, int& lgR, int& lgC) {
+    return K > 0 && K <= 32767 &&
+           tf_pick_tile(TF_PHYSICS_SLOTS, K, lgR, lgC, [&](int R, int C) {
+               return physics_smem_bytes(K, R, C);
+           });
+}
+
+// The tile tf_physics runs at capacity K as rows << 8 | columns; 0 when
+// none fits shared memory (K above ~600).
+extern "C" int tf_physics_tile(int K) {
+    int lgR, lgC;
+    if (!physics_tile(K, lgR, lgC)) return 0;
+    return (1 << lgR) << 8 | (1 << lgC);
+}
+
+// The largest K tf_physics takes: the largest whose 1 x 1 tile fits
+// shared memory.
+extern "C" int tf_physics_max_k(void) {
+    int K = 1;
+    while (K < 32767 && physics_smem_bytes(K + 1, 1, 1) <= TF_SMEM_MAX) ++K;
+    return K;
 }
 
 extern "C" int tf_physics(const float* px, const float* py, const float* vx,
@@ -192,16 +235,15 @@ extern "C" int tf_physics(const float* px, const float* py, const float* vx,
                           const float* sc, const long long* frame,
                           const float* ffx, const float* ffy, float* npx,
                           float* npy, float* nvx, float* nvy, int gy, int K,
-                          int gx, int R, int C, int flags, float dens_h2,
-                          float dens_norm, const float* consts,
-                          cudaStream_t stream) {
+                          int gx, int flags, float dens_h2, float dens_norm,
+                          const float* consts, cudaStream_t stream) {
     const bool has_ff = (flags & TF_HAS_FF) != 0;
-    const long long smem = physics_smem_bytes(K, R, C);
-    if (gy <= 0 || K <= 0 || R <= 0 || C <= 0 || gx % C != 0 ||
-        (gy + R - 1) / R > 65535 || smem > TF_SMEM_MAX || flags < 0 ||
-        flags > 15 || has_ff != (ffx != nullptr) ||
-        (ffx == nullptr) != (ffy == nullptr))
+    int lgR = 0, lgC = 0;
+    if (gy <= 0 || !physics_tile(K, lgR, lgC) || gx % (1 << lgC) != 0 ||
+        (gy + (1 << lgR) - 1) >> lgR > 65535 || flags < 0 || flags > 15 ||
+        has_ff != (ffx != nullptr) || (ffx == nullptr) != (ffy == nullptr))
         return (int)cudaErrorInvalidValue;
+    const long long smem = physics_smem_bytes(K, 1 << lgR, 1 << lgC);
     if (smem > kPhysicsSmem[flags] && smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
             kPhysics[flags], cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -211,9 +253,9 @@ extern "C" int tf_physics(const float* px, const float* py, const float* vx,
     }
     TfForceConsts c;
     memcpy(&c, consts, sizeof(c));
-    dim3 grid(gx / C, (gy + R - 1) / R);
-    kPhysics[flags]<<<grid, TF_PHYS_THREADS, (size_t)smem, stream>>>(
+    dim3 grid(gx >> lgC, (gy + (1 << lgR) - 1) >> lgR);
+    kPhysics[flags]<<<grid, TF_PHYSICS_THREADS, (size_t)smem, stream>>>(
         px, py, vx, vy, occ_row, wid, sc, frame, ffx, ffy, npx, npy, nvx, nvy,
-        gy, K, gx, R, C, dens_h2, dens_norm, c);
+        gy, K, gx, lgR, lgC, dens_h2, dens_norm, c);
     return (int)cudaGetLastError();
 }

@@ -1,22 +1,23 @@
 // The resident engine's pair math, shared by density.cu, forces.cu and
 // physics.cu: the per-target density sum over the 3x3 cell stencil, the
 // per-target force loop fused with the integration, the candidate sources
-// they read, and the tile helpers of density.cu, forces.cu and rebin.cu.
+// they read, and the tile helpers of the resident kernels (density.cu,
+// forces.cu, physics.cu, rebin.cu, rebin_valid.cu).
 //
 // Each pair function takes a candidate source: an object whose pred()
 // (density) or cand() (forces) returns a candidate slot's predicted
-// position (and velocity, pressure, 1/rho) or false for an empty slot.
-// All three kernels stage the candidates of a tile in shared memory, each
-// slot predicted once, and read them through TfSharedPred, TfSharedCand
-// (physics.cu) or TfTileCand (forces.cu).
+// position (and velocity, pressure, 1/rho). The kernels stage the
+// candidates of a tile in shared memory, each slot predicted once, and
+// read them through TfSharedPred (density), TfTileCand (forces.cu) or
+// TfHaloCand (physics.cu).
 // A candidate block (row r, column dx) is walked below its own bound
-// occ_c[(r + 1) * 3 + dx + 1]: the cell's occupancy (last live slot + 1)
-// in density.cu and forces.cu, the row's occupancy in physics.cu, 0 for a
-// block outside the grid. Slots beyond a bound are empty and contribute
-// nothing, so the bound changes no bit of a sum. The arithmetic is the
-// same code in all three kernels, and every f32 operation rounds on its
-// own (-fmad=false), so the fused physics kernel is bitwise equal to the
-// split density + forces pair.
+// occ_c[(r + 1) * 3 + dx + 1]: the cell's occupancy (last live slot + 1),
+// 0 for a block outside the grid. Slots beyond a bound are empty and
+// contribute nothing, and an empty slot below it is staged as SENTINEL
+// (and zeros) and adds +-0, so the bound changes no bit of a sum. The
+// arithmetic is the same code in all three kernels, and every f32
+// operation rounds on its own (-fmad=false), so the fused physics kernel
+// is bitwise equal to the split density + forces pair.
 #pragma once
 
 #include <string.h>
@@ -73,73 +74,21 @@ __device__ __forceinline__ int tf_world(const int* wid, int y) {
     return wid != nullptr ? wid[y] : 0;
 }
 
-// Candidate bounds of target (y, x) from the row occupancies (rows y-1,
-// y, y+1; a row or column outside the grid gets 0). Returns their max.
-__device__ __forceinline__ int tf_occ_rows(const int* occ_row, int y, int gy,
-                                           int x, int gx, int occ_c[9]) {
-    int m = 0;
-    for (int r = -1; r <= 1; ++r) {
-        const int sy = y + r;
-        const int o = (sy >= 0 && sy < gy) ? occ_row[sy] : 0;
-        for (int dx = -1; dx <= 1; ++dx) {
-            const int sx = x + dx;
-            occ_c[(r + 1) * 3 + dx + 1] = (sx >= 0 && sx < gx) ? o : 0;
-        }
-        m = max(m, o);
-    }
-    return m;
-}
-
 // Candidate predictions from a shared tile of float2 (x, y) per slot,
 // laid out [row][slot][column] with pitch pw, grid row and column of
-// [0][.][0] at (oy, ox); empty slots hold SENTINEL. CHECK_LIVE skips an
-// empty slot; without it an empty slot is visited, and its SENTINEL
-// prediction puts it beyond every radius, so it adds exactly 0 to every
-// sum: the tile kernels of density.cu and forces.cu, whose walks reach
-// only staged slots, save the test.
-template <bool CHECK_LIVE>
+// [0][.][0] at (oy, ox). An empty slot holds SENTINEL, which puts it
+// beyond every radius: it adds exactly 0 to every sum, so the walk needs
+// no liveness test (the tile kernels' walks reach only staged slots).
 struct TfSharedPred {
     const float2* sp;
     int oy, ox;
     int K, pw;
 
-    __device__ __forceinline__ bool pred(int sy, int kp, int sx, float& nx,
+    __device__ __forceinline__ void pred(int sy, int kp, int sx, float& nx,
                                          float& ny) const {
         const float2 q = sp[((sy - oy) * K + kp) * pw + (sx - ox)];
-        if (CHECK_LIVE && !tf_live(q.x)) return false;
         nx = q.x;
         ny = q.y;
-        return true;
-    }
-};
-
-// physics.cu's candidate fields: predictions from the +-2 tile sp (as
-// TfSharedPred), velocities sv and (pressure, 1/rho) sr from the +-1 tile
-// of pitch hw, whose [0][.][0] is one row and column inside sp's.
-struct TfSharedCand {
-    const float2* sp;
-    const float2* sv;
-    const float2* sr;
-    int oy, ox;
-    int K, pw, hw;
-
-    __device__ __forceinline__ bool cand(int sy, int kp, int sx, float& nx,
-                                         float& ny, float& nvx, float& nvy,
-                                         float& p, float& ir) const {
-        const int lr = sy - oy;
-        const int lc = sx - ox;
-        const float2 q = sp[(lr * K + kp) * pw + lc];
-        if (!tf_live(q.x)) return false;
-        nx = q.x;
-        ny = q.y;
-        const int j = ((lr - 1) * K + kp) * hw + (lc - 1);
-        const float2 v = sv[j];
-        const float2 pr = sr[j];
-        nvx = v.x;
-        nvy = v.y;
-        p = pr.x;
-        ir = pr.y;
-        return true;
     }
 };
 
@@ -154,7 +103,7 @@ struct TfTileCand {
     int oy, ox;
     int K, pw;
 
-    __device__ __forceinline__ bool cand(int sy, int kp, int sx, float& nx,
+    __device__ __forceinline__ void cand(int sy, int kp, int sx, float& nx,
                                          float& ny, float& nvx, float& nvy,
                                          float& p, float& ir) const {
         const int i = ((sy - oy) * K + kp) * pw + (sx - ox);
@@ -166,7 +115,32 @@ struct TfTileCand {
         nvy = u.y;
         p = u.z;
         ir = u.w;
-        return true;
+    }
+};
+
+// physics.cu's candidate fields: the predictions sp of its +-2 halo
+// (pitch pw, [0][.][0] at grid (oy, ox)) and (velocity, pressure, 1/rho)
+// sq of its +-1 halo (pitch qw, [0][.][0] one row and column inside
+// sp's), empty slots staged as in TfTileCand.
+struct TfHaloCand {
+    const float2* sp;
+    const float4* sq;
+    int oy, ox;
+    int K, pw, qw;
+
+    __device__ __forceinline__ void cand(int sy, int kp, int sx, float& nx,
+                                         float& ny, float& nvx, float& nvy,
+                                         float& p, float& ir) const {
+        const int lr = sy - oy;
+        const int lc = sx - ox;
+        const float2 q = sp[(lr * K + kp) * pw + lc];
+        const float4 u = sq[((lr - 1) * K + kp) * qw + lc - 1];
+        nx = q.x;
+        ny = q.y;
+        nvx = u.x;
+        nvy = u.y;
+        p = u.z;
+        ir = u.w;
     }
 };
 
@@ -188,7 +162,7 @@ __device__ __forceinline__ float tf_density_sum(const Src& src, int y, int x,
                 if (kp >= occ_c[(r + 1) * 3 + dx + 1]) continue;
                 const int sx = x + dx;
                 float nx, ny;
-                if (!src.pred(sy, kp, sx, nx, ny)) continue;
+                src.pred(sy, kp, sx, nx, ny);
                 const float ddx = nx - tx;
                 const float ddy = ny - ty;
                 const float r2 = ddx * ddx + ddy * ddy;
@@ -295,9 +269,7 @@ __device__ __forceinline__ void tf_forces_target(
                 if (kp >= occ_c[(r + 1) * 3 + dx + 1]) continue;
                 const int sx = x + dx;
                 float nx, ny, nvx_c, nvy_c, p_nb, inv_rho;
-                if (!src.cand(sy, kp, sx, nx, ny, nvx_c, nvy_c, p_nb,
-                              inv_rho))
-                    continue;
+                src.cand(sy, kp, sx, nx, ny, nvx_c, nvy_c, p_nb, inv_rho);
                 const float ddx = nx - px0;
                 const float ddy = ny - py0;
                 const float r2 = ddx * ddx + ddy * ddy;
@@ -460,17 +432,25 @@ __device__ __forceinline__ void tf_forces_target(
 }
 
 // ------------------------------------------------------------ tiles
-// density.cu, forces.cu and rebin.cu run one block of TF_TILE_THREADS per
-// tile of R x C cells (R and C powers of two, C dividing the grid width,
-// picked from K by tf_resident_tile) with all K slots, and stage the
-// tile's +-1 halo of (R + 2) x (C + 2) cells in shared memory
-// (tf_stage_halo): slot_bytes per slot (density: a float2; forces: a
-// float4 and a float2; rebin: its packed cell), [row][slot][column],
-// pitch C + 2, then socc, the occupancy (last live slot + 1) of each halo
-// cell, then a list of R x C x K entries (density and forces: the tile's
-// live targets; rebin: each target cell's arrivals), then two per-warp
-// count rows, then the halo rows' occupancies and world dt.
+// The tile kernels run one block of TF_TILE_THREADS threads (physics.cu:
+// TF_PHYSICS_THREADS; the helpers take the count as a template parameter
+// NT) per tile of R x C cells (R and C powers of two, C dividing the grid width, picked from K
+// by tf_pick_tile) with all K slots, and stage the tile's halo, `halo`
+// cells a side: (R + 2 halo) x (C + 2 halo) cells in shared memory
+// (tf_stage_halo). density.cu, forces.cu, rebin.cu and rebin_valid.cu
+// stage a halo of 1, physics.cu one of 2 (it computes the density of the
+// +-1 ring that its forces read). Per slot slot_bytes (density: a float2;
+// forces: a float4 and a float2; rebin, rebin_valid: a packed cell;
+// physics: a float2, beside a float4 per slot of its +-1 ring),
+// [row][slot][column], pitch C + 2 halo; then socc, the occupancy (last
+// live slot + 1) of each halo cell, then a list of K entries per cell
+// whose 3 x 3 stencil lies in the halo, (R + 2 halo - 2) x
+// (C + 2 halo - 2) cells (density and forces: the tile's live targets;
+// physics: the ring's live slots, then the centre's; rebin: each target
+// cell's arrivals), then two per-warp count rows, then the halo rows'
+// occupancies and world dt.
 #define TF_TILE_THREADS 256
+#define TF_PHYSICS_THREADS 512
 #define TF_TILE_WARPS (TF_TILE_THREADS / 32)
 // halo slots each thread loads before it stores any (memory parallelism)
 #define TF_STAGE_BATCH 4
@@ -478,10 +458,13 @@ __device__ __forceinline__ void tf_forces_target(
 #define TF_SMEM_MAX 232448
 
 __host__ __device__ __forceinline__ long long tf_tile_smem_bytes(
-        int slot_bytes, int K, int R, int C) {
-    const long long halo = (long long)(R + 2) * (C + 2);
-    return (long long)slot_bytes * K * halo + 4LL * halo + 4LL * R * C * K +
-           8LL * TF_TILE_WARPS + 8LL * (R + 2);
+        int slot_bytes, int K, int R, int C, int halo = 1,
+        int nt = TF_TILE_THREADS) {
+    const long long cells = (long long)(R + 2 * halo) * (C + 2 * halo);
+    const long long listed =
+        (long long)(R + 2 * halo - 2) * (C + 2 * halo - 2);
+    return (long long)slot_bytes * K * cells + 4LL * cells +
+           4LL * listed * K + 8LL * (nt / 32) + 8LL * (R + 2 * halo);
 }
 
 // The tiles as (log2 rows, log2 columns), by cells and then by halo
@@ -490,13 +473,15 @@ __host__ __device__ __forceinline__ long long tf_tile_smem_bytes(
 // come from a sweep of every tile at K=8, 32 and 192 on the H100
 // (PERF.md): the fastest tile had 1,536-2,048 slots for density and
 // 1,024-1,536 for forces; past that the few blocks over a dense region
-// run long, below it the halo is re-read too often. rebin's cap is its
-// own sweep's (PERF.md).
+// run long, below it the halo is re-read too often. rebin's,
+// rebin_valid's and physics' caps are their own sweeps' (PERF.md).
 static const int kTfTiles[][2] = {{3, 5}, {2, 5}, {1, 5}, {1, 4}, {0, 5},
                                   {0, 4}, {0, 3}, {0, 2}, {0, 1}, {0, 0}};
 #define TF_DENSITY_SLOTS 2048
 #define TF_FORCES_SLOTS 1536
 #define TF_REBIN_SLOTS 4096
+#define TF_REBIN_VALID_SLOTS 2048
+#define TF_PHYSICS_SLOTS 4096
 
 // The tile of a kernel whose block needs smem_bytes(R, C) of shared
 // memory at capacity K: the first of kTfTiles within max_slots target
@@ -529,38 +514,43 @@ static inline bool tf_resident_tile(int slot_bytes, int max_slots, int K,
 
 // The shared arrays behind a tile's staged fields.
 struct TfTileSmem {
-    int* socc;   // [(R + 2) (C + 2)] halo cells' occupancies
-    int* list;   // [R C K] live targets
-    int* wsum;   // [2][TF_TILE_WARPS] per-warp counts
-    int* srow;   // [R + 2] halo rows' occupancies (0 outside the grid)
-    float* sdt;  // [R + 2] halo rows' world dt
+    int* socc;   // [(R + 2 halo) (C + 2 halo)] halo cells' occupancies
+    int* list;   // [(R + 2 halo - 2) (C + 2 halo - 2) K] listed slots
+    int* wsum;   // [2][NT / 32] per-warp counts
+    int* srow;   // [R + 2 halo] halo rows' occupancies (0 outside the grid)
+    float* sdt;  // [R + 2 halo] halo rows' world dt
+    int halo;    // halo cells a side
 };
 
-__device__ __forceinline__ TfTileSmem tf_tile_smem(float2* fields_end,
-                                                   int K, int R, int C) {
+__device__ __forceinline__ TfTileSmem tf_tile_smem(void* fields_end, int K,
+                                                   int R, int C, int halo = 1,
+                                                   int nt = TF_TILE_THREADS) {
     TfTileSmem t;
     t.socc = reinterpret_cast<int*>(fields_end);
-    t.list = t.socc + (R + 2) * (C + 2);
-    t.wsum = t.list + R * C * K;
-    t.srow = t.wsum + 2 * TF_TILE_WARPS;
-    t.sdt = reinterpret_cast<float*>(t.srow + R + 2);
+    t.list = t.socc + (R + 2 * halo) * (C + 2 * halo);
+    t.wsum = t.list + (R + 2 * halo - 2) * (C + 2 * halo - 2) * K;
+    t.srow = t.wsum + 2 * (nt / 32);
+    t.sdt = reinterpret_cast<float*>(t.srow + R + 2 * halo);
+    t.halo = halo;
     return t;
 }
 
 // Zero the halo cells' occupancies and read the halo rows' occupancy
-// (capped at K) and world dt (column dt_col of the per-world table sc,
-// n_col columns). Ends with __syncthreads().
+// (capped at K; K in every row inside the grid without occ_row) and world
+// dt (column dt_col of the per-world table sc, n_col columns). Ends with
+// __syncthreads().
+template <int NT = TF_TILE_THREADS>
 __device__ __forceinline__ void tf_tile_begin(const TfTileSmem& t,
                                               const int* occ_row,
                                               const int* wid, const float* sc,
                                               int n_col, int dt_col, int R,
                                               int C, int K, int y0, int gy) {
-    for (int i = threadIdx.x; i < (R + 2) * (C + 2); i += TF_TILE_THREADS)
-        t.socc[i] = 0;
-    for (int lr = threadIdx.x; lr < R + 2; lr += TF_TILE_THREADS) {
-        const int sy = y0 + lr - 1;
+    const int HR = R + 2 * t.halo, HC = C + 2 * t.halo;
+    for (int i = threadIdx.x; i < HR * HC; i += NT) t.socc[i] = 0;
+    for (int lr = threadIdx.x; lr < HR; lr += NT) {
+        const int sy = y0 + lr - t.halo;
         const bool in = sy >= 0 && sy < gy;
-        t.srow[lr] = in ? min(occ_row[sy], K) : 0;
+        t.srow[lr] = in ? (occ_row != nullptr ? min(occ_row[sy], K) : K) : 0;
         t.sdt[lr] = in ? sc[tf_world(wid, sy) * n_col + dt_col] : 0.0f;
     }
     __syncthreads();
@@ -574,45 +564,46 @@ __device__ __forceinline__ int tf_max_rows(const int* srow, int n) {
 }
 
 // Halo slot i of the flat (row, slot below kh, column) walk of the
-// staging; false when i is past the walk, the slot at or beyond its row's
-// occupancy or the column outside the grid.
+// staging, at grid column sx; false when i is past the walk, the slot at
+// or beyond its row's occupancy or the column outside the grid.
 __device__ __forceinline__ bool tf_halo_slot(int i, int n, int kh, int HC,
                                              const int* srow, int x0, int gx,
-                                             int& lr, int& kk, int& lc) {
+                                             int halo, int& lr, int& kk,
+                                             int& lc, int& sx) {
     if (i >= n) return false;
     const int t = i / HC;
     lc = i - t * HC;
     lr = t / kh;
     kk = t - lr * kh;
-    const int sx = x0 + lc - 1;
+    sx = x0 + lc - halo;
     return kk < srow[lr] && sx >= 0 && sx < gx;
 }
 
-// Stage the tile's +-1 halo: the flat (row, slot below the halo rows'
-// largest occupancy, column) walk of tf_halo_slot, TF_STAGE_BATCH slots'
-// loads in flight per thread. load(u, gi) reads grid slot gi into batch
-// entry u; store(u, lr, kk, lc) stages entry u at halo row lr, slot kk,
-// column lc. Slots at or beyond their row's occupancy and columns outside
-// the grid are not visited. Ends with __syncthreads().
-template <class Load, class Store>
+// Stage the tile's halo: the flat (row, slot below the halo rows' largest
+// occupancy, column) walk of tf_halo_slot, TF_STAGE_BATCH slots' loads in
+// flight per thread. load(u, gi) reads grid slot gi into batch entry u;
+// store(u, lr, kk, lc) stages entry u at halo row lr, slot kk, column lc.
+// Slots at or beyond their row's occupancy and columns outside the grid
+// are not visited. Ends with __syncthreads().
+template <int NT = TF_TILE_THREADS, class Load, class Store>
 __device__ __forceinline__ void tf_stage_halo(const TfTileSmem& t, int R,
                                               int C, int K, int y0, int x0,
                                               int gx, Load load,
                                               Store store) {
-    const int HR = R + 2, HC = C + 2;
+    const int HR = R + 2 * t.halo, HC = C + 2 * t.halo;
     const int kh = tf_max_rows(t.srow, HR);
     const int n = HR * kh * HC;
     for (int i0 = threadIdx.x; i0 < n;
-         i0 += TF_STAGE_BATCH * TF_TILE_THREADS) {
+         i0 += TF_STAGE_BATCH * NT) {
         int lr[TF_STAGE_BATCH], kk[TF_STAGE_BATCH], lc[TF_STAGE_BATCH];
         bool ok[TF_STAGE_BATCH];
 #pragma unroll
         for (int u = 0; u < TF_STAGE_BATCH; ++u) {
-            ok[u] = tf_halo_slot(i0 + u * TF_TILE_THREADS, n, kh, HC,
-                                 t.srow, x0, gx, lr[u], kk[u], lc[u]);
+            int sx;
+            ok[u] = tf_halo_slot(i0 + u * NT, n, kh, HC, t.srow, x0, gx,
+                                 t.halo, lr[u], kk[u], lc[u], sx);
             if (ok[u])
-                load(u, tf_index(y0 + lr[u] - 1, kk[u], x0 + lc[u] - 1, K,
-                                 gx));
+                load(u, tf_index(y0 + lr[u] - t.halo, kk[u], sx, K, gx));
         }
 #pragma unroll
         for (int u = 0; u < TF_STAGE_BATCH; ++u)
@@ -621,79 +612,96 @@ __device__ __forceinline__ void tf_stage_halo(const TfTileSmem& t, int R,
     __syncthreads();
 }
 
-// The slots (kk, lr, lc) of the tile's centre cells below slot kc for
-// which live(lr, kk, lc) holds, listed in (slot, row, column) order as
-// kk << 16 | lr << 8 | lc into list, so that the lanes of a warp take
-// neighbouring columns of one slot row: their global loads and stores are
-// coalesced and their shared reads hit distinct banks. live() runs once
-// for every slot below kc (it may also write the outputs of a slot it
-// rejects); wsum holds two rows of TF_TILE_WARPS counts. Returns the
-// count, the same in every thread; the list is complete when it returns.
-template <class Live>
-__device__ __forceinline__ int tf_tile_list(int* list, int* wsum, int kc,
-                                            int lgR, int lgC, Live live) {
-    const int R = 1 << lgR, C = 1 << lgC;
+// The indices i < n for which pick(i, e) holds, each listed as the entry
+// e that pick sets, in order of i (block-wide compaction: a whole-warp
+// ballot and per-warp counts). pick() runs once for every i < n (it may
+// also write the outputs of an index it rejects); wsum holds two rows of
+// NT / 32 counts. Returns the count, the same in every thread; the list is
+// complete when it returns.
+template <int NT = TF_TILE_THREADS, class Pick>
+__device__ __forceinline__ int tf_tile_compact(int* list, int* wsum, int n,
+                                               Pick pick) {
     const int lane = threadIdx.x & 31;
     const int w = threadIdx.x >> 5;
-    const int n = (kc * R) << lgC;
     int base = 0;
     int buf = 0;
-    for (int i0 = 0; i0 < n; i0 += TF_TILE_THREADS, buf ^= 1) {
+    constexpr int W = NT / 32;
+    for (int i0 = 0; i0 < n; i0 += NT, buf ^= 1) {
         const int i = i0 + threadIdx.x;
-        const int lc = i & (C - 1);
-        const int lr = (i >> lgC) & (R - 1);
-        const int kk = i >> (lgC + lgR);
-        const bool ok = i < n && live(lr, kk, lc);
+        int e = 0;
+        const bool ok = i < n && pick(i, e);
         const unsigned b = __ballot_sync(0xffffffffu, ok);
         // two count rows: a warp may fill this chunk's row while a slower
         // one still reads the previous chunk's
-        if (lane == 0) wsum[buf * TF_TILE_WARPS + w] = __popc(b);
+        if (lane == 0) wsum[buf * W + w] = __popc(b);
         __syncthreads();
         int off = base, tot = 0;
-        for (int j = 0; j < TF_TILE_WARPS; ++j) {
-            const int c = wsum[buf * TF_TILE_WARPS + j];
+        for (int j = 0; j < W; ++j) {
+            const int c = wsum[buf * W + j];
             off += j < w ? c : 0;
             tot += c;
         }
-        if (ok)
-            list[off + __popc(b & ((1u << lane) - 1u))] =
-                (kk << 16) | (lr << 8) | lc;
+        if (ok) list[off + __popc(b & ((1u << lane) - 1u))] = e;
         base += tot;
     }
     __syncthreads();
     return base;
 }
 
+// The slots (kk, lr, lc) of the tile's centre cells below slot kc for
+// which live(lr, kk, lc) holds, listed in (slot, row, column) order as
+// kk << 16 | lr << 8 | lc into list, so that the lanes of a warp take
+// neighbouring columns of one slot row: their global loads and stores are
+// coalesced and their shared reads hit distinct banks. live() runs once
+// for every slot below kc (it may also write the outputs of a slot it
+// rejects). Returns the count (tf_tile_compact).
+template <int NT = TF_TILE_THREADS, class Live>
+__device__ __forceinline__ int tf_tile_list(int* list, int* wsum, int kc,
+                                            int lgR, int lgC, Live live) {
+    const int R = 1 << lgR, C = 1 << lgC;
+    return tf_tile_compact<NT>(list, wsum, (kc * R) << lgC,
+                               [&](int i, int& e) {
+        const int lc = i & (C - 1);
+        const int lr = (i >> lgC) & (R - 1);
+        const int kk = i >> (lgC + lgR);
+        e = (kk << 16) | (lr << 8) | lc;
+        return live(lr, kk, lc);
+    });
+}
+
 // The live targets of the tile's centre cells, listed by tf_tile_list.
 // The walk covers the slots below kc, the centre rows' largest occupancy;
 // a centre slot there is live below its cell's socc with a live staged
-// prediction. Every other centre slot in the grid gets empty(y, kk, x).
-template <class Empty>
+// prediction (sp: the staged predictions, pitch C + 2 halo). Every other
+// centre slot in the grid gets empty(y, kk, x).
+template <int NT = TF_TILE_THREADS, class Empty>
 __device__ __forceinline__ int tf_tile_targets(const float2* sp,
                                                const TfTileSmem& t, int kc,
                                                int lgR, int lgC, int K,
                                                int y0, int x0, int gy,
                                                Empty empty) {
-    const int R = 1 << lgR, C = 1 << lgC, HC = C + 2;
+    const int R = 1 << lgR, C = 1 << lgC;
+    const int h = t.halo, HC = C + 2 * h;
     // slots at or beyond kc: empty in every centre cell
     const int n_all = (K * R) << lgC;
     for (int i = ((kc * R) << lgC) + threadIdx.x; i < n_all;
-         i += TF_TILE_THREADS) {
+         i += NT) {
         const int lr = (i >> lgC) & (R - 1);
         if (y0 + lr < gy) empty(y0 + lr, i >> (lgC + lgR), x0 + (i & (C - 1)));
     }
-    return tf_tile_list(t.list, t.wsum, kc, lgR, lgC,
-                        [&](int lr, int kk, int lc) {
+    return tf_tile_list<NT>(t.list, t.wsum, kc, lgR, lgC,
+                            [&](int lr, int kk, int lc) {
         if (y0 + lr >= gy) return false;
-        const bool live = kk < t.socc[(lr + 1) * HC + lc + 1] &&
-                          tf_live(sp[((lr + 1) * K + kk) * HC + lc + 1].x);
+        const bool live = kk < t.socc[(lr + h) * HC + lc + h] &&
+                          tf_live(sp[((lr + h) * K + kk) * HC + lc + h].x);
         if (!live) empty(y0 + lr, kk, x0 + lc);
         return live;
     });
 }
 
-// Candidate bounds of the target in centre cell (lr, lc) from the halo
-// cells' occupancies (0 for a cell outside the grid). Returns their max.
+// Candidate bounds of a target from the halo cells' occupancies (0 for a
+// cell outside the grid), its stencil's top-left halo cell at (lr, lc)
+// (a centre cell's (lr, lc) with a halo of 1). Returns their max.
 __device__ __forceinline__ int tf_occ_tile(const int* socc, int lr, int lc,
                                            int HC, int occ_c[9]) {
     int m = 0;

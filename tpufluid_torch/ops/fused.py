@@ -26,15 +26,15 @@ Plain versions and kernels share one reduction order, which is also the
 TPU kernels': candidates by slot (ascending, below ``occ3``), and for each
 candidate the nine (row, dx) blocks summed into a partial that is then
 added to the running total. Every f32 operation rounds on its own (the
-kernels build with ``-fmad=false``). The rebin, density and forces
-kernels walk each candidate cell only below its own occupancy; the slots
-they skip are empty and add (or pack) nothing, so the bits are the same.
+kernels build with ``-fmad=false``). The kernels walk each candidate
+cell only below its own occupancy; the slots they skip are empty and add
+(or pack) nothing, so the bits are the same.
 
-The rebin, density and forces kernels run one block per tile of cells
-with all K slots, staged in shared memory; the kernels pick the tile from
-K (one design at every K, smaller tiles as K grows; a launch fails if
-even a 1 x 1 tile does not fit), and :func:`rebin_tile`,
-:func:`density_tile` and :func:`forces_tile` report it.
+Every kernel here runs one block per tile of cells with all K slots,
+staged in shared memory; the kernels pick the tile from K (one design at
+every K, smaller tiles as K grows; a launch fails if even a 1 x 1 tile
+does not fit), and :func:`rebin_tile`, :func:`density_tile`,
+:func:`forces_tile` and :func:`physics_tile` report it.
 """
 
 from __future__ import annotations
@@ -71,21 +71,16 @@ LAUNCHES = {"rebin": 0, "rebin_row_shift": 0, "density": 0,
 
 # variant flag bits of the forces and physics kernels (resident_math.cuh)
 _WRAP, _HAS_FF, _ST, _ADAPT = 1, 2, 4, 8
-# (rows, columns) tiles of the physics kernel, largest first, and the
-# shared memory a block may use on the H100; a tile that leaves room for
-# two blocks per SM is preferred
-PHYSICS_TILES = ((4, 32), (2, 32), (1, 32), (1, 16), (1, 8))
-SMEM_MAX = 232448
-SMEM_TWO_BLOCKS = 116 * 1024
 
 
-def _tile(fn, k: int, name: str):
+def _tile(fn, k: int, name: str, hint: str = ""):
     """(rows, columns) of the tile the library's ``fn`` picks at capacity
     ``k``; raises if none fits shared memory."""
     packed = fn(k)
     if packed == 0:
         raise ValueError(f"{name}: cell_capacity {k} does not fit the "
-                         f"shared memory of a block with a 1 x 1 tile")
+                         f"shared memory of a block with a 1 x 1 tile"
+                         f"{hint}")
     return packed >> 8, packed & 255
 
 
@@ -99,6 +94,23 @@ def forces_tile(k: int):
     """(rows, columns) of the forces kernel's tile at capacity ``k``, as
     ``csrc/forces.cu`` picks it (builds the kernels if needed)."""
     return _tile(_build.load().tf_forces_tile, k, "forces_integrate")
+
+
+_USE_SPLIT = "; use the split density + forces_integrate pair"
+
+
+def physics_tile(k: int):
+    """(rows, columns) of the physics kernel's tile at capacity ``k``, as
+    ``csrc/physics.cu`` picks it (builds the kernels if needed); raises,
+    naming the split pair, above :func:`physics_max_capacity`."""
+    return _tile(_build.load().tf_physics_tile, k, "physics", _USE_SPLIT)
+
+
+def physics_max_capacity() -> int:
+    """The largest cell capacity K the physics kernel takes (~600): the
+    largest whose +-2 halo fits a block's shared memory with a 1 x 1 tile
+    (builds the kernels if needed)."""
+    return _build.load().tf_physics_max_k()
 
 
 def rebin_tile(k: int):
@@ -817,27 +829,6 @@ def forces_integrate(pos_x, pos_y, vel_x, vel_y, pres, invr, occ_row,
 
 # -------------------------------- density + forces + integration, fused
 
-def physics_smem_bytes(k: int, rows: int, cols: int) -> int:
-    """Shared memory of one physics block: predictions of the +-2 tile,
-    velocities, pressure and 1/rho of the +-1 tile."""
-    return 4 * k * (2 * (rows + 4) * (cols + 4) + 4 * (rows + 2) * (cols + 2))
-
-
-def physics_tile(k: int):
-    """(rows, columns) of the physics kernel's tile at capacity ``k``: the
-    largest that leaves room for two blocks per SM, else the largest that
-    fits one; raises if none fits."""
-    for limit in (SMEM_TWO_BLOCKS, SMEM_MAX):
-        for rows, cols in PHYSICS_TILES:
-            if physics_smem_bytes(k, rows, cols) <= limit:
-                return rows, cols
-    raise ValueError(
-        f"physics: no tile fits cell_capacity {k} in {SMEM_MAX} bytes of "
-        f"shared memory (the smallest, {PHYSICS_TILES[-1]}, needs "
-        f"{physics_smem_bytes(k, *PHYSICS_TILES[-1])}); use the split "
-        f"density + forces_integrate pair")
-
-
 def physics_plain(pos_x, pos_y, vel_x, vel_y, occ_row, params,
                   settings: SimSettings, frame, ff_cells=None,
                   x_boundary="bounce", surface_tension: bool = False,
@@ -862,7 +853,8 @@ def physics(pos_x, pos_y, vel_x, vel_y, occ_row, params,
     Same contract as :func:`density` followed by
     :func:`forces_integrate`, and bitwise equal to that pair: returns
     (pos_x', pos_y', vel_x', vel_y'). pres and 1/rho never leave the
-    block (``csrc/physics.cu``)."""
+    block (``csrc/physics.cu``, on the tile it picks from K:
+    :func:`physics_tile`)."""
     flags = _flags(x_boundary, ff_cells, surface_tension,
                    adaptive_subsampling)
     ffs = () if ff_cells is None else tuple(ff_cells)
@@ -875,7 +867,6 @@ def physics(pos_x, pos_y, vel_x, vel_y, occ_row, params,
     _check_occ(occ_row, gy)
     if ffs:
         _check_ff(ffs, gy, gx)
-    rows, cols = physics_tile(k)
     dev = pos_x.device
     wid_t = _opt_rows(wid, gy, "wid", dev)
     sc = _forces_sc(params, settings, wid_t, dev, physics=True)
@@ -889,7 +880,11 @@ def physics(pos_x, pos_y, vel_x, vel_y, occ_row, params,
         _ptr(pos_x), _ptr(pos_y), _ptr(vel_x), _ptr(vel_y), _ptr(occ_row),
         _ptr(wid_t), _ptr(sc), _ptr(fr),
         *([_ptr(f) for f in ffs] if ffs else [None, None]),
-        *(_ptr(o) for o in outs), gy, k, gx, rows, cols, flags, h2, norm,
+        *(_ptr(o) for o in outs), gy, k, gx, flags, h2, norm,
         _consts_struct(settings), _stream(dev))
+    if err != 0 and k > physics_max_capacity():  # the launcher found no tile
+        raise ValueError(f"physics: cell_capacity {k} is above the largest "
+                         f"the kernel stages in shared memory, "
+                         f"{physics_max_capacity()}{_USE_SPLIT}")
     _launched("physics", err)
     return tuple(outs)

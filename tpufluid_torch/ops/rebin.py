@@ -22,7 +22,8 @@ a step path. It is ported for completeness, with its own semantics:
   over the K slots and multiplied by the f32 ``1/K``.
 
 On the CPU :func:`rebin_valid` runs :func:`rebin_valid_plain`; on a CUDA
-device it launches ``csrc/rebin_valid.cu`` and counts the launch in
+device it launches ``csrc/rebin_valid.cu`` (on the tile of target cells it
+picks from K: :func:`rebin_valid_tile`) and counts the launch in
 ``LAUNCHES``, or raises; it never falls back.
 """
 
@@ -33,10 +34,17 @@ import torch
 from .. import _build
 from ..params import SimSettings
 from .fused import (_as_f32, _cells, _check_grids, _f32, _launched, _on_cuda,
-                    _ptr, _rebin_consts, _stream)
+                    _ptr, _rebin_consts, _stream, _tile)
 
 # kernel launches (CUDA tensors only)
 LAUNCHES = {"rebin_valid": 0}
+
+
+def rebin_valid_tile(k: int):
+    """(rows, columns) of the rebin_valid kernel's tile of target cells at
+    capacity ``k``, as ``csrc/rebin_valid.cu`` picks it (builds the
+    kernels if needed)."""
+    return _tile(_build.load().tf_rebin_valid_tile, k, "rebin_valid")
 
 
 def rebin_valid_plain(pos_x, pos_y, vel_x, vel_y, valid_f, dt,
