@@ -79,7 +79,25 @@ Builds the CUDA kernels from ``tpufluid_torch/csrc`` and runs, in order:
     first and last rows and the wrapped first and last columns, and on
     the K=8 grid with its empty slots at nonzero positions;
 19. ``FluidApp.set_mouse`` at scene_1m: 16 resident ticks with the mouse
-    repelling at the centre against 16 with it off.
+    repelling at the centre against 16 with it off;
+20. the chamfer push-out field of a video frame: the compiled host copy
+    (``csrc/distfield.cpp``) against its NumPy plain version, bitwise, on
+    a seeded 1024x1024 stack of 4 frames (a moving dark disc), both timed;
+21. ``render --video-field`` through the CLI's parser on the default
+    scene, resident engine, 4 frames at 960x540: frame i under field i,
+    no loss, all finite, no particle inside the last disc, ms/frame;
+22. the NaN-provenance tools at scene_1m: ``diagnose_resident_step``
+    clean and with an inf in a live velocity (``input`` not finite),
+    ``checked_step`` on the grid and dense engines, clean and with a NaN
+    input (located at ``input``);
+23. the row-band sharded resident step on D = 2 and 4 shards of one card
+    (``[cuda:0] * D``), scene_1m's lattice with 16 far movers, without
+    and with a push field that varies by row: bitwise against its plain version over 4
+    synced steps (rebin with a row shift on band + 2 rows, density and
+    forces on band + 4 rows with the windowed field), then 32 steps with
+    the counts reset, held to the single-device step (live count, no
+    loss, sorted positions), and the audited traffic against the
+    formula; ms/step at D = 1, 2, 4.
 
 Any failed phase raises and the script exits non-zero. Output: progress
 lines (each after the seconds since the start), then the card's name and
@@ -108,6 +126,11 @@ EPSILON = 1.19209290e-07
 # BASELINE.md's measured cross-backend per-step bounds, relative where the
 # value exceeds 1: what the kernels must meet against the plain versions
 POS_TOL, VEL_TOL, RHO_TOL = 4.8e-7, 3.8e-5, 9.2e-5
+# the sharded step against the single-device step, each coordinate sorted:
+# only the order of slots in merged edge rows and far-inserted cells
+# differs, so f32 sums round apart: a few ulps of |x| <= 52 (3.8e-6) by
+# step 4, and by step 32 at most a twentieth of h, however chaos grows it
+SHARD_DRIFT_4, SHARD_DRIFT_32 = 1e-4, 1e-2
 # the metaball coarse fields: |kernel - plain| <= FIELD_TOL * max(1, |plain|)
 FIELD_TOL = 1e-5
 SEED = 1234
@@ -1762,6 +1785,383 @@ def mouse_run(dev, card):
     return dict(outward_repel=outward[-1], outward_off=outward[0])
 
 
+# ------------------------- video fields, debugging and shards (20-23)
+
+def video_frames(t: int = 4, size: int = 1024):
+    """u8[T, size, size] frames: white, with a dark disc of about 1 world
+    unit at the default scene's scale that moves right a frame, inside its
+    fluid block (seeded radius and rows). Returns (frames, discs in
+    pixels)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    yy, xx = np.mgrid[:size, :size]
+    frames = np.full((t, size, size), 255, np.uint8)
+    discs = []
+    for i in range(t):
+        r = size * (0.018 + 0.004 * rng.random())
+        cx = size * (0.45 + 0.01 * i)
+        cy = size * (0.48 + 0.04 * rng.random())
+        frames[i][(xx - cx) ** 2 + (yy - cy) ** 2 < r * r] = 0
+        discs.append((cx, cy, r))
+    return frames, discs
+
+
+def chamfer_check(frames, dev, card):
+    """The compiled chamfer copy against its NumPy plain version, bitwise,
+    on each frame; both timed on the host (the compiled one with its
+    upload)."""
+    import numpy as np
+    from tpufluid_torch.native import distfield
+
+    calls0 = distfield.CALLS["chamfer"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = [distfield.chamfer_push_field(f, dev) for f in frames]
+    torch.cuda.synchronize()
+    t_c = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = [distfield._chamfer_numpy(f) for f in frames]
+    t_n = time.perf_counter() - t0
+    for i, (g, w) in enumerate(zip(got, want)):
+        g = g.cpu().numpy()
+        if not (g.dtype == w.dtype and g.shape == w.shape
+                and np.array_equal(g.view(np.uint32), w.view(np.uint32))):
+            raise AssertionError(f"chamfer frame {i}: compiled != NumPy")
+    if distfield.CALLS["chamfer"] - calls0 != len(frames):
+        raise AssertionError("chamfer: the compiled copy did not run")
+    t = len(frames)
+    h, w = frames.shape[1:]
+    out = dict(frames=t, size=[h, w], compiled_ms_per_frame=1e3 * t_c / t,
+               numpy_ms_per_frame=1e3 * t_n / t)
+    log(f"chamfer {t} x {h}x{w}: compiled copy bitwise equal to NumPy; "
+        f"compiled {out['compiled_ms_per_frame']:.1f} ms/frame (host, with "
+        f"the upload), NumPy {out['numpy_ms_per_frame']:.1f} ms/frame "
+        f"({card})")
+    return out
+
+
+def video_render(frames, discs, card):
+    """``render --video-field`` through the CLI's parser on the default
+    scene (100k), resident engine, 4 frames at 960x540: frame i renders
+    under field i, nothing is lost, every particle is finite, and none
+    sits more than h inside the last frame's disc. K=32: the first step
+    pushes the disc's particles onto its rim (the 256-tick loss audit that
+    would regrow a smaller K comes after the 64 ticks)."""
+    import numpy as np
+    from tpufluid_torch import cli
+    from tpufluid_torch.app import FluidApp
+    from tpufluid_torch.native import distfield
+    from tpufluid_torch.ops import resident
+
+    t = len(frames)
+    seen = []
+    orig = FluidApp.render_frame
+
+    def recorded(self, *a, **kw):
+        seen.append([j for j, f in enumerate(self._video_fields)
+                     if f is self._forcefield])
+        return orig(self, *a, **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "frames.npy")
+        np.save(path, frames)
+        out = os.path.join(tmp, "out")
+        args = cli.parser().parse_args([
+            "render", "--device", "cuda", "--neighbor-mode", "resident",
+            "--cell-capacity", "32", "--video-field", path, "--frames",
+            str(t), "--width", "960", "--height", "540", "--out", out])
+        torch.cuda.synchronize()
+        calls0 = distfield.CALLS["chamfer"]
+        reset_counts()
+        FluidApp.render_frame = recorded
+        try:
+            t0 = time.perf_counter()
+            app = cli.render(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            FluidApp.render_frame = orig
+        launches = read_counts()
+        names = sorted(os.listdir(out))
+    m = app.metrics()
+    ps, live = resident.to_particles(app.grid_state, app.settings)
+    pos = ps.position[:int(live)]
+    finite = bool(torch.isfinite(pos).all()
+                  and torch.isfinite(ps.velocity[:int(live)]).all())
+    sx, sy = app.settings.size
+    tw, th = app.settings.texture_size
+    cx, cy, r = discs[-1]
+    wx = ((cx + 0.5) / tw - 0.5) * sx
+    wy = ((cy + 0.5) / th - 0.5) * sy
+    wr = r * sx / tw
+    h = app.settings.smoothing_radius
+    d = torch.hypot(pos[:, 0] - wx, pos[:, 1] - wy)
+    inside = int((d < wr - h).sum())
+    near = int((d < wr + 1.0).sum())
+    res = dict(frames=len(names), fields_seen=seen, tick=m["tick"],
+               lost=m["lost_particles"], live=int(live), finite=finite,
+               inside_last_disc=inside, within_1_of_its_rim=near,
+               wall_s=wall, ms_per_frame=1e3 * wall / t,
+               chamfer_calls=distfield.CALLS["chamfer"] - calls0)
+    log(f"render --video-field (default scene, {t} frames 960x540, "
+        f"resident): fields by frame {seen}, tick {m['tick']}, lost "
+        f"{m['lost_particles']}, live {int(live)}, finite {finite}, "
+        f"{inside} particles more than h inside the last disc "
+        f"({near} within 1 of its rim); wall {wall:.2f} s, "
+        f"{res['ms_per_frame']:.1f} ms/frame with the {t} fields' set-up "
+        f"({card}); launches {launches}")
+    if not (names == [f"frame_{i:05d}.png" for i in range(t)]
+            and seen == [[i] for i in range(t)]
+            and m["tick"] == 16 * t and m["lost_particles"] == 0
+            and int(live) == 100_000 and finite and inside == 0
+            and near > 100 and res["chamfer_calls"] == t):
+        raise AssertionError(f"video render: {res}")
+    if not (launches["metaball_coarse"] == t
+            and launches["forces_integrate_has_ff"]
+            == launches["forces_integrate"] == launches["rebin"]
+            == launches["density"] == 16 * t):
+        raise AssertionError(f"video render launches: {launches}")
+    return res
+
+
+def debugging_check(s8, params, dev, card):
+    """diagnose_resident_step at scene_1m, clean (the spawn lattice) and
+    with an inf in a live vel_x; checked_step on the grid and dense
+    engines, clean and with a NaN input."""
+    from tpufluid_torch.ops import resident
+    from tpufluid_torch.state import init_state
+    from tpufluid_torch.utils.debugging import (checked_step,
+                                                diagnose_resident_step)
+
+    gs = resident.init_grid_state(s8, dev)
+    clean = diagnose_resident_step(gs, params, s8)
+    live = torch.nonzero(resident.valid_mask(gs))
+    y, k, x = (int(v) for v in live[live.shape[0] // 2])
+    vx = gs.vel_x.clone()
+    vx[y, k, x] = float("inf")
+    bad = diagnose_resident_step(dataclasses.replace(gs, vel_x=vx), params,
+                                 s8)
+    stages = ["input", "rebin", "density", "forces"]
+    n = s8.particle_count
+    if not (list(clean) == stages and all(v["finite"] for v in
+                                          clean.values())
+            and clean["rebin"]["over"] == 0
+            and clean["input"]["live"] == clean["forces"]["live"] == n):
+        raise AssertionError(f"diagnose, clean: {clean}")
+    if not (list(bad) == stages and not bad["input"]["finite"]):
+        raise AssertionError(f"diagnose, poisoned: {bad}")
+    st = init_state(s8, dev)
+    pos = st.position.clone()
+    pos[n // 2, 0] = float("nan")
+    nan_state = dataclasses.replace(st, position=pos, predicted=pos.clone())
+    checked = {}
+    for mode in ("grid", "dense"):
+        step = checked_step(s8, neighbor_mode=mode)
+        err, out = step(st, params)
+        err_bad, _ = step(nan_state, params)
+        checked[mode] = dict(clean=err.stage, nan_input=err_bad.stage)
+        if not (err.stage is None and err_bad.stage == "input"
+                and bool(torch.isfinite(out.position).all())):
+            raise AssertionError(f"checked_step {mode}: {checked[mode]}")
+    log(f"debugging at scene_1m: diagnose clean {clean}; poisoned input "
+        f"finite {bad['input']['finite']}, rebin finite "
+        f"{bad['rebin']['finite']}; checked_step {checked} ({card})")
+    return dict(diagnose_clean=clean, diagnose_poisoned=bad,
+                checked_step=checked)
+
+
+def sorted_drift(a, b) -> float:
+    """max over both axes of |sorted(a) - sorted(b)|: each coordinate
+    sorted on its own, which bounds nothing looser than the largest
+    per-particle difference, and needs no matching of particles."""
+    return max(float((torch.sort(a[:, i])[0] - torch.sort(b[:, i])[0])
+                     .abs().max()) for i in range(2))
+
+
+def shear_field(settings, device):
+    """A push-out field f32[H, W, 2] (pixels) that varies by row and by
+    column: bands of 7 texel rows push left or right, bands of 5 texel
+    columns up or down, at most 0.01 pixel (0.002 world units at scene_1m)
+    a step. scene_1m's fluid fills its world, so an obstacle's push-out
+    moves the fluid inside it onto its rim, past K=8 (at a hundredth of
+    the push too: 98 lost in 32 steps on an H100); this field
+    shears the fluid without piling it up, and a band's windowed cell
+    samples differ row by row."""
+    tw, th = settings.texture_size
+    ty = torch.arange(th, device=device, dtype=torch.float32)
+    tx = torch.arange(tw, device=device, dtype=torch.float32)
+    fx = 0.01 * (torch.remainder(ty, 7.0) - 3.0) / 3.0
+    fy = 0.01 * (torch.remainder(tx, 5.0) - 2.0) / 2.0
+    return torch.stack([fx[:, None].expand(th, tw),
+                        fy[None, :].expand(th, tw)], dim=-1).contiguous()
+
+
+def far_mover_state(settings, device, n_far: int = 16):
+    """The spawn lattice at rest with ``n_far`` seeded far movers (speed
+    300, up to 12 cells a step)."""
+    from tpufluid_torch.state import init_state
+
+    st = init_state(settings, "cpu")
+    g = torch.Generator().manual_seed(SEED)
+    vel = torch.zeros((settings.particle_count, 2))
+    far = torch.randperm(settings.particle_count, generator=g)[:n_far]
+    ang = torch.rand(n_far, generator=g) * 6.2831853
+    vel[far] = torch.stack([ang.cos(), ang.sin()], dim=1) * 300.0
+    return dataclasses.replace(st, position=st.position.to(device),
+                               predicted=st.predicted.to(device),
+                               velocity=vel.to(device),
+                               density=st.density.to(device),
+                               cell=st.cell.to(device),
+                               tick=st.tick.to(device))
+
+
+def sharded_runs(s8, params, field, dev, card):
+    """The row-band sharded step on D = 2 and 4 shards of one card, from
+    scene_1m's lattice with 16 far movers, without and with a push field
+    (``shear_field``): bitwise against its plain version over 4 synced
+    steps, then 32 steps with the counts reset, held to the single-device
+    step (live count, no loss, sorted positions), and audited. ms/step at
+    D = 1 (the single-device step), 2 and 4."""
+    from tpufluid_torch.ops import fused, resident
+    from tpufluid_torch.parallel import (
+        build_resident_spec, comm_audit, gather_resident, make_resident_mesh,
+        make_plain_sharded_resident_step, make_sharded_resident_step,
+        shard_grid_state, unshard_grid_state)
+
+    n = s8.particle_count
+    gs0 = resident.from_particles(far_mover_state(s8, dev), s8)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    out = {}
+    for has_ff in (False, True):
+        tag = "push field" if has_ff else "plain"
+        extra = (field,) if has_ff else ()
+        single = resident.make_grid_step(s8, has_force_field=has_ff)
+        single(gs0, params, *extra)  # warm
+        torch.cuda.synchronize()
+        ref, ref4 = gs0, None
+        start.record()
+        for i in range(32):
+            ref = single(ref, params, *extra)
+            if i == 3:
+                ref4 = ref
+        end.record()
+        torch.cuda.synchronize()
+        row = {1: dict(ms_per_step=start.elapsed_time(end) / 32,
+                       lost=int(ref.lost))}
+        if not has_ff:  # where a step's time goes, D=1 and (below) D=2, 4
+            held = [ref]
+
+            def one():
+                held[0] = single(held[0], params)
+
+            row[1]["profile"] = profile_steps(
+                None, 8, "sharded scene_1m D=1 (the single-device step)",
+                step=one)
+        p4, live4 = resident.to_particles(ref4, s8)
+        p32, live32 = resident.to_particles(ref, s8)
+        for d in (2, 4):
+            spec = build_resident_spec(s8, d)
+            mesh = make_resident_mesh(spec, [dev] * d)
+            kstep = make_sharded_resident_step(spec, mesh,
+                                               has_force_field=has_ff)
+            pstep = make_plain_sharded_resident_step(spec, mesh,
+                                                     has_force_field=has_ff)
+            sgs = shard_grid_state(gs0, spec, mesh)
+            torch.use_deterministic_algorithms(True)
+            for i in range(4):
+                k, kst = kstep(sgs, params, *extra)
+                p, pst = pstep(sgs, params, *extra)
+                kg, pg = unshard_grid_state(k), unshard_grid_state(p)
+                for f in ("pos_x", "pos_y", "vel_x", "vel_y", "occ_row",
+                          "tick", "lost"):
+                    if not torch.equal(getattr(kg, f), getattr(pg, f)):
+                        raise AssertionError(
+                            f"sharded D={d} {tag} step {i}: {f}: kernels "
+                            f"!= plain")
+                if not torch.equal(kst["n_valid"], pst["n_valid"]):
+                    raise AssertionError(f"sharded D={d} {tag}: n_valid")
+                sgs = p
+            torch.use_deterministic_algorithms(False)
+            sgs = shard_grid_state(gs0, spec, mesh)
+            kstep(sgs, params, *extra)  # warm
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            start.record()
+            for i in range(32):
+                sgs, stats = kstep(sgs, params, *extra)
+                if i == 3:
+                    s4 = sgs
+            end.record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+            ms = start.elapsed_time(end) / 32
+            audit = comm_audit.audit_step(kstep, sgs, params, *extra)
+            model = comm_audit.resident_comm_formula(spec)
+            profile = None
+            if not has_ff:
+                held = [sgs]
+
+                def one():
+                    held[0] = kstep(held[0], params)[0]
+
+                profile = profile_steps(None, 8, f"sharded scene_1m D={d}",
+                                        step=one)
+            ps4, l4 = gather_resident(s4, spec)
+            ps, live = gather_resident(sgs, spec)
+            drift4 = sorted_drift(ps4.position[:int(l4)],
+                                  p4.position[:int(live4)])
+            drift32 = sorted_drift(ps.position[:int(live)],
+                                   p32.position[:int(live32)])
+            want = {**dict.fromkeys(launches, 0), **dict.fromkeys(
+                ("rebin", "rebin_row_shift", "density",
+                 "forces_integrate"), 32 * d)}
+            if has_ff:
+                want["forces_integrate_has_ff"] = 32 * d
+            row[d] = dict(
+                ms_per_step=ms, wall_ms_per_step=1e3 * wall / 32,
+                launches_per_step={k: v / 32 for k, v in launches.items()
+                                   if v},
+                n_valid=stats["n_valid"].tolist(), lost=int(sgs.lost),
+                drift_4=drift4, drift_32=drift32,
+                bytes_per_step=audit["ppermute_bytes_total"],
+                far_packet_bytes=audit["all_gather_bytes_conditional"],
+                rows_per_shard=spec.rows_per_dev,
+                far_capacity=spec.far_capacity, profile=profile)
+            log(f"sharded scene_1m D={d} ({tag}, {spec.rows_per_dev} rows "
+                f"a shard on one card): {ms:.4f} ms/step (CUDA events over "
+                f"32 steps; host {row[d]['wall_ms_per_step']:.4f}), "
+                f"launches/step {row[d]['launches_per_step']}, n_valid "
+                f"{row[d]['n_valid']}, lost {int(sgs.lost)}; against the "
+                f"single-device step: live {int(live)} vs {int(live32)}, "
+                f"sorted position drift {drift4:.3g} at step 4, "
+                f"{drift32:.3g} at step 32; audited "
+                f"{audit['ppermute_bytes_per_dir']} B/dir a step "
+                f"(formula {model['bytes_per_dir']}), far packet "
+                f"{audit['all_gather_bytes_conditional']} B ({card})")
+            if not (int(live) == int(live32) == n and int(sgs.lost) == 0
+                    and int(ref.lost) == 0 and int(l4) == n
+                    and sum(row[d]["n_valid"]) == n
+                    and drift4 <= SHARD_DRIFT_4 and drift32 <= SHARD_DRIFT_32):
+                raise AssertionError(f"sharded D={d} {tag}: {row[d]}")
+            if launches != want:
+                raise AssertionError(f"sharded D={d} {tag} launches: "
+                                     f"{launches}")
+            if not (audit["ppermute_bytes_per_dir"] == model["bytes_per_dir"]
+                    and audit["all_gather_bytes_conditional"]
+                    == model["far_packet_bytes"]
+                    and audit["all_gather_bytes_unconditional"] == 0):
+                raise AssertionError(f"sharded D={d} audit: {audit}")
+        log(f"sharded scene_1m ({tag}): ms/step D=1 "
+            f"{row[1]['ms_per_step']:.4f}, D=2 {row[2]['ms_per_step']:.4f}, "
+            f"D=4 {row[4]['ms_per_step']:.4f} ({card})")
+        out[tag] = row
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -2190,6 +2590,20 @@ def main() -> int:
     # 19. FluidApp.set_mouse: 16 resident ticks at scene_1m, mouse on
     mouse = mouse_run(dev, card)
 
+    # 20. the chamfer field of a video frame, compiled against NumPy
+    vframes, discs = video_frames()
+    chamfer = chamfer_check(vframes, dev, card)
+
+    # 21. render --video-field on the default scene
+    video = video_render(vframes, discs, card)
+    del vframes
+
+    # 22. the NaN-provenance tools at scene_1m
+    debug = debugging_check(s8, scene.params, dev, card)
+
+    # 23. the row-band sharded step, D = 2 and 4 on one card
+    sharded = sharded_runs(s8, scene.params, shear_field(s8, dev), dev, card)
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         if name == "metaball_coarse":
@@ -2237,6 +2651,9 @@ def main() -> int:
                 "density": "density_tile",
                 "forces_integrate": "forces_tile"}[name])(8))
         if name in ("rebin", "density", "forces_integrate"):
+            entry["sharded_path_launches"] = {
+                f"D={d}": round(32 * sharded["plain"][d][
+                    "launches_per_step"].get(name, 0)) for d in (2, 4)}
             key = {"rebin": "row_shift"}.get(name, "wid")
             entry[key] = dict(launches=b_launches[f"{name}_{key}"],
                               grid=[544, 8, 512], **batched[name])
@@ -2261,7 +2678,10 @@ def main() -> int:
                                       world_stats=c4_stats),
                       "resident_physics": resident_physics,
                       "cli_variants": cli_variants, "tile_gates": gates,
-                      "mouse": mouse}))
+                      "mouse": mouse, "chamfer": chamfer,
+                      "video_render": video, "debugging": debug,
+                      "sharded": {tag: {f"D={d}": r for d, r in row.items()}
+                                  for tag, row in sharded.items()}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -929,3 +929,91 @@ def test_set_mouse_on_card(cuda):
     near = (r < 4.0) & (r > 0.5)
     outward = (st.position * st.velocity).sum(dim=1)[near] / r[near]
     assert int(near.sum()) > 1000 and float(outward.mean()) > 0.2
+
+
+def test_chamfer_compiled_matches_numpy(cuda):
+    """The chamfer field's compiled host copy (csrc/distfield.cpp, built
+    with the kernels) against its NumPy plain version, bitwise: random
+    masks, one with no source (the border seeds), non-square ones."""
+    from tpufluid_torch.native import distfield
+
+    rng = np.random.default_rng(7)
+    masks = [(rng.random((64, 64)) < 0.05).astype(np.uint8) * 255,
+             rng.integers(0, 256, (37, 53)).astype(np.uint8),
+             np.zeros((30, 30), np.uint8),
+             (rng.random((21, 70)) < 0.1).astype(np.uint8) * 200]
+    for m in masks:
+        before = distfield.CALLS["chamfer"]
+        got = distfield.chamfer_push_field(m, cuda)
+        assert got.device.type == "cuda"
+        assert distfield.CALLS["chamfer"] == before + 1
+        want = distfield._chamfer_numpy(m)
+        np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
+                                      want.view(np.uint32))
+
+
+@pytest.mark.parametrize("d,has_ff", [(2, False), (4, True)])
+def test_sharded_step_matches_plain_on_card(cuda, d, has_ff):
+    """The row-band sharded step on D shards of one card against the same
+    step on the kernels' plain versions, bitwise over 4 synced steps, with
+    far movers crossing bands; each shard launches rebin (with its row
+    shift), density and forces once a step."""
+    from tpufluid_torch.parallel import (
+        build_resident_spec, make_plain_sharded_resident_step,
+        make_resident_mesh, make_sharded_resident_step, shard_grid_state,
+        unshard_grid_state)
+
+    s = tt.SimSettings(particle_count=2048, particle_spacing=0.1,
+                       smoothing_radius=0.2, size=(8.0, 8.0),
+                       cell_capacity=8, texture_size=(72, 72))
+    gs = _state(s, cuda, seed=21)
+    spec = build_resident_spec(s, d)
+    mesh = make_resident_mesh(spec, [cuda] * d)
+    params = tt.TickParams.default(cuda, gravity=(0.0, -9.8))
+    extra = ()
+    if has_ff:
+        g = torch.Generator().manual_seed(5)
+        extra = ((torch.rand((72, 72, 2), generator=g) - 0.5).to(cuda),)
+    kstep = make_sharded_resident_step(spec, mesh, has_force_field=has_ff)
+    pstep = make_plain_sharded_resident_step(spec, mesh,
+                                             has_force_field=has_ff)
+    sgs = shard_grid_state(gs, spec, mesh)
+    for i in range(4):
+        before = dict(fused.LAUNCHES)
+        k, kst = kstep(sgs, params, *extra)
+        torch.cuda.synchronize()
+        assert fused.LAUNCHES["rebin_row_shift"] == before[
+            "rebin_row_shift"] + d
+        assert fused.LAUNCHES["forces_integrate"] == before[
+            "forces_integrate"] + d
+        p, pst = pstep(sgs, params, *extra)
+        kg, pg = unshard_grid_state(k), unshard_grid_state(p)
+        for f in ("pos_x", "pos_y", "vel_x", "vel_y", "occ_row", "tick",
+                  "lost"):
+            assert torch.equal(getattr(kg, f), getattr(pg, f)), (i, f)
+        assert torch.equal(kst["n_valid"], pst["n_valid"])
+        sgs = p
+
+
+def test_diagnose_on_card_matches_cpu(cuda):
+    """diagnose_resident_step through the kernels on the card reports what
+    it reports through their plain versions on the CPU (the kernels are
+    bitwise), clean and with an inf in a live velocity."""
+    from tpufluid_torch.utils.debugging import diagnose_resident_step
+
+    s = tt.SimSettings(particle_count=2048, particle_spacing=0.1,
+                       smoothing_radius=0.2, size=(8.0, 8.0),
+                       cell_capacity=8)
+    gs = _state(s, cuda, seed=3)
+    live = torch.nonzero(resident.valid_mask(gs))
+    y, k, x = (int(v) for v in live[live.shape[0] // 2])
+    vx = gs.vel_x.clone()
+    vx[y, k, x] = float("inf")
+    cpu = torch.device("cpu")
+    for g in (gs, dataclasses.replace(gs, vel_x=vx)):
+        on_card = diagnose_resident_step(g, tt.TickParams.default(cuda), s)
+        on_cpu = diagnose_resident_step(
+            resident.GridState(**{f.name: getattr(g, f.name).to(cpu)
+                                  for f in dataclasses.fields(g)}),
+            tt.TickParams.default(cpu), s)
+        assert on_card == on_cpu

@@ -151,6 +151,30 @@ def test_obstacle_force_field_and_cells_bitwise():
     assert (np.asarray(want[0]) != 0).sum() > 20
 
 
+@pytest.mark.parametrize("row_start,n_rows", [(-2, 10), (5, 9), (20, 12)])
+def test_forcefield_cells_row_window_bitwise(row_start, n_rows):
+    """The row window of a sharded band (``gxp``, ``row_start``,
+    ``n_rows``): a band's halo reaches past the first and last grid rows,
+    where the ring mask is taken in global rows."""
+    s = _settings()
+    jo, to = _objects()
+    ts = interop.settings_from(s)
+    jfield = jff.obstacle_force_field(jo, s)
+    tfield = tff.obstacle_force_field(to, ts)
+    want = jresident.forcefield_cells(jfield, s, 128, row_start=row_start,
+                                      n_rows=n_rows)
+    got = tresident.forcefield_cells(tfield, ts, 128, row_start=row_start,
+                                     n_rows=n_rows)
+    for g, w, n in zip(got, want, ("ffx", "ffy")):
+        assert g.shape == (n_rows, 128)
+        _bitwise(g, w, n)
+    # the window is the matching rows of the whole grid's samples
+    whole = tresident.forcefield_cells(tfield, ts, 128, row_start=-2,
+                                       n_rows=40)
+    for g, w in zip(got, whole):
+        assert torch.equal(g, w[row_start + 2:row_start + 2 + n_rows])
+
+
 _jdensity = jax.jit(
     lambda px, py, vx, vy, occ, p, s: jfused.density(
         px, py, vx, vy, occ, p.mass, p.delta, p.pressure_constant,
@@ -290,5 +314,9 @@ def test_fluid_app_objects_match_jax_and_push_out():
     tapp.set_objects(tff.Objects.empty("cpu"))
     tapp.run(1)
     assert tapp.metrics()["tick"] == 5
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tapp.set_video_field(np.zeros((1, 72, 72), np.uint8))
+    # a video field (tests/test_torch_video.py) turns the field back on
+    tapp.set_video_field(np.full((1, 72, 72), 255, np.uint8))
+    tapp.run(1)
+    assert tapp.metrics()["tick"] == 6
+    with pytest.raises(ValueError):
+        tapp.set_video_field(np.zeros((1, 64, 64), np.uint8))

@@ -299,7 +299,7 @@ def test_resident_variants_match_jax(kw, monkeypatch):
     assert app.metrics()["tick"] == 2
 
 
-def test_cli_run_on_cpu(capsys):
+def test_cli_run_on_cpu(capsys, tmp_path):
     args = ["run", "--device", "cpu", "--neighbor-mode", "resident",
             "--particles", "256", "--size", "3.2", "3.2", "--steps", "8",
             "--report-every", "4", "--cell-capacity", "8"]
@@ -307,8 +307,12 @@ def test_cli_run_on_cpu(capsys):
     assert app.metrics()["tick"] == 8
     assert "done: 8 steps" in capsys.readouterr().out
     assert cli.main(["info"]) == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(args[:-4] + ["--steps", "1", "--video-field", "v.npy"])
+    frames = np.full((2, 64, 64), 255, np.uint8)
+    frames[:, 20:40, 20:40] = 0
+    np.save(tmp_path / "v.npy", frames)
+    assert cli.main(args[:-4] + ["--steps", "1", "--texture-size", "64",
+                                 "64", "--video-field",
+                                 str(tmp_path / "v.npy")]) == 0
     # the default engine (dense) runs
     assert cli.main(["run", "--device", "cpu", "--particles", "64",
                      "--size", "1.6", "1.6", "--steps", "1"]) == 0

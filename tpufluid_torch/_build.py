@@ -1,9 +1,10 @@
 """Build and load the CUDA kernels of ``tpufluid_torch/csrc``.
 
 At first use, ``nvcc`` compiles every ``csrc/*.cu`` for Hopper
-(``sm_90a``), one process per source, all started together, and links the
-objects into one shared library with a plain C interface, which is then
-loaded with ``ctypes``. The library lands in ``tpufluid_torch/_build/<hash>/``, keyed by
+(``sm_90a``), and the host-only ``csrc/*.cpp`` (the chamfer field of
+``native.distfield``), one process per source, all started together, and
+links the objects into one shared library with a plain C interface,
+which is then loaded with ``ctypes``. The library lands in ``tpufluid_torch/_build/<hash>/``, keyed by
 a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads at once. A failed build raises with the compiler's
 output; nothing falls back.
@@ -55,14 +56,20 @@ _SIGNATURES = {
     + [_P],
     "tf_sph_forces_tile": [_I],
     "tf_sph_forces_max_k": [],
+    "tf_chamfer_push_field": [_P, _I, _I, _P],
 }
 
 _lib = None
 build_seconds = None  # wall time of the build that this process ran
 
 
+def _compiled():
+    """The sources compiled one to an object: kernels, then host code."""
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cpp"))
+
+
 def _sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    return _compiled() + sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -99,11 +106,11 @@ def _build(out_dir: Path) -> Path:
     lib = out_dir / LIB_NAME
     tag = f"{os.getpid()}.tmp"
     nvcc = _nvcc()
-    objs = [out_dir / f"{src.stem}.{tag}.o"
-            for src in sorted(CSRC.glob("*.cu"))]
+    srcs = _compiled()
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in srcs]
     t0 = time.perf_counter()
     results = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
-                        for src, o in zip(sorted(CSRC.glob("*.cu")), objs)])
+                        for src, o in zip(srcs, objs)])
     tmp = out_dir / f"{LIB_NAME}.{tag}"
     if all(rc == 0 for _, rc, _ in results):
         results += _run_all([[nvcc, "-shared", "-o", str(tmp),

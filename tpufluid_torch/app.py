@@ -4,11 +4,11 @@ The reference's event loop as a Python API (src/main.rs:20-318): the
 Running/Render/Step/Stopped state machine with its fixed-timestep
 accumulator, ticks and burst ``run()``, obstacles, the capacity policies,
 the offline render mode (16 ticks per frame, src/main.rs:153-216) and
-checkpoints. Engines: ``"resident"`` (the slot grid kept between steps,
-with the loss audit and regrow-and-replay) and the per-step engines of
+checkpoints, and video force fields (one grayscale frame per rendered
+frame). Engines: ``"resident"`` (the slot grid kept between steps, with
+the loss audit and regrow-and-replay) and the per-step engines of
 ``step.make_step``: ``"grid"``, ``"naive"``, ``"dense"`` and ``"pallas"``;
-each takes every variant flag. What is not ported (video force fields)
-raises ``NotImplementedError`` naming its ROADMAP item.
+each takes every variant flag.
 """
 
 from __future__ import annotations
@@ -20,8 +20,10 @@ import time
 import warnings
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
+from .native import distfield
 from .params import SimSettings, TickParams, suggest_cell_capacity
 from .state import init_state
 from .step import NEIGHBOR_MODES, make_multi_step, make_step
@@ -31,10 +33,6 @@ from .ops import render_binned, render_grid
 from .ops import resident as residentops
 from .utils import io as ioutils
 from .utils.profiling import StepTimer, health_check
-
-
-def _unported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md {item}")
 
 
 class SimState(enum.Enum):
@@ -116,6 +114,8 @@ class FluidApp:
         self._step_kw = dict(x_boundary=x_boundary or "bounce",
                              surface_tension=surface_tension,
                              adaptive_subsampling=adaptive_subsampling)
+        self._video_fields = []
+        self._video_index = 0
         self.set_objects(objects if objects is not None
                          else ff.Objects.empty(self.device))
         self.n_regrows = 0
@@ -172,7 +172,33 @@ class FluidApp:
             self.params.mouse_state.fill_(int(state))
 
     def set_video_field(self, frames) -> None:
-        _unported("video force fields", "queue 1, video force fields")
+        """Drive the obstacle force field from grayscale frames u8[T, H, W]
+        of the texture's size (completes reference component 2.15, whose
+        upload the reference left commented out, src/main.rs:120-126).
+        Dark pixels (<= 128) are obstacles. Each frame's chamfer field is
+        computed once, here, on the app's device; ``tick`` and ``run`` use
+        the current one, and the offline render mode moves to the next
+        after each rendered frame (``advance_video_frame``)."""
+        frames = np.asarray(frames)
+        if frames.ndim != 3:
+            raise ValueError(f"expected u8[T, H, W], got {frames.shape}")
+        th, tw = frames.shape[1:]
+        if (tw, th) != tuple(self.settings.texture_size):
+            raise ValueError(
+                f"frame size {(tw, th)} != texture_size "
+                f"{self.settings.texture_size}")
+        self._video_fields = [distfield.chamfer_push_field(f, self.device)
+                              for f in frames]
+        self._video_index = 0
+        self._forcefield = self._video_fields[0]
+        self._rebuild_step()
+
+    def advance_video_frame(self) -> None:
+        """Move to the next video field, cycling; no-op without one."""
+        if self._video_fields:
+            self._video_index = ((self._video_index + 1)
+                                 % len(self._video_fields))
+            self._forcefield = self._video_fields[self._video_index]
 
     def _rebuild_step(self) -> None:
         has_ff = self._forcefield is not None
@@ -422,12 +448,16 @@ class FluidApp:
                     mode: str = "metaball",
                     progress: Optional[Callable[[int], None]] = None):
         """The offline render mode (src/main.rs:153-216) as a generator:
-        16 ticks per frame, then one u8[H, W, 4] numpy frame."""
+        16 ticks per frame, then one u8[H, W, 4] numpy frame. Frame i runs
+        under video field i (mod T): the reference decodes one packet per
+        rendered frame from the first frame on (src/main.rs:154-197), so
+        the field advances after each frame."""
         self.sim_state = SimState.RENDER
         for i in range(frames):
             self.run(self.TICKS_PER_RENDER_FRAME)
             frame = self.render_frame(width, height, mode=mode)
             yield renderops.to_rgba8(frame).cpu().numpy()
+            self.advance_video_frame()
             if progress:
                 progress(i)
         self.sim_state = SimState.STOPPED

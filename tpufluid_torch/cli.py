@@ -2,7 +2,7 @@
 
 The flags of ``python -m tpufluid``, plus ``--device`` (default ``cuda``).
 Every engine runs (``--neighbor-mode``, default ``dense``) with every
-variant flag; video force fields raise ``NotImplementedError``.
+variant flag, obstacles and video force fields (``--video-field``).
 """
 
 from __future__ import annotations
@@ -61,7 +61,10 @@ def _add_common(p):
     p.add_argument("--rect", type=float, nargs=5, action="append",
                    default=[], metavar=("X", "Y", "W", "H", "ROT"),
                    help="add a rotated rect obstacle (repeatable)")
-    p.add_argument("--video-field", type=str, default=None)
+    p.add_argument("--video-field", type=str, default=None,
+                   help="grayscale frames (.npy/.npz or any ffmpeg input) "
+                        "of the texture's size driving the obstacle force "
+                        "field; dark = obstacle")
 
 
 def _device(name: str) -> torch.device:
@@ -75,11 +78,8 @@ def build_app(args):
     from .app import FluidApp
     from .ops.forcefield import Objects
     from .params import SimSettings, TickParams
+    from .utils import io as ioutils
 
-    if args.video_field:
-        raise NotImplementedError(
-            "video force fields are not ported yet: ROADMAP.md queue 1, "
-            "video force fields")
     device = _device(args.device)
     settings = SimSettings(
         particle_count=args.particles, particle_spacing=args.spacing,
@@ -101,6 +101,8 @@ def build_app(args):
                    x_boundary=args.x_boundary,
                    surface_tension=args.surface_tension,
                    adaptive_subsampling=args.adaptive_subsampling)
+    if args.video_field:
+        app.set_video_field(ioutils.load_gray_frames(args.video_field))
     if args.checkpoint and os.path.exists(args.checkpoint):
         app.load(args.checkpoint)
     return app

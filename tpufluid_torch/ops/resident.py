@@ -214,34 +214,44 @@ def _reinsert_far(gs: GridState, px, py, vx, vy, n_far, dt,
     slot = occ_cell.reshape(-1)[cy2 * gxp + cx2] + rank
     fits = ok & (slot < k)
     flat = torch.where(fits, (cy2 * k + slot) * gxp + cx2, size)
-
-    def put(grid, vals):
-        buf = torch.cat([grid.reshape(-1), grid.new_zeros(1)])
-        buf.index_put_((flat,), vals)
-        return buf[:size].reshape(grid.shape)
-
-    px, py = put(px, rows[:, 0]), put(py, rows[:, 1])
-    vx, vy = put(vx, rows[:, 2]), put(vy, rows[:, 3])
+    px, py, vx, vy = (put_flat(g, flat, rows[:, f])
+                      for f, g in enumerate((px, py, vx, vy)))
     dropped = (n_far - fits.sum()).to(torch.int32)
     return px, py, vx, vy, occ_row_of(px), dropped
 
 
-def forcefield_cells(forcefield: torch.Tensor, settings: SimSettings):
+def put_flat(grid: torch.Tensor, flat: torch.Tensor, vals: torch.Tensor):
+    """``grid`` with ``vals`` written at the flat slot indices ``flat``;
+    an index equal to ``grid.numel()`` drops its value (the indices below
+    it are distinct)."""
+    size = grid.numel()
+    buf = torch.cat([grid.reshape(-1), grid.new_zeros(1)])
+    buf.index_put_((flat,), vals)
+    return buf[:size].reshape(grid.shape)
+
+
+def forcefield_cells(forcefield: torch.Tensor, settings: SimSettings,
+                     gxp: int | None = None, row_start: int = 0,
+                     n_rows: int | None = None):
     """Sample the [H, W, 2] pixel push-out field at the grid-cell centres.
 
-    Returns (ffx, ffy) f32[Gy, Gxp] (state rows and padded columns) of
-    pixel-space vectors: the forces kernel normalises in pixel space and
-    scales the position push to world units. The sentinel ring and the
-    pad rows and columns are zero."""
+    Returns (ffx, ffy) f32[n_rows, gxp] of pixel-space vectors: the forces
+    kernel normalises in pixel space and scales the position push to
+    world units. The sentinel ring and the pad rows and columns are zero.
+    By default the rows are the state's (``_rows``) and the columns its
+    padded width; ``row_start``/``n_rows`` take the window of global rows
+    ``row_start + arange(n_rows)`` (a row band of the sharded step, whose
+    halo may reach past either end of the grid: such rows are zero)."""
     gy, gw = settings.grid_h, settings.grid_w
-    n_rows, gxp = _rows(settings), _gxp(settings)
+    n_rows = _rows(settings) if n_rows is None else n_rows
+    gxp = _gxp(settings) if gxp is None else gxp
     dev = forcefield.device
     f32 = torch.float32
     h = settings.smoothing_radius
     half = torch.tensor(settings.size, dtype=f32, device=dev) * 0.5
     tex_w, tex_h = settings.texture_size
     # cell c covers [(c-1)h - half, c h - half) (grid.cell_xy's inverse)
-    rows = torch.arange(n_rows, dtype=torch.int32, device=dev)
+    rows = row_start + torch.arange(n_rows, dtype=torch.int32, device=dev)
     wx = (torch.arange(gxp, dtype=f32, device=dev) - 0.5) * h - half[0]
     wy = (rows.to(f32) - 0.5) * h - half[1]
     # the texel as step.sample_force_field picks it: uv = p / size + 0.5;

@@ -177,7 +177,12 @@ def make_plain_step(settings: SimSettings, **kw):
 
 def _make_step(settings: SimSettings, neighbor_mode: str,
                surface_tension: bool, has_force_field: bool,
-               x_boundary: str, adaptive_subsampling: bool, passes=None):
+               x_boundary: str, adaptive_subsampling: bool, passes=None,
+               audit=None):
+    """``audit(stage, *tensors)``, where given, sees each stage's output
+    (``utils.debugging.checked_step``): ``input``, ``predict``,
+    ``density``, ``forces``, ``integrate``."""
+    audit = audit or (lambda stage, *tensors: None)
     if neighbor_mode not in NEIGHBOR_MODES:
         raise ValueError(f"unknown neighbor_mode {neighbor_mode!r}")
     if x_boundary not in ("bounce", "wrap"):
@@ -193,8 +198,10 @@ def _make_step(settings: SimSettings, neighbor_mode: str,
                              "forcefield argument")
         ff = forcefield if has_force_field else None
         frame = state.tick + 1
+        audit("input", state.position, state.velocity)
         pred = predict_positions(state.position, state.velocity,
                                  params.delta, settings)
+        audit("predict", pred)
         binning = gridops.bin_particles(gridops.cell_id(pred, settings),
                                         settings)
         perm = binning.perm
@@ -210,9 +217,12 @@ def _make_step(settings: SimSettings, neighbor_mode: str,
                 surface_tension=surface_tension,
                 adaptive_subsampling=adaptive_subsampling)
             accel = torch.stack([fpx + fvx, fpy + fvy], dim=-1)
+            audit("density", dens)
+            audit("forces", accel)
             pred_s, vel_s, pos_s = g6[:, 0:2], g6[:, 2:4], g6[:, 4:6]
             new_pos, new_vel = _integrate(pos_s, vel_s, pred_s, dens, accel,
                                           params, settings, ff, x_boundary)
+            audit("integrate", new_pos, new_vel)
             return ParticleState(position=new_pos, predicted=pred_s,
                                  velocity=new_vel, density=dens,
                                  cell=binning.sorted_cells, tick=frame)
@@ -235,6 +245,7 @@ def _make_step(settings: SimSettings, neighbor_mode: str,
         # (funcs.wgsl:202, compute.wgsl:70)
         dens = pairs.density(pred_s, nb_pred, nb_valid, params.mass, h)
         dens = torch.clamp(torch.clamp(dens, min=EPSILON), min=0.1)
+        audit("density", dens)
 
         # forces (compute.wgsl:160-299); tie-break seed: position hash plus
         # the frame salt (cf. compute.wgsl:161)
@@ -267,9 +278,11 @@ def _make_step(settings: SimSettings, neighbor_mode: str,
                 pred_s, nb_pred, nb_dens, nb_valid, params.mass, h,
                 sqr_radius, params.surface_tension_threshold,
                 params.surface_tension_coefficient, st_seed)
+        audit("forces", accel)
 
         new_pos, new_vel = _integrate(pos_s, vel_s, pred_s, dens, accel,
                                       params, settings, ff, x_boundary)
+        audit("integrate", new_pos, new_vel)
         return ParticleState(position=new_pos, predicted=pred_s,
                              velocity=new_vel, density=dens,
                              cell=binning.sorted_cells, tick=frame)

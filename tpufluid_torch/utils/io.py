@@ -8,6 +8,8 @@
   no native library, no PIL.
 * mp4 export pipes raw frames into an ``ffmpeg`` binary and raises when
   there is none.
+* Video force fields read grayscale frame stacks from ``.npy``/``.npz``,
+  or decode any container through an ``ffmpeg`` binary.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import shutil
 import struct
 import subprocess
 import zlib
+from typing import Optional
 
 import numpy as np
 import torch
@@ -186,3 +189,49 @@ def save_mp4(path: str, frames, fps: int = 30) -> str:
     if proc.wait() != 0:
         raise RuntimeError("ffmpeg encode failed")
     return path
+
+
+# ------------------------------------------------------------ video frames
+
+def load_gray_frames(path: str,
+                     max_frames: Optional[int] = None) -> np.ndarray:
+    """Grayscale frame stack u8[T, H, W] from ``.npy``/``.npz`` (the first
+    array of the archive), or any container an ``ffmpeg`` binary decodes."""
+    if path.endswith(".npy"):
+        frames = np.load(path)
+    elif path.endswith(".npz"):
+        with np.load(path) as z:
+            frames = z[list(z.files)[0]]
+    else:
+        frames = _ffmpeg_decode_gray(path, max_frames)
+    if frames.ndim != 3:
+        raise ValueError(f"expected [T, H, W] gray frames, got {frames.shape}")
+    if max_frames is not None:
+        frames = frames[:max_frames]
+    return frames.astype(np.uint8)
+
+
+def _ffmpeg_decode_gray(path: str, max_frames: Optional[int]) -> np.ndarray:
+    if not ffmpeg_available():
+        raise RuntimeError(
+            "no ffmpeg binary on PATH; provide frames as .npy/.npz instead")
+    probe = subprocess.run(
+        ["ffprobe", "-v", "error", "-select_streams", "v:0",
+         "-show_entries", "stream=width,height", "-of", "csv=p=0", path],
+        capture_output=True, text=True, check=True)
+    w, h = (int(v) for v in probe.stdout.strip().split(","))
+    cmd = ["ffmpeg", "-v", "error", "-i", path, "-f", "rawvideo",
+           "-pix_fmt", "gray"]
+    if max_frames is not None:
+        cmd += ["-frames:v", str(max_frames)]
+    cmd += ["-"]
+    raw = subprocess.run(cmd, capture_output=True, check=True).stdout
+    t = len(raw) // (w * h)
+    return np.frombuffer(raw[: t * w * h], np.uint8).reshape(t, h, w)
+
+
+def gray_frame_to_outside_mask(frame) -> np.ndarray:
+    """u8[H, W] -> bool "outside" mask with the reference's > 128
+    threshold (src/main.rs:416): bright pixels are outside, dark ones
+    obstacles."""
+    return np.asarray(frame) > 128
