@@ -33,9 +33,12 @@ Builds the CUDA kernels from ``tpufluid_torch/csrc`` and runs, in order:
     default scene under gravity (the app sizes K for the compression
     peak), counters reset just before it, and both kernels bitwise
     against their plain versions on its last slot grid, timed there;
-12. engine parity on bench.py's parity scene (grid, dense and pallas, 10
-    steps), and the CLI's default ``run`` (the dense engine) on the
-    reference's default scene for 64 steps;
+12. engine parity through the harness (``tpufluid_torch.bench.run_parity``
+    on bench.py's parity scene: grid and pallas within 1e-4 of dense over
+    10 steps, the resident engine's mass and nearest-neighbour distance,
+    the 200-step invariants of dense and resident), and the CLI's default
+    ``run`` (the dense engine) on the reference's default scene for 64
+    steps;
 13. forces_integrate's variants against their plain versions, bitwise:
     x wrap at scene_1m with movers across the x walls, surface tension at
     scene_1m (and at h = 1.5, where it acts), adaptive subsampling on the
@@ -97,7 +100,21 @@ Builds the CUDA kernels from ``tpufluid_torch/csrc`` and runs, in order:
     forces on band + 4 rows with the windowed field), then 32 steps with
     the counts reset, held to the single-device step (live count, no
     loss, sorted positions), and the audited traffic against the
-    formula; ms/step at D = 1, 2, 4.
+    formula; ms/step at D = 1, 2, 4;
+24. the slab-sharded step of the per-step engines on D = 2 and 4 shards
+    of one card, scene_1m's lattice under gravity: pallas mode bitwise
+    against its plain version over 4 synced steps (the sph kernels on
+    slab-local grids 384 and 256 columns wide), dense and pallas within
+    1e-6 of the single-device step after 2 steps, 16 timed steps each
+    with the launches counted, and the audited bytes against the
+    formula; grid mode on bench.py's parity scene within 5e-4 of the
+    single-device step over 5 steps, and 40 steps of sideways gravity
+    moving particles across slabs with none lost; every slab step after
+    a warm one under ``torch.cuda.set_sync_debug_mode("error")``;
+25. the bench harness: the CLI's ``bench --config 1`` and ``--config 4``
+    (JSON lines parsed, finite ms/step), ``bench_sharded`` resident and
+    dense on ``[cuda:0] * 2``, and the CPU-vs-card divergence of the
+    grid step over 50 synced steps.
 
 Any failed phase raises and the script exits non-zero. Output: progress
 lines (each after the seconds since the start), then the card's name and
@@ -185,8 +202,8 @@ KERNELS = {
     "sph_forces": ("tpufluid_torch/csrc/sph_forces.cu",
                    "tpufluid/ops/pallas/sph.py:350"),
 }
-# bench.py:run_parity's scene and its check (PARITY.json)
-PARITY_N, PARITY_TOL = 16384, 1e-4
+# bench.py:run_parity's scene (the slab step's grid-mode gate, phase 24)
+PARITY_N = 16384
 # obstacles of phases 6 and 7 (scene_1m world: 101.95 x 104.1)
 OBSTACLES_1M = [("circle", (0.0, 0.0), 6.0), ("circle", (-20.0, 10.0), 4.0),
                 ("circle", (15.0, -12.0), 3.0),
@@ -899,36 +916,29 @@ def profile_steps(app, n_steps: int, label: str, step=None):
     return out
 
 
-def engine_parity(dev):
-    """bench.py:run_parity's short horizon: 16,384 particles, 26 x 26,
-    K=32, g -3, 10 steps through grid, dense and pallas; sorted positions
-    of grid and pallas within 1e-4 of dense (PARITY.json's checks)."""
-    import tpufluid_torch as tt
+def engine_parity():
+    """The harness's engine parity (``tpufluid_torch.bench.run_parity``)
+    on the card: grid and pallas within 1e-4 of dense over 10 steps, the
+    resident engine's mass and nearest-neighbour distance to dense, and
+    the 200-step invariants (mass, finite, in bounds, energy within 10%).
+    Returns its report; fails unless every check passed."""
+    import contextlib
+    import io
 
-    s = tt.SimSettings(particle_count=PARITY_N, particle_spacing=0.1,
-                       smoothing_radius=0.2, size=(26.0, 26.0),
-                       cell_capacity=32)
-    params = tt.TickParams.default(dev, gravity=(0.0, -3.0))
-    out, ms = {}, {}
-    for mode in ("grid", "dense", "pallas"):
-        run = tt.make_multi_step(s, 10, neighbor_mode=mode)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st = run(tt.init_state(s, dev), params)
-        torch.cuda.synchronize()
-        ms[mode] = 1e3 * (time.perf_counter() - t0) / 10
-        if not torch.isfinite(st.position).all():
-            raise AssertionError(f"parity {mode}: not finite")
-        out[mode] = torch.sort(st.position, dim=0).values
-    d = {m: float((out[m] - out["dense"]).abs().max())
-         for m in ("grid", "pallas")}
-    log(f"engine parity ({PARITY_N}, 26x26, K=32, g -3, 10 steps): max |dpos| "
-        f"sorted vs dense: grid {d['grid']:.3g}, pallas {d['pallas']:.3g} "
-        f"(bound {PARITY_TOL}); wall ms/step grid {ms['grid']:.2f}, dense "
-        f"{ms['dense']:.2f}, pallas {ms['pallas']:.2f}")
-    if not max(d.values()) < PARITY_TOL:
-        raise AssertionError(f"engine parity: {d}")
-    return dict(max_dpos=d, ms_per_step=ms)
+    from tpufluid_torch import bench
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        ok = bench.run_parity()
+    wall = time.perf_counter() - t0
+    report = json.loads(buf.getvalue().strip().splitlines()[-1])
+    log(f"engine parity (bench.run_parity: {PARITY_N}, 26x26, K=32, g -3; "
+        f"wall {wall:.1f} s): ok {ok}; " + "; ".join(
+            f"{k} {v['detail']}" for k, v in report["checks"].items()))
+    if not (ok and report["ok"]):
+        raise AssertionError(f"engine parity: {report['checks']}")
+    return dict(report, wall_s=wall)
 
 
 def cli_pallas_run(card):
@@ -2162,6 +2172,265 @@ def sharded_runs(s8, params, field, dev, card):
     return out
 
 
+# ------------------------------- the slab step and the harness (24-25)
+
+class no_host_sync:
+    """``torch.cuda.set_sync_debug_mode("error")`` while open: any call
+    that waits for the device on the host raises."""
+
+    def __enter__(self):
+        torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def slab_equal(a, b, sa, sb, what) -> None:
+    """Two slab-sharded states and their stats, bitwise."""
+    for x, y in zip(a.slabs, b.slabs):
+        for f in ("position", "velocity", "valid", "tick"):
+            if not torch.equal(getattr(x, f), getattr(y, f)):
+                raise AssertionError(f"{what}: {f} differs")
+    for k in sa:
+        if not torch.equal(sa[k], sb[k]):
+            raise AssertionError(f"{what}: stats {k} differ")
+
+
+def timed_slab(step, st, params, n_steps, label, profile_steps_n):
+    """``n_steps`` steps from ``st`` with the counts reset, every step
+    under ``no_host_sync``: device ms/step (CUDA events), host ms/step,
+    the port's kernel launches, and a torch.profiler reading."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    start.record()
+    with no_host_sync():
+        for _ in range(n_steps):
+            st, stats = step(st, params)
+        end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in read_counts().items() if v}
+    held = [st]
+
+    def one():
+        held[0] = step(held[0], params)[0]
+
+    prof = profile_steps(None, profile_steps_n, label, step=one)
+    return dict(ms_per_step=start.elapsed_time(end) / n_steps,
+                wall_ms_per_step=1e3 * wall / n_steps, launches=launches,
+                launches_per_step=prof["launches_per_step"] if prof else None,
+                busy_ms_per_step=prof["busy_ms_per_step"] if prof else None,
+                busy_share=prof["busy_share"] if prof else None), st, stats
+
+
+def slab_runs(s8, dev, card):
+    """The slab-sharded step on D = 2 and 4 shards of one card
+    (``[cuda:0] * D``). At scene_1m, from the spawn lattice under gravity:
+    pallas mode bitwise against its plain version (state, valid, stats)
+    over 4 synced steps, on slab-local grids of 384 (D=2) and 256 (D=4)
+    columns; dense and pallas held to the single-device step of their
+    mode (sorted positions within 1e-6 after 2 steps); 16 timed steps of
+    each, and the audited bytes a direction against (8 + 8 + 1) B a slot
+    of the halo and migration packs. At bench.py's parity scene: grid
+    mode within 5e-4 of the single-device grid step over 5 steps with no
+    drops, and 40 steps under gravity (30, 0) at capacity factor 3 that
+    move particles across slabs with none lost. Every slab step after a
+    warm one runs under ``no_host_sync``."""
+    import tpufluid_torch as tt
+    from tpufluid_torch.parallel import (
+        build_shard_spec, comm_audit, gather_state, init_sharded, make_mesh,
+        make_plain_sharded_step, make_sharded_step)
+
+    n = s8.particle_count
+    params = tt.TickParams.default(dev, gravity=(0.0, -9.8))
+    single = {m: tt.make_step(s8, neighbor_mode=m)
+              for m in ("dense", "pallas")}
+    out = {}
+    for d in (2, 4):
+        spec = build_shard_spec(s8, d)
+        mesh = make_mesh(spec, [dev] * d)
+        widths = [b - a for a, b in zip(spec.col_bounds[:-1],
+                                        spec.col_bounds[1:])]
+        grid = [s8.grid_h, s8.cell_capacity, -(-(max(widths) + 4) // 128)
+                * 128]
+        st0 = init_sharded(spec, mesh)
+        steps = {"pallas": make_sharded_step(spec, mesh,
+                                             neighbor_mode="pallas"),
+                 "dense": make_sharded_step(spec, mesh,
+                                            neighbor_mode="dense")}
+        pstep = make_plain_sharded_step(spec, mesh)
+        for step in (*steps.values(), pstep):
+            step(st0, params)  # warm: constants, the kernels' build
+        torch.cuda.synchronize()
+        st = st0
+        for i in range(4):
+            with no_host_sync():
+                k, kst = steps["pallas"](st, params)
+                p, pst = pstep(st, params)
+            slab_equal(k, p, kst, pst, f"slab D={d} pallas step {i}")
+            st = p
+        log(f"slab scene_1m D={d} (slabs {widths} columns, grids "
+            f"{grid}): pallas step bitwise equal to its plain version over "
+            f"4 synced steps (state, valid, stats; n_valid "
+            f"{kst['n_valid'].tolist()})")
+        row = dict(grid=grid, capacity=spec.capacity,
+                   halo_capacity=spec.halo_capacity,
+                   migration_capacity=spec.migration_capacity)
+        ref0 = gather_state(st0)
+        for mode, step in steps.items():
+            a, b, drops = st0, ref0, 0
+            for _ in range(2):
+                with no_host_sync():
+                    a, stats = step(a, params)
+                b = single[mode](b, params)
+                drops += int(stats["halo_dropped"].sum()
+                             + stats["migration_dropped"].sum())
+            drift = sorted_drift(gather_state(a).position, b.position)
+            res, _, tstats = timed_slab(
+                step, st0, params, 16, f"slab scene_1m D={d} {mode}",
+                2 if mode == "pallas" else 1)
+            res.update(drift_2=drift, drops_2=drops,
+                       n_valid=tstats["n_valid"].tolist())
+            want = ({"sph_density": 16 * d, "sph_forces": 16 * d}
+                    if mode == "pallas" else {})
+            log(f"slab scene_1m D={d} {mode}: sorted position drift "
+                f"{drift:.3g} from the single-device step after 2 steps "
+                f"(bound 1e-6), drops {drops}; {res['ms_per_step']:.4f} "
+                f"ms/step (CUDA events over 16 steps; host "
+                f"{res['wall_ms_per_step']:.4f}), launches {res['launches']}"
+                f", {res['launches_per_step']} kernels a step, n_valid "
+                f"{res['n_valid']} ({card})")
+            if not (drift <= 1e-6 and drops == 0 and res["launches"] == want
+                    and sum(res["n_valid"]) == n):
+                raise AssertionError(f"slab D={d} {mode}: {res}")
+            row[mode] = res
+        audit = comm_audit.audit_step(steps["pallas"], st0, params)
+        formula = (spec.halo_capacity + spec.migration_capacity) * (8 + 8 + 1)
+        row["bytes_per_dir"] = audit["ppermute_bytes_per_dir"]
+        log(f"slab scene_1m D={d}: audited {audit['ppermute_bytes_per_dir']}"
+            f" B/dir a step (formula {formula}: halo {spec.halo_capacity} "
+            f"+ migration {spec.migration_capacity} slots x 17 B)")
+        if not (audit["ppermute_bytes_per_dir"] == formula
+                and audit["all_gather_bytes_conditional"] == 0
+                and audit["all_gather_bytes_unconditional"] == 0):
+            raise AssertionError(f"slab D={d} audit: {audit}")
+        out[d] = row
+
+    # grid mode at bench.py's parity scene
+    sp = tt.SimSettings(particle_count=PARITY_N, particle_spacing=0.1,
+                        smoothing_radius=0.2, size=(26.0, 26.0),
+                        cell_capacity=32)
+    pp = tt.TickParams.default(dev, gravity=(0.0, -3.0))
+    pg = tt.TickParams.default(dev, gravity=(30.0, 0.0))
+    single_g = tt.make_step(sp)
+    for d in (2, 4):
+        spec = build_shard_spec(sp, d)
+        mesh = make_mesh(spec, [dev] * d)
+        gstep = make_sharded_step(spec, mesh)
+        st, ref = init_sharded(spec, mesh), tt.init_state(sp, dev)
+        gstep(st, pp)  # warm
+        worst, drops = 0.0, 0
+        for i in range(5):
+            with no_host_sync():
+                st, stats = gstep(st, pp)
+            ref = single_g(ref, pp)
+            worst = max(worst, sorted_drift(gather_state(st).position,
+                                            ref.position))
+            drops += int(stats["halo_dropped"].sum()
+                         + stats["migration_dropped"].sum())
+            if int(stats["n_valid"].sum()) != PARITY_N:
+                raise AssertionError(f"slab grid D={d} step {i}: "
+                                     f"{stats['n_valid'].tolist()}")
+        res, _, _ = timed_slab(gstep, init_sharded(spec, mesh), pp, 16,
+                               f"slab parity scene D={d} grid", 2)
+        # 40 steps of sideways gravity, room for every particle per shard
+        mspec = build_shard_spec(sp, d, capacity_factor=3.0)
+        mstep = make_sharded_step(mspec, mesh)
+        ms = init_sharded(mspec, mesh)
+        before = [int(x.valid.sum()) for x in ms.slabs]
+        mstep(ms, pg)  # warm
+        lost = torch.zeros((), dtype=torch.int64, device=dev)
+        with no_host_sync():
+            for _ in range(40):
+                ms, mstats = mstep(ms, pg)
+                lost = lost + mstats["halo_dropped"].sum() + mstats[
+                    "migration_dropped"].sum()
+        after = [int(x.valid.sum()) for x in ms.slabs]
+        mean_x = float(gather_state(ms).position[:, 0].mean())
+        res.update(drift_5=worst, drops_5=drops, migration=dict(
+            before=before, after=after, dropped=int(lost), mean_x=mean_x))
+        log(f"slab parity scene D={d} grid: sorted position drift "
+            f"{worst:.3g} from the single-device grid step over 5 steps "
+            f"(bound 5e-4), drops {drops}; {res['ms_per_step']:.4f} ms/step "
+            f"(CUDA events over 16; host {res['wall_ms_per_step']:.4f}), "
+            f"{res['launches_per_step']} kernels a step; 40 steps of "
+            f"gravity (30, 0): slabs {before} -> {after}, dropped "
+            f"{int(lost)}, mean x {mean_x:.3f} ({card})")
+        if not (worst <= 5e-4 and drops == 0 and int(lost) == 0
+                and sum(after) == PARITY_N and after[-1] > before[-1]
+                and mean_x > 0.5):
+            raise AssertionError(f"slab grid D={d}: {res}")
+        out[d]["grid_parity_scene"] = res
+    return out
+
+
+def bench_phase(dev, card):
+    """The harness: the CLI's ``bench --config 1`` and ``--config 4``
+    (their JSON lines parsed, ms_per_step finite), ``bench_sharded`` in
+    both modes on ``[cuda:0] * 2``, and the step-for-step CPU-vs-card
+    divergence of the grid step (printed per step)."""
+    import contextlib
+    import io
+    import math
+
+    from tpufluid_torch import bench, cli
+
+    out = {}
+    for config in (1, 4):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["bench", "--config", str(config)])
+        wall = time.perf_counter() - t0
+        recs = [json.loads(line) for line in buf.getvalue().splitlines()
+                if line.strip()]
+        if rc != 0 or len(recs) != 1:
+            raise AssertionError(f"bench --config {config}: rc {rc}, {recs}")
+        (key, rec), = recs[0].items()
+        finite = [math.isfinite(rec["ms_per_step"])]
+        if config == 4:
+            finite.append(math.isfinite(rec["batch8x128k_ms_per_step"]))
+        log(f"CLI bench --config {config} (wall {wall:.1f} s): {key} "
+            f"{json.dumps(rec)}")
+        if not all(finite) or rec["device"] != torch.cuda.get_device_name(0):
+            raise AssertionError(f"bench --config {config}: {rec}")
+        out[key] = rec
+    for mode in ("resident", "dense"):
+        rec = bench.bench_sharded(mode, iters=3, devices=[dev] * 2)
+        log(f"bench_sharded({mode!r}, [cuda:0] * 2): {json.dumps(rec)}")
+        if not math.isfinite(rec["ms_per_step"]):
+            raise AssertionError(f"bench_sharded {mode}: {rec}")
+        out[f"sharded_{mode}"] = rec
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        x = bench.run_cross_backend_parity()
+    log(f"CPU vs card, grid step, {x['steps']} synced steps of {x['n']}: "
+        f"max |dpos| {x['max_step_dpos']:.3g}, |dvel| "
+        f"{x['max_step_dvel']:.3g}, |drho| {x['max_step_drho']:.3g}, "
+        f"bitwise {x['bitwise']}; per step (dpos, dvel, drho): " + ", ".join(
+            f"({r['position']:.2g}, {r['velocity']:.2g}, {r['density']:.2g})"
+            for r in x["per_step"]))
+    if not all(math.isfinite(v) for v in (x["max_step_dpos"],
+                                          x["max_step_dvel"],
+                                          x["max_step_drho"])):
+        raise AssertionError(f"cross-backend parity: {x}")
+    out["cpu_vs_cuda"] = {k: v for k, v in x.items() if k != "per_step"}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -2362,7 +2631,7 @@ def main() -> int:
     cli_pallas = cli_pallas_run(card)
 
     # 12. engine parity, and the CLI's default run (the dense engine)
-    parity = engine_parity(dev)
+    parity = engine_parity()
     cli_res = cli_default_run()
 
     # 13. forces_integrate's variants at scene_1m, then the app with all
@@ -2604,6 +2873,13 @@ def main() -> int:
     # 23. the row-band sharded step, D = 2 and 4 on one card
     sharded = sharded_runs(s8, scene.params, shear_field(s8, dev), dev, card)
 
+    # 24. the slab-sharded step, D = 2 and 4 on one card
+    slab = slab_runs(s8, dev, card)
+
+    # 25. the bench harness: the CLI's bench command, bench_sharded, and
+    # the CPU-vs-card step divergence (run_parity ran in phase 12)
+    bench_res = bench_phase(dev, card)
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         if name == "metaball_coarse":
@@ -2657,6 +2933,11 @@ def main() -> int:
             key = {"rebin": "row_shift"}.get(name, "wid")
             entry[key] = dict(launches=b_launches[f"{name}_{key}"],
                               grid=[544, 8, 512], **batched[name])
+        if name.startswith("sph_"):
+            entry["sharded_path_launches"] = {
+                f"D={d}": slab[d]["pallas"]["launches"][name]
+                for d in (2, 4)}
+            entry["slab_grids"] = {f"D={d}": slab[d]["grid"] for d in (2, 4)}
         if name == "sph_forces":
             entry["surface_tension"] = st_res[name]
             entry["adaptive"] = ad_res[name]
@@ -2681,7 +2962,9 @@ def main() -> int:
                       "mouse": mouse, "chamfer": chamfer,
                       "video_render": video, "debugging": debug,
                       "sharded": {tag: {f"D={d}": r for d, r in row.items()}
-                                  for tag, row in sharded.items()}}))
+                                  for tag, row in sharded.items()},
+                      "slab": {f"D={d}": r for d, r in slab.items()},
+                      "bench": bench_res}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -26,8 +26,10 @@ an overflow past K and row_shift stacks); the round-1 rebin with a valid
 mask (ops.rebin) bitwise to its plain version (a prefix mask, one with
 holes over stale data, K=192, valid slots in the clamped edge rows and
 columns); the physics kernel also on ragged and sparse
-grids and at the largest K its tile takes; and FluidApp.set_mouse
-drives 16 resident ticks at scene_1m without loss.
+grids and at the largest K its tile takes; FluidApp.set_mouse
+drives 16 resident ticks at scene_1m without loss; and both sharded steps
+(row-band resident, slab pallas on a grid with dead columns) are bitwise
+their plain versions on D shards of one card.
 """
 
 import dataclasses
@@ -1017,3 +1019,52 @@ def test_diagnose_on_card_matches_cpu(cuda):
                                   for f in dataclasses.fields(g)}),
             tt.TickParams.default(cpu), s)
         assert on_card == on_cpu
+
+
+def test_slab_pallas_step_matches_plain_on_card(cuda):
+    """The slab-sharded step in pallas mode on D = 2 shards of one card
+    against the same step on the two kernels' plain versions, bitwise over
+    4 synced steps (state, valid mask, stats). The world is 20 interior
+    columns wide, so a slab's local grid is 10 + 2 x 2 = 14 columns,
+    padded to 128: the kernels' column wrap runs through 114 dead
+    columns. Each shard launches sph_density and sph_forces once a step."""
+    from tpufluid_torch.parallel import (
+        build_shard_spec, init_sharded, make_mesh, make_plain_sharded_step,
+        make_sharded_step)
+
+    s = tt.SimSettings(particle_count=512, particle_spacing=0.1,
+                       smoothing_radius=0.2, size=(4.0, 8.0),
+                       cell_capacity=8)
+    spec = build_shard_spec(s, 2)
+    assert spec.col_bounds == (1, 11, 21)
+    mesh = make_mesh(spec, [cuda] * 2)
+    params = tt.TickParams.default(cuda, gravity=(0.0, -9.8))
+    st = init_sharded(spec, mesh)
+    rng = np.random.default_rng(11)
+    for slab in st.slabs:  # seeded velocities, some across the slab edge
+        v = rng.normal(0.0, 3.0, tuple(slab.velocity.shape))
+        v[::9, 0] = 30.0 * np.sign(v[::9, 0])
+        slab.velocity = torch.where(
+            slab.valid[:, None], torch.from_numpy(v.astype(np.float32))
+            .to(cuda), 0.0)
+    kstep = make_sharded_step(spec, mesh, debug=True, neighbor_mode="pallas")
+    pstep = make_plain_sharded_step(spec, mesh, debug=True)
+    moved = 0
+    for i in range(4):
+        before = dict(sph.LAUNCHES)
+        k, kst = kstep(st, params)
+        torch.cuda.synchronize()
+        assert {n: sph.LAUNCHES[n] - before[n] for n in before} == {
+            "sph_density": 2, "sph_forces": 2}
+        p, pst = pstep(st, params)
+        for a, b in zip(k.slabs, p.slabs):
+            for f in ("position", "velocity", "valid", "tick"):
+                assert torch.equal(getattr(a, f), getattr(b, f)), (i, f)
+        assert kst.keys() == pst.keys()
+        for name in kst:
+            assert torch.equal(kst[name], pst[name]), (i, name)
+        moved += int((kst["n_valid"].cpu()
+                      != torch.tensor([int(x.valid.sum())
+                                       for x in st.slabs])).any())
+        st = p
+    assert int(kst["n_valid"].sum()) == 512 and moved > 0

@@ -1,8 +1,10 @@
-"""Command line: ``python -m tpufluid_torch <run|render|info>``.
+"""Command line: ``python -m tpufluid_torch <run|render|info|bench>``.
 
 The flags of ``python -m tpufluid``, plus ``--device`` (default ``cuda``).
 Every engine runs (``--neighbor-mode``, default ``dense``) with every
 variant flag, obstacles and video force fields (``--video-field``).
+``bench --config N`` runs BASELINE config N (1-5; default all) of the
+port's harness (``tpufluid_torch.bench``), one JSON line a config.
 """
 
 from __future__ import annotations
@@ -192,6 +194,12 @@ def parser() -> argparse.ArgumentParser:
                                "an ffmpeg binary)")
     render_p.add_argument("--fps", type=int, default=30)
     sub.add_parser("info", help="print torch / device info")
+    bench_p = sub.add_parser("bench", help="run the benchmark ladder")
+    bench_p.add_argument("--config", type=int, default=None,
+                         choices=(1, 2, 3, 4, 5),
+                         help="BASELINE config number (1-5); default: all")
+    bench_p.add_argument("--device", type=str, default="cuda",
+                         help="torch device to run on (default cuda)")
     return p
 
 
@@ -206,6 +214,11 @@ def main(argv=None) -> int:
             devices=[torch.cuda.get_device_name(i)
                      for i in range(torch.cuda.device_count())] if cuda else [],
         ), indent=2))
+        return 0
+    if args.cmd == "bench":
+        from .bench import run_configs
+
+        run_configs(args.config, device=args.device)
         return 0
     (render if args.cmd == "render" else run)(args)
     return 0

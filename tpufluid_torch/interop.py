@@ -19,6 +19,7 @@ from .ops.dense import DenseGrid
 from .ops.forcefield import Objects
 from .ops.resident import GridState
 from .params import SimSettings, TickParams
+from .parallel.shard import ShardedState, Slab
 from .state import ParticleState
 
 _GRID_FIELDS = ("pos_x", "pos_y", "vel_x", "vel_y", "occ_row", "tick", "lost")
@@ -102,3 +103,32 @@ def objects_from(obj: Any, device) -> Objects:
 def forcefield_from_numpy(field: Any, device) -> torch.Tensor:
     """A push-out field f32[H, W, 2] on ``device``."""
     return torch.from_numpy(np.array(field, dtype=np.float32)).to(device)
+
+
+def sharded_state_from_numpy(obj: Any, devices) -> ShardedState:
+    """The port's ShardedState from the JAX package's (global arrays:
+    position and velocity f32[D*C, 2], valid bool[D*C], tick), cut into
+    one slab per device of ``devices`` (D of them)."""
+    pos, vel = _get(obj, "position"), _get(obj, "velocity")
+    valid = _get(obj, "valid").astype(bool)
+    d = len(devices)
+    c = pos.shape[0] // d
+    t = lambda a, i, dev: torch.from_numpy(np.ascontiguousarray(
+        a[i * c:(i + 1) * c])).to(dev)
+    return ShardedState(tuple(
+        Slab(position=t(pos.astype(np.float32), i, dev),
+             velocity=t(vel.astype(np.float32), i, dev),
+             valid=t(valid, i, dev),
+             tick=torch.tensor(int(_get(obj, "tick")), dtype=torch.int64,
+                               device=dev))
+        for i, dev in enumerate(devices)))
+
+
+def sharded_state_to_numpy(state: ShardedState) -> Dict[str, np.ndarray]:
+    """The slabs joined into the JAX package's global arrays, as numpy
+    (tick as u32)."""
+    join = lambda n: np.concatenate([getattr(s, n).cpu().numpy()
+                                     for s in state.slabs])
+    return dict(position=join("position"), velocity=join("velocity"),
+                valid=join("valid"),
+                tick=np.asarray(int(state.tick), dtype=np.uint32))

@@ -62,7 +62,10 @@ def build_grid_cols(pxs, pys, vxs, vys, sorted_cells: torch.Tensor,
     cy = cells // gx
     cx = cells % gx
     size = gy * k * gx_pad
-    flat = torch.where(keep, (cy * k + rank) * gx_pad + cx, size)
+    # a cell past the last row (the slab step's id for a slot outside the
+    # slab) lands on the spare slot too, as JAX's scatter drops it
+    flat = torch.clamp(torch.where(keep, (cy * k + rank) * gx_pad + cx,
+                                   size), max=size)
     shape = (gy, k, gx_pad)
     dev = sorted_cells.device
 

@@ -1,9 +1,30 @@
-"""Row-band sharding of the resident engine (port of the resident half of
-``tpufluid.parallel.shard``).
+"""Multi-device sharding over a single-controller mesh (port of
+``tpufluid.parallel.shard``): the slab sharding of the per-step [N]
+engines and the row-band sharding of the resident engine.
 
-The slot grid ``[Gy, K, Gxp]`` is cut into D bands of ``rows_per_dev``
-rows (the rows padded to a multiple of D with empty sentinel rows), one
-per shard. Each step runs the single-device step's kernels on every band
+Slabs (``make_sharded_step``): the world is cut into vertical slabs of
+cell columns (``ShardSpec.col_bounds``), one per shard, each holding a
+fixed ``capacity`` of particle slots with a valid mask. Each step:
+
+  1. predict, and pack the particles of the two boundary columns on each
+     side (``halo_capacity`` slots) for the neighbours;
+  2. the neighbour's halo arrives, and the step's physics runs on local +
+     halo: the windowed pair math of the grid engine, or the slab-local
+     dense slot grid ``[grid_h, K, Gxp]`` of the dense and pallas engines
+     (a slab's columns plus two halo columns each side, ``Gxp`` the width
+     padded to 128; its columns wrap through the padding, which joins the
+     slab's left and right halo columns, >= 3 cells apart: the cut-off
+     rejects those pairs);
+  3. particles whose new cell lies in another slab migrate to the
+     neighbour (``migration_capacity`` slots each way) and are merged
+     behind the slab's kept particles.
+
+Overflow of any buffer drops deterministically and is counted in the
+step's stats, never raised. A step reads nothing on the host.
+
+Row bands (``make_sharded_resident_step``): the slot grid ``[Gy, K, Gxp]``
+is cut into D bands of ``rows_per_dev`` rows (the rows padded to a
+multiple of D with empty sentinel rows), one per shard. Each step runs the single-device step's kernels on every band
 and exchanges only what crosses a band edge:
 
   1. rebin over the band plus one pad row each side (``fused.rebin`` with
@@ -38,13 +59,19 @@ import contextlib
 import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from ..ops import dense as denseops
 from ..ops import fused
+from ..ops import pairs, prng, sph
 from ..ops import resident as residentops
 from ..ops.dense import ranks
 from ..ops.fused import SENTINEL, SENTINEL_HALF
-from ..params import SimSettings
+from ..ops.grid import cell_id, cell_xy, point_windows
+from ..params import EPSILON, SimSettings
+from ..state import ParticleState, init_state
+from ..step import _integrate, predict_positions
 from .comm_audit import CollectiveOp
 
 
@@ -189,24 +216,29 @@ class Mesh:
         return [total.to(dev, non_blocking=True) for dev in self.devices]
 
 
-def make_resident_mesh(spec: ResidentShardSpec, devices=None) -> Mesh:
-    """The shards' devices: ``devices`` (D of them, repeats allowed), or
-    one CUDA device a shard, ``[cuda:0] * D`` when there are fewer than
-    D. Pass ``[torch.device("cpu")] * D`` to run on the CPU."""
+def _mesh_devices(n: int, devices=None) -> list:
+    """``devices`` (n of them, repeats allowed), or one CUDA device a
+    shard, ``[cuda:0] * n`` when there are fewer than n; raises without a
+    card unless the caller passes devices."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device: pass devices=[torch.device('cpu')] * D "
                 "to shard on the CPU")
-        d = spec.n_devices
-        if torch.cuda.device_count() >= d:
-            devices = [torch.device("cuda", i) for i in range(d)]
+        if torch.cuda.device_count() >= n:
+            devices = [torch.device("cuda", i) for i in range(n)]
         else:
-            devices = [torch.device("cuda", 0)] * d
-    if len(devices) != spec.n_devices:
-        raise ValueError(f"{len(devices)} devices for a spec of "
-                         f"{spec.n_devices} shards")
-    return Mesh(devices)
+            devices = [torch.device("cuda", 0)] * n
+    if len(devices) != n:
+        raise ValueError(f"{len(devices)} devices for a spec of {n} shards")
+    return list(devices)
+
+
+def make_resident_mesh(spec: ResidentShardSpec, devices=None) -> Mesh:
+    """The shards' devices: ``devices`` (D of them, repeats allowed), or
+    one CUDA device a shard, ``[cuda:0] * D`` when there are fewer than
+    D. Pass ``[torch.device("cpu")] * D`` to run on the CPU."""
+    return Mesh(_mesh_devices(spec.n_devices, devices))
 
 
 # ----------------------------------------------------------------- state
@@ -527,6 +559,371 @@ def _make_sharded_step(spec: ResidentShardSpec, mesh: Mesh, x_boundary: str,
         n_valid = torch.stack([(b.pos_x < SENTINEL_HALF).sum()
                                .to(torch.int32).to(dev0) for b in out])
         return ShardedGridState(tuple(out)), dict(n_valid=n_valid)
+
+    step.mesh = mesh
+    return step
+
+
+# =====================================================================
+# Slab sharding of the per-step [N] engines (grid, dense, pallas)
+# =====================================================================
+
+@dataclasses.dataclass(frozen=True)
+class ShardSpec:
+    settings: SimSettings
+    n_devices: int
+    capacity: int                # per-shard particle slots
+    halo_capacity: int           # per-side halo slots
+    migration_capacity: int      # per-side migration slots per step
+    col_bounds: Tuple[int, ...]  # D+1 cell-x ownership boundaries
+
+
+def _owners(cx: np.ndarray, col_bounds, n_devices: int) -> np.ndarray:
+    """The slab that owns each cell column ``cx``."""
+    inner = np.asarray(col_bounds)[1:-1]
+    return np.clip(np.searchsorted(inner, cx, side="right"), 0,
+                   n_devices - 1)
+
+
+def _lattice(settings: SimSettings):
+    """The reference spawn lattice as numpy: (position, velocity, cell
+    column of each particle)."""
+    base = init_state(settings, "cpu")
+    cx = cell_xy(base.position, settings)[:, 0].numpy()
+    return base.position.numpy(), base.velocity.numpy(), cx
+
+
+def build_shard_spec(settings: SimSettings, n_devices: int,
+                     capacity_factor: float = 1.35,
+                     halo_capacity: Optional[int] = None,
+                     migration_capacity: Optional[int] = None) -> ShardSpec:
+    """D slabs of at least 3 interior cell columns each. The capacity is
+    sized from the spawn lattice's per-slab counts (a centred block, so
+    the slabs start imbalanced), times ``capacity_factor``; the halo holds
+    two columns at ~4x rest compression, and the migration buffer as
+    much unless given."""
+    interior = settings.grid_w - 2
+    if interior < 3 * n_devices:
+        raise ValueError(
+            f"grid too narrow: {interior} interior columns for "
+            f"{n_devices} devices (need >= 3 per slab)")
+    col_bounds = tuple(1 + (d * interior) // n_devices
+                       for d in range(n_devices + 1))
+    _, _, cx0 = _lattice(settings)
+    counts0 = np.bincount(_owners(cx0, col_bounds, n_devices),
+                          minlength=n_devices)
+    per_dev = max(int(counts0.max()),
+                  -(-settings.particle_count // n_devices))
+    cap = _round8(int(np.ceil(per_dev * capacity_factor)))
+    if halo_capacity is None:
+        per_col = settings.particle_count / interior
+        halo_capacity = _round8(max(128, int(per_col * 2 * 4)))
+    if migration_capacity is None:
+        migration_capacity = halo_capacity
+    return ShardSpec(
+        settings=settings, n_devices=n_devices, capacity=cap,
+        halo_capacity=_round8(halo_capacity),
+        migration_capacity=_round8(migration_capacity),
+        col_bounds=col_bounds)
+
+
+def make_mesh(spec: ShardSpec, devices=None) -> Mesh:
+    """The slabs' devices, as ``make_resident_mesh`` picks them."""
+    return Mesh(_mesh_devices(spec.n_devices, devices))
+
+
+@dataclasses.dataclass
+class Slab:
+    """One shard's particles on its device: position and velocity
+    f32[C, 2], valid bool[C], and the global tick (i64 0-d)."""
+
+    position: torch.Tensor
+    velocity: torch.Tensor
+    valid: torch.Tensor
+    tick: torch.Tensor
+
+
+@dataclasses.dataclass
+class ShardedState:
+    """The particles as D slabs, slab d on mesh device d."""
+
+    slabs: Tuple[Slab, ...]
+
+    @property
+    def tick(self) -> torch.Tensor:
+        return self.slabs[0].tick
+
+
+def init_sharded(spec: ShardSpec, mesh: Optional[Mesh] = None
+                 ) -> ShardedState:
+    """The reference spawn lattice distributed into slabs by cell column
+    (in lattice order), each padded to the spec's capacity."""
+    pos, vel, cx = _lattice(spec.settings)
+    owner = _owners(cx, spec.col_bounds, spec.n_devices)
+    c = spec.capacity
+    parts, dropped = [], 0
+    for d in range(spec.n_devices):
+        sel = np.nonzero(owner == d)[0]
+        if len(sel) > c:
+            dropped += len(sel) - c
+            sel = sel[:c]
+        p = np.zeros((c, 2), np.float32)
+        v = np.zeros((c, 2), np.float32)
+        ok = np.zeros((c,), bool)
+        p[:len(sel)], v[:len(sel)], ok[:len(sel)] = pos[sel], vel[sel], True
+        parts.append((p, v, ok))
+    if dropped:
+        raise ValueError(f"init overflow: {dropped} particles exceed "
+                         f"capacity {c}; raise capacity_factor")
+    mesh = mesh or make_mesh(spec)
+    return ShardedState(tuple(
+        Slab(position=torch.from_numpy(p).to(dev),
+             velocity=torch.from_numpy(v).to(dev),
+             valid=torch.from_numpy(ok).to(dev),
+             tick=torch.zeros((), dtype=torch.int64, device=dev))
+        for (p, v, ok), dev in zip(parts, mesh.devices)))
+
+
+def gather_state(state: ShardedState) -> ParticleState:
+    """The valid particles, in shard order, as a ParticleState on the
+    first shard's device (predicted = position; density and cell zeroed:
+    the next step refreshes them)."""
+    dev = state.slabs[0].position.device
+    pos = torch.cat([s.position[s.valid].to(dev) for s in state.slabs])
+    vel = torch.cat([s.velocity[s.valid].to(dev) for s in state.slabs])
+    n = pos.shape[0]
+    return ParticleState(
+        position=pos, predicted=pos.clone(), velocity=vel,
+        density=torch.zeros((n,), dtype=torch.float32, device=dev),
+        cell=torch.zeros((n,), dtype=torch.int32, device=dev),
+        tick=state.tick.to(dev))
+
+
+def make_sharded_step(spec: ShardSpec, mesh: Optional[Mesh] = None,
+                      has_force_field: bool = False, debug: bool = False,
+                      neighbor_mode: str = "grid"):
+    """The slab-sharded step:
+    ``step(state, params[, forcefield]) -> (state, stats)``, stats a dict
+    of i32[D] per-shard counters on the first shard's device
+    (``n_valid``, ``halo_dropped``, ``migration_dropped``; with ``debug``
+    also the sorted combined set's ``dbg_pred``, ``dbg_dens``,
+    ``dbg_local``, ``dbg_cells``, ``dbg_fp``, ``dbg_fv``, [D, T, ...]).
+    ``neighbor_mode``: "grid" (windowed pair math), "dense" (the
+    slab-local slot grid in plain PyTorch) or "pallas" (the same grid
+    through ``ops.sph``: the CUDA kernels on a CUDA device, their plain
+    versions on the CPU). ``step.mesh`` is the mesh."""
+    return _make_slab_step(spec, mesh or make_mesh(spec), has_force_field,
+                           debug, neighbor_mode, None)
+
+
+def make_plain_sharded_step(spec: ShardSpec, mesh: Optional[Mesh] = None,
+                            has_force_field: bool = False,
+                            debug: bool = False):
+    """The pallas-mode sharded step on the plain PyTorch versions of its
+    two kernels (``sph.density_plain``, ``sph.forces_plain``), on any
+    device: the reference that the CUDA step is held to on the card."""
+    return _make_slab_step(spec, mesh or make_mesh(spec), has_force_field,
+                           debug, "pallas",
+                           (sph.density_plain, sph.forces_plain))
+
+
+def _make_slab_step(spec: ShardSpec, mesh: Mesh, has_force_field: bool,
+                    debug: bool, neighbor_mode: str, passes):
+    if neighbor_mode not in ("grid", "dense", "pallas"):
+        raise ValueError(f"unknown neighbor_mode {neighbor_mode!r}")
+    if len(mesh) != spec.n_devices:
+        raise ValueError(f"a mesh of {len(mesh)} devices for a spec of "
+                         f"{spec.n_devices} shards")
+    settings = spec.settings
+    n_dev = spec.n_devices
+    bounds = spec.col_bounds
+    # the slab-local grid: the widest slab + 2 halo columns each side
+    w_loc = max(b - a for a, b in zip(bounds[:-1], bounds[1:])) + 4
+    c, hcap, mcap = spec.capacity, spec.halo_capacity, spec.migration_capacity
+    g = settings.num_cells
+    grid_w = settings.grid_w
+    norms = settings.kernel_norms()
+    h = float(settings.smoothing_radius)
+    devices = mesh.devices
+    # per-device constants, made once: a host-to-device copy waits
+    inner = [torch.tensor(bounds[1:-1], dtype=torch.int32, device=dev)
+             for dev in devices]
+    all_cells = [torch.arange(g + 1, dtype=torch.int32, device=dev)
+                 for dev in devices]
+    slots = [torch.arange(mcap, dtype=torch.int32, device=dev)
+             for dev in devices]
+    # each slab's copy of the field, kept while the same field comes back
+    ff_memo = [[None, None] for _ in devices]
+
+    def field_on(d, forcefield):
+        if not has_force_field:
+            return None
+        if forcefield is None:
+            raise ValueError("step built with has_force_field=True needs a "
+                             "forcefield argument")
+        memo = ff_memo[d]
+        if memo[0] is not forcefield:
+            memo[:] = [forcefield, forcefield.to(devices[d])]
+        return memo[1]
+
+    def received(got, sent):
+        """What arrived, or zeros (valid False) where no shard sends, as
+        JAX's ppermute gives."""
+        return got if got is not None else tuple(torch.zeros_like(t)
+                                                 for t in sent)
+
+    def physics(d, slab, p, pred, rl, rr, frame, ff):
+        """The step's physics on the combined set (local + both halos),
+        sorted by cell. Returns (new_pos, new_vel, local, debug dict)."""
+        dev = pred.device
+        pred_c = torch.cat([pred, rl[0], rr[0]])
+        vel_c = torch.cat([slab.velocity, rl[1], rr[1]])
+        pos_c = torch.cat([slab.position, torch.zeros_like(rl[0]),
+                           torch.zeros_like(rr[0])])
+        halo_valid = torch.cat([slab.valid, rl[2], rr[2]])
+        is_local = torch.cat([slab.valid, torch.zeros(
+            (2 * hcap,), dtype=torch.bool, device=dev)])
+        cells_c = torch.where(halo_valid, cell_id(pred_c, settings), g)
+        t = pred_c.shape[0]
+        if neighbor_mode != "grid":
+            # slab-local columns [0, w_loc): every shard's grid has the
+            # same shape, and the local ids keep the global row-major order
+            lcx = cells_c % grid_w - (bounds[d] - 2)
+            ok = halo_valid & (lcx >= 0) & (lcx < w_loc) & (cells_c < g)
+            local_cells = torch.where(ok, cells_c // grid_w * w_loc + lcx,
+                                      settings.grid_h * w_loc)
+            sorted_cells, perm = torch.sort(local_cells, stable=True)
+            pred_s, vel_s, pos_s = pred_c[perm], vel_c[perm], pos_c[perm]
+            dens, f_p, f_v, _ = denseops.dense_neighbor_forces(
+                pred_s, vel_s, sorted_cells, settings, p, norms, frame,
+                pallas=neighbor_mode == "pallas",
+                dims=(settings.grid_h, w_loc), passes=passes)
+        else:
+            sorted_cells, perm = torch.sort(cells_c, stable=True)
+            cell_start = torch.searchsorted(sorted_cells, all_cells[d],
+                                            side="left").to(torch.int32)
+            pred_s, vel_s, pos_s = pred_c[perm], vel_c[perm], pos_c[perm]
+            win = point_windows(torch.clamp(sorted_cells, max=g - 1),
+                                cell_start, settings)
+            nb_idx = win.idx.reshape(t, -1)
+            nb_valid = win.valid.reshape(t, -1)
+            nb_pred = pred_s[nb_idx]
+            dens = pairs.density(pred_s, nb_pred, nb_valid, p.mass, h)
+            dens = torch.clamp(torch.clamp(dens, min=EPSILON), min=0.1)
+            nb_dens = dens[nb_idx]
+            sorted_idx = torch.arange(t, device=dev)
+            rand_seed = (prng.position_seed(pred_s) + frame * 69) & prng.U32
+            f_p = pairs.pressure_force(
+                sorted_idx, pred_s, dens, nb_idx, nb_pred, nb_dens, nb_valid,
+                p.pressure_constant, p.rest_density, h, settings.sqr_radius,
+                norms.spiky_derivative, rand_seed)
+            f_v = pairs.viscosity_force(
+                sorted_idx, pred_s, vel_s, nb_idx, nb_pred, vel_s[nb_idx],
+                nb_dens, nb_valid, p.viscosity_coefficient, h,
+                settings.sqr_radius, norms.viscosity)
+        local_s = is_local[perm]
+        new_pos, new_vel = _integrate(pos_s, vel_s, pred_s, dens, f_p + f_v,
+                                      p, settings, ff)
+        dbg = dict(dbg_pred=pred_s, dbg_dens=dens, dbg_local=local_s,
+                   dbg_cells=sorted_cells, dbg_fp=f_p, dbg_fv=f_v)
+        return new_pos, new_vel, local_s, dbg
+
+    def placed(base, la_tgt, la_vals, ra_tgt, ra_vals):
+        """``base`` with the arrivals written at their targets; a target
+        of ``c`` (no room, or no arrival) lands in a spare slot that is
+        cut off."""
+        buf = torch.cat([base, base[:1]])
+        buf.index_put_((la_tgt,), la_vals)
+        buf.index_put_((ra_tgt,), ra_vals)
+        return buf[:c]
+
+    def step(state: ShardedState, params, forcefield=None):
+        if len(state.slabs) != n_dev:
+            raise ValueError(f"{len(state.slabs)} slabs for {n_dev} shards")
+        for s in state.slabs:
+            if s.position.shape != (c, 2):
+                raise ValueError(f"slab shape {tuple(s.position.shape)} "
+                                 f"does not match the spec's {(c, 2)}")
+        mesh.begin_step()
+        prm = [_params_on(params, dev) for dev in devices]
+
+        # ---- predict, cells (g for invalid slots), the two-column halos
+        pre = []
+        for d, s in enumerate(state.slabs):
+            pred = predict_positions(s.position, s.velocity, prm[d].delta,
+                                     settings)
+            cx = torch.where(s.valid, cell_id(pred, settings), g) % grid_w
+            hr, hr_valid, hr_drop = _pack(s.valid & (cx >= bounds[d + 1] - 2),
+                                          (pred, s.velocity), hcap)
+            hl, hl_valid, hl_drop = _pack(s.valid & (cx < bounds[d] + 2),
+                                          (pred, s.velocity), hcap)
+            pre.append((pred, hr + (hr_valid,), hl + (hl_valid,),
+                        hr_drop + hl_drop))
+        # my right halo arrives at d + 1 as its left one, and vice versa
+        from_left = mesh.shift([x[1] for x in pre], +1)
+        from_right = mesh.shift([x[2] for x in pre], -1)
+
+        # ---- physics on local + halo, then the migration packs
+        mid = []
+        for d, s in enumerate(state.slabs):
+            pred, hr, hl, halo_drop = pre[d]
+            frame = s.tick + 1
+            new_pos, new_vel, local_s, dbg = physics(
+                d, s, prm[d], pred, received(from_left[d], hr),
+                received(from_right[d], hl), frame, field_on(d, forcefield))
+            ncx = cell_xy(new_pos, settings)[..., 0].contiguous()
+            dest = torch.clamp(torch.searchsorted(inner[d], ncx, right=True),
+                               0, n_dev - 1)
+            route = torch.clamp(dest - d, -1, 1)
+            ml, ml_valid, ml_drop = _pack(local_s & (route == -1),
+                                          (new_pos, new_vel), mcap)
+            mr, mr_valid, mr_drop = _pack(local_s & (route == 1),
+                                          (new_pos, new_vel), mcap)
+            keep = local_s & (route == 0)
+            mid.append((new_pos, new_vel, keep, ml + (ml_valid,),
+                        mr + (mr_valid,), ml_drop + mr_drop, halo_drop,
+                        frame, dbg))
+        arrive_left = mesh.shift([x[4] for x in mid], +1)
+        arrive_right = mesh.shift([x[3] for x in mid], -1)
+
+        # ---- merge: the kept particles first, then the arrivals from the
+        # left, then those from the right
+        slabs, stats = [], []
+        for d, (new_pos, new_vel, keep, ml, mr, m_drop, halo_drop, frame,
+                dbg) in enumerate(mid):
+            al_pos, al_vel, al_valid = received(arrive_left[d], mr)
+            ar_pos, ar_vel, ar_valid = received(arrive_right[d], ml)
+            (k_pos, k_vel), k_valid, _ = _pack(keep, (new_pos, new_vel), c)
+            n_keep = keep.sum(dtype=torch.int32)
+            n_al = al_valid.sum(dtype=torch.int32)
+            n_ar = ar_valid.sum(dtype=torch.int32)
+            la_idx = n_keep + slots[d]
+            ra_idx = n_keep + n_al + slots[d]
+            la_ok = al_valid & (la_idx < c)
+            ra_ok = ar_valid & (ra_idx < c)
+            la_tgt = torch.where(la_ok, la_idx, c).to(torch.int64)
+            ra_tgt = torch.where(ra_ok, ra_idx, c).to(torch.int64)
+            arrival_drop = (n_al - la_ok.sum(dtype=torch.int32)
+                            + n_ar - ra_ok.sum(dtype=torch.int32))
+            out_valid = placed(k_valid, la_tgt, torch.ones_like(al_valid),
+                               ra_tgt, torch.ones_like(ar_valid))
+            out_pos = torch.where(out_valid[:, None], placed(
+                k_pos, la_tgt, al_pos, ra_tgt, ar_pos), 0.0)
+            out_vel = torch.where(out_valid[:, None], placed(
+                k_vel, la_tgt, al_vel, ra_tgt, ar_vel), 0.0)
+            slabs.append(Slab(position=out_pos, velocity=out_vel,
+                              valid=out_valid, tick=frame))
+            st = dict(n_valid=out_valid.sum(dtype=torch.int32),
+                      halo_dropped=halo_drop.to(torch.int32),
+                      migration_dropped=(m_drop + arrival_drop)
+                      .to(torch.int32))
+            if debug:
+                st.update(dbg)
+            stats.append(st)
+        dev0 = devices[0]
+        out = {k: torch.stack([st[k].to(dev0, non_blocking=True)
+                               for st in stats]) for k in stats[0]}
+        return ShardedState(tuple(slabs)), out
 
     step.mesh = mesh
     return step
