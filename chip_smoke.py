@@ -114,7 +114,17 @@ Builds the CUDA kernels from ``tpufluid_torch/csrc`` and runs, in order:
 25. the bench harness: the CLI's ``bench --config 1`` and ``--config 4``
     (JSON lines parsed, finite ms/step), ``bench_sharded`` resident and
     dense on ``[cuda:0] * 2``, and the CPU-vs-card divergence of the
-    grid step over 50 synced steps.
+    grid step over 50 synced steps;
+26. config 5's derived 4M/8-card estimate (``bench.config5_model``): first
+    rebin, density and forces_integrate against their plain versions,
+    bitwise, on the band's [132, 8, 1024] grid, 3 band steps against 3
+    plain steps (65 lost, as JAX's band), and one step of the sharded
+    resident step on 8 shards of scene_4m against its plain version, none
+    lost; then, counts reset just before it, the model: one band of
+    scene_4m's 8-shard spec timed on the card, and one audited step of the
+    sharded resident step on 8 shards of the card at scene_4m, whose bytes
+    must equal the formula's 397,320; then a torch.profiler reading of 20
+    band steps and the band's losses.
 
 Any failed phase raises and the script exits non-zero. Output: progress
 lines (each after the seconds since the start), then the card's name and
@@ -2431,6 +2441,144 @@ def bench_phase(dev, card):
     return out
 
 
+GRID_FIELDS = ("pos_x", "pos_y", "vel_x", "vel_y", "occ_row", "tick", "lost")
+# config 5's band loses 65 particles in its first 3 steps, as the JAX
+# package's band does (tests/test_torch_config5.py): the lattice overhangs
+# the band's height, the init clamps the overhang into the edge rows, and
+# their cells pass K=8 in the third step
+BAND_LOST_3 = 65
+
+
+def config5_gates(spec, band, dev):
+    """Phase 26's kernels at the shapes its path gives them, bitwise their
+    plain versions: each resident kernel on the band's [132, 8, 1024] grid
+    from a seeded state (far movers, coincident pairs); 3 band steps of
+    ``make_grid_multi_step`` against 3 plain steps from the band's init
+    state, losing JAX's count (``BAND_LOST_3``); one step of the sharded
+    resident step on 8 shards of scene_4m (grids [135, 8, 1024]) against
+    its plain version, nothing lost. Returns the kernels' max_abs_err."""
+    from tpufluid_torch.ops import resident
+    from tpufluid_torch.parallel import (
+        init_sharded_resident, make_plain_sharded_resident_step,
+        make_resident_mesh, make_sharded_resident_step, unshard_grid_state)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        errs, _ = compare_kernels(band.settings, band.params,
+                                  "config5 band [132, 8, 1024]")
+        gs = resident.init_grid_state(band.settings, dev)
+        got = resident.make_grid_multi_step(band.settings, 3)(gs, band.params)
+        pstep = resident.make_plain_grid_step(band.settings)
+        want = gs
+        for _ in range(3):
+            want = pstep(want, band.params)
+        for f in GRID_FIELDS:
+            if not torch.equal(getattr(got, f), getattr(want, f)):
+                raise AssertionError(f"config5 band 3 steps: {f}: kernels "
+                                     f"!= plain")
+        if int(want.lost) != BAND_LOST_3:
+            raise AssertionError(f"config5 band: lost {int(want.lost)} in 3 "
+                                 f"steps, JAX's band {BAND_LOST_3}")
+        mesh = make_resident_mesh(spec, [dev] * spec.n_devices)
+        sgs = init_sharded_resident(spec, mesh)
+        k, kst = make_sharded_resident_step(spec, mesh)(sgs, band.params)
+        p, pst = make_plain_sharded_resident_step(spec, mesh)(sgs,
+                                                              band.params)
+        kg, pg = unshard_grid_state(k), unshard_grid_state(p)
+        for f in GRID_FIELDS:
+            if not torch.equal(getattr(kg, f), getattr(pg, f)):
+                raise AssertionError(f"scene_4m D=8 step: {f}: kernels != "
+                                     f"plain")
+        n = spec.settings.particle_count
+        if not (torch.equal(kst["n_valid"], pst["n_valid"])
+                and int(pst["n_valid"].sum()) == n and int(pg.lost) == 0):
+            raise AssertionError(f"scene_4m D=8 step: n_valid "
+                                 f"{kst['n_valid'].tolist()} / "
+                                 f"{pst['n_valid'].tolist()}, lost "
+                                 f"{int(pg.lost)}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log(f"config5: 3 band steps (lost {BAND_LOST_3}, as JAX's band) and "
+        f"scene_4m's 8-shard step (grid {tuple(kg.pos_x.shape)} gathered, "
+        f"{n} live, none lost) bitwise their plain versions")
+    return {name: e["max_abs_err"] for name, e in errs.items()}
+
+
+def config5_phase(card):
+    """Config 5's derived estimate through the harness
+    (``bench.config5_model`` on the card). First its kernels at its own
+    shapes against their plain versions (``config5_gates``); then the
+    counts are reset just before the model: the band's 120 timed and warm
+    steps and the audited 8-shard step at scene_4m launch the resident
+    step's three kernels. Holds the audited bytes to the formula
+    (397,320), the band's rows and halo factor, every time finite and
+    positive, the card's name; then a torch.profiler reading of 20 band
+    steps, for the device's share of the band's ms/step, and the band's
+    losses over its 30 steps (logged)."""
+    import contextlib
+    import io
+    import math
+
+    from tpufluid_torch import bench
+    from tpufluid_torch.ops import resident
+    from tpufluid_torch.parallel import comm_audit
+
+    dev = torch.device("cuda")
+    spec, band = bench.config5_band(dev)
+    t0 = time.perf_counter()
+    gate_errs = config5_gates(spec, band, dev)
+    gate_wall = time.perf_counter() - t0
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rec = bench.config5_model()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    lines = [line for line in buf.getvalue().splitlines() if line.strip()]
+    formula = comm_audit.resident_comm_formula(spec)["bytes_per_dir"]
+    log(f"config5_model (wall {wall:.1f} s; {card}): {json.dumps(rec)}; "
+        f"launches {launches}")
+    times = ("measured_band_ms_per_step", "modeled_comm_ms_per_step",
+             "est_ms_per_step", "est_particle_steps_per_sec")
+    # the band's 2 warm + 10 timed bursts of 10, and one step of 8 shards
+    path = dict.fromkeys(("rebin", "density", "forces_integrate"), 128)
+    if not (len(lines) == 1 and json.loads(lines[0]) == json.loads(
+                json.dumps(rec, default=float))
+            and rec["measured_comm_bytes"] == formula == 397_320
+            and rec["band_rows"] == 131
+            and rec["halo_factor"] == round(135 / 131, 4)
+            and all(math.isfinite(rec[k]) and rec[k] > 0 for k in times)
+            and rec["device"] == torch.cuda.get_device_name(0)
+            and all(launches[k] == v for k, v in path.items())):
+        raise AssertionError(f"config5_model: {rec}, launches {launches}, "
+                             f"printed {lines}")
+    run = resident.make_grid_multi_step(band.settings, 10)
+    state = [run(resident.init_grid_state(band.settings, band.params.device),
+                 band.params)]
+
+    def one_step():
+        state[0] = run.step(state[0], band.params)
+
+    prof = profile_steps(None, 20, "config5 band [132, 8, 1024]",
+                         step=one_step)
+    band_lost = int(state[0].lost)
+    log(f"config5 band: lost {band_lost} of {band.settings.particle_count} "
+        f"in 30 steps")
+    if prof is not None:
+        busy = prof["busy_ms_per_step"]
+        log(f"config5 band: device busy {busy:.4f} ms/step of the measured "
+            f"{rec['measured_band_ms_per_step']:.4f}; busy x halo factor is "
+            f"{busy * rec['halo_factor'] / rec['est_ms_per_step']:.3f} of "
+            f"est_ms_per_step")
+    return dict(rec, launches={k: launches[k] for k in path},
+                band_profile=prof, band_lost_30=band_lost, wall_s=wall,
+                gate_wall_s=gate_wall,
+                gate_max_abs_err=gate_errs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -2880,6 +3028,10 @@ def main() -> int:
     # the CPU-vs-card step divergence (run_parity ran in phase 12)
     bench_res = bench_phase(dev, card)
 
+    # 26. config 5's derived 4M/8-card estimate (the audited 4M step on 8
+    # shards of the card)
+    config5 = config5_phase(card)
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         if name == "metaball_coarse":
@@ -2964,7 +3116,7 @@ def main() -> int:
                       "sharded": {tag: {f"D={d}": r for d, r in row.items()}
                                   for tag, row in sharded.items()},
                       "slab": {f"D={d}": r for d, r in slab.items()},
-                      "bench": bench_res}))
+                      "bench": bench_res, "config5_model": config5}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

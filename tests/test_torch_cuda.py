@@ -29,7 +29,8 @@ columns); the physics kernel also on ragged and sparse
 grids and at the largest K its tile takes; FluidApp.set_mouse
 drives 16 resident ticks at scene_1m without loss; and both sharded steps
 (row-band resident, slab pallas on a grid with dead columns) are bitwise
-their plain versions on D shards of one card.
+their plain versions on D shards of one card; config 5's audited bytes
+of one sharded step at scene_4m on 8 shards of the card equal the formula.
 """
 
 import dataclasses
@@ -1068,3 +1069,16 @@ def test_slab_pallas_step_matches_plain_on_card(cuda):
                                        for x in st.slabs])).any())
         st = p
     assert int(kst["n_valid"].sum()) == 512 and moved > 0
+
+
+def test_config5_measured_bytes_at_scene_4m(cuda):
+    """The harness's audited bytes of one sharded resident step at
+    scene_4m, on 8 shards of the card, equal the formula's 397,320."""
+    from tpufluid_torch import bench
+    from tpufluid_torch.models import scenes
+    from tpufluid_torch.parallel import build_resident_spec, comm_audit
+
+    spec = build_resident_spec(scenes.scene_4m(cuda).settings, 8)
+    formula = comm_audit.resident_comm_formula(spec)["bytes_per_dir"]
+    assert bench._measured_comm_bytes_per_dir(spec, cuda) == formula \
+        == 397_320
