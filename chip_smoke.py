@@ -124,7 +124,20 @@ Builds the CUDA kernels from ``tpufluid_torch/csrc`` and runs, in order:
     scene_4m's 8-shard spec timed on the card, and one audited step of the
     sharded resident step on 8 shards of the card at scene_4m, whose bytes
     must equal the formula's 397,320; then a torch.profiler reading of 20
-    band steps and the band's losses.
+    band steps and the band's losses;
+27. the resident step's far-mover pass (``csrc/far_reinsert.cu``, gated on
+    the device) against its plain version, bitwise: scene_1m's seeded
+    state (256 far movers), the lattice at rest (none: the rebin's outputs
+    untouched), over a capacity of 100, the wall movers after a wrap step,
+    config 4's stack; timed with none, with the seeded movers and in the
+    wrap run; then each burst graphed (a CUDA graph replayed once a step)
+    against the same burst run eagerly, bitwise, and both timed, with the
+    capture's seconds and node count: the resident step (64 steps at
+    scene_1m, the wrap + surface tension + adaptive variant, config 4, 16
+    obstacle steps under one field and 16 under a swapped one), one burst
+    under ``torch.cuda.set_sync_debug_mode("error")`` with its launches
+    counted, and the grid, dense and pallas engines on the CLI's default
+    scene. Phase 3's run counts 200 launches of the far-mover pass.
 
 Any failed phase raises and the script exits non-zero. Output: progress
 lines (each after the seconds since the start), then the card's name and
@@ -211,6 +224,9 @@ KERNELS = {
                     "tpufluid/ops/pallas/sph.py:104"),
     "sph_forces": ("tpufluid_torch/csrc/sph_forces.cu",
                    "tpufluid/ops/pallas/sph.py:350"),
+    # the counterpart of XLA code (do_far under lax.cond), no Pallas kernel
+    "far_reinsert": ("tpufluid_torch/csrc/far_reinsert.cu",
+                     "tpufluid/ops/resident.py:396"),
 }
 # bench.py:run_parity's scene (the slab step's grid-mode gate, phase 24)
 PARITY_N = 16384
@@ -570,10 +586,12 @@ def compare_has_ff(settings, params, field, label):
 
 
 def reset_counts():
-    from tpufluid_torch.ops import fused, rebin, render_coarse, sph
+    """Every kernel wrapper's count to 0, the far-mover pass's
+    (``resident.LAUNCHES``, apart from ``read_counts``) too."""
+    from tpufluid_torch.ops import fused, rebin, render_coarse, resident, sph
 
     for counts in (fused.LAUNCHES, rebin.LAUNCHES, render_coarse.LAUNCHES,
-                   sph.LAUNCHES):
+                   sph.LAUNCHES, resident.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -2579,6 +2597,273 @@ def config5_phase(card):
                 gate_max_abs_err=gate_errs)
 
 
+# ------------------------------------------ the bursts as graphs (27)
+
+def far_bytes(gs, n_far: int, k: int) -> int:
+    """Bytes the far-mover pass must move: the rebin's per-row counts (the
+    gate); with movers, the four fields of the pre-rebin grid below each
+    row's occupancy (to find them), each mover's target cell's K slots of
+    the post-rebin pos_x (its occupancy) and its four fields written."""
+    gy = gs.pos_x.shape[0]
+    if n_far == 0:
+        return 4 * gy
+    return (4 * gy + resident_bytes(gs.pos_x, gs.occ_row, 4, 0)
+            + n_far * (4 * k + 16))
+
+
+def far_case(gs, settings, params, label, timed=False, **step_kw):
+    """csrc/far_reinsert.cu against its plain version (``_reinsert_far``,
+    run whatever the count) on the kernel rebin's outputs of ``gs``:
+    grids, occ_row and lost bitwise, the far-step counter 1 when there are
+    movers, and with none the rebin's outputs untouched. ``step_kw``:
+    make_grid_step's (far_capacity, x_boundary, n_worlds). Timed: the
+    kernel by repeated calls on one copy of the rebin's grids (a call with
+    movers inserts them again, the same work), the plain version on the
+    same inputs."""
+    from tpufluid_torch.ops import fused, resident
+
+    dev = gs.pos_x.device
+    step = resident.make_grid_step(settings, **step_kw)
+    cap = step.far_capacity
+    _, row_shift = step._world_tables(dev)
+    rb = fused.rebin(gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, gs.occ_row,
+                     params.delta, step.settings, row_shift=row_shift)
+    far_n = rb[5]
+    n_far = int(far_n.sum())
+    lost0 = gs.lost + rb[6].sum().to(torch.int32)
+    counter = torch.zeros(1, dtype=torch.int64, device=dev)
+    got = resident.far_reinsert(gs, *(t.clone() for t in rb[:5]), far_n,
+                                lost0.clone(), params.delta, step.settings,
+                                cap, counter)
+    *want, dropped = resident._reinsert_far(
+        gs, *rb[:4], far_n.sum(), params.delta, step.settings, cap)
+    bitwise(got, (*want, lost0 + dropped), f"{label} far_reinsert")
+    if int(counter) != (n_far > 0):
+        raise AssertionError(f"{label} far_reinsert: far-step counter "
+                             f"{int(counter)} with {n_far} movers")
+    if n_far == 0:
+        bitwise(got[:5], rb[:5], f"{label} far_reinsert, no mover")
+    res = dict(grid=list(gs.pos_x.shape), n_far=n_far, far_capacity=cap,
+               dropped=int(dropped), max_abs_err=0.0)
+    log(f"{label} far_reinsert {tuple(gs.pos_x.shape)}: bitwise equal to "
+        f"plain ({n_far} far movers, capacity {cap}, {res['dropped']} "
+        f"dropped)")
+    if timed:
+        grids = [t.clone() for t in rb[:5]]
+        lost = lost0.clone()
+        kern = lambda: resident.far_reinsert(
+            gs, *grids, far_n, lost, params.delta, step.settings, cap,
+            counter)
+        plain = lambda: resident._reinsert_far(
+            gs, *rb[:4], far_n.sum(), params.delta, step.settings, cap)
+        res["ms"], res["plain_ms"], raw = timed_pair(kern, plain)
+        res["bound_ms"], res["bound_by"] = bound(
+            far_bytes(gs, n_far, step.settings.cell_capacity), 0)
+        res["library_ms"] = None
+        log(f"{label} far_reinsert: kernel {res['ms']:.4f} ms ({raw[0]:.4f},"
+            f" {raw[1]:.4f}), plain {res['plain_ms']:.3f} ms ({raw[2]:.3f}, "
+            f"{raw[3]:.3f}), bound {res['bound_ms']:.6f} ms "
+            f"({res['bound_by']})")
+    return res
+
+
+def far_gates(s8, params, dev):
+    """Phase 27's far-mover kernel cases: scene_1m's seeded state (256 far
+    movers; timed), the lattice at rest (none; timed), the seeded state
+    over a capacity of 100, the wall movers after one wrap step (timed),
+    and config 4's stack [544, 8, 512] with movers in every world."""
+    import tpufluid_torch as tt
+    from tpufluid_torch.ops import resident
+
+    seeded = resident.from_particles(seeded_state(s8, dev), s8)
+    out = {"seeded": far_case(seeded, s8, params, "scene_1m K=8 seeded",
+                              timed=True)}
+    out["none"] = far_case(resident.init_grid_state(s8, dev), s8, params,
+                           "scene_1m K=8 lattice", timed=True)
+    if out["none"]["n_far"] != 0 or out["seeded"]["n_far"] < 200:
+        raise AssertionError(f"far movers: {out}")
+    out["over"] = far_case(seeded, s8, params, "scene_1m K=8 seeded",
+                           far_capacity=100)
+    if out["over"]["dropped"] < out["over"]["n_far"] - 100:
+        raise AssertionError(f"over capacity: {out['over']}")
+    vkw = dict(x_boundary="wrap")
+    wst, _ = wall_state(s8, dev)
+    wgs = resident.make_grid_step(s8, **vkw)(
+        resident.from_particles(wst, s8), params)
+    out["wrap"] = far_case(wgs, s8, params, "scene_1m K=8 wall movers, "
+                           "wrapped", timed=True, **vkw)
+    if out["wrap"]["n_far"] < 1000:
+        raise AssertionError(f"wrap: {out['wrap']}")
+    bs, plist = config4(dev)
+    bgs = resident.init_batched_grid_state(bs, CONFIG4_WORLDS, dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    live = bgs.pos_x < 5e8
+    fling = live & (torch.rand(live.shape, generator=g, device=dev) < 2e-3)
+    kick = (torch.rand(live.shape, generator=g, device=dev) - 0.5) * 600.0
+    bgs = dataclasses.replace(
+        bgs, vel_x=torch.where(fling, kick, bgs.vel_x),
+        vel_y=torch.where(fling, kick.flip(2), bgs.vel_y))
+    out["config4"] = far_case(bgs, bs, resident.batched_params(plist),
+                              "config 4", n_worlds=CONFIG4_WORLDS)
+    if out["config4"]["n_far"] < 100:
+        raise AssertionError(f"config 4: {out['config4']}")
+    return out
+
+
+def burst_times(graphed, eager, args, n_steps: int):
+    """ms/step of a graphed and an eager burst (CUDA events from the
+    first enqueue to the burst's end, synchronised; in turns eager,
+    graphed, graphed, eager; means of each pair)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def one(fn):
+        torch.cuda.synchronize()
+        start.record()
+        fn(*args)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n_steps
+
+    e1, g1, g2, e2 = one(eager), one(graphed), one(graphed), one(eager)
+    return (g1 + g2) / 2, (e1 + e2) / 2, [e1, g1, g2, e2]
+
+
+def graph_case(label, graphed, eager, args, fields, n_steps: int):
+    """A graphed burst against its eager burst from the same inputs,
+    bitwise on every field, then both timed; the capture's seconds and
+    node count (the step's graph, captured here or by an earlier phase)."""
+    from tpufluid_torch import graphs
+
+    n0 = len(graphs.CAPTURES)
+    got = graphed(*args)
+    want = eager(*args)
+    for f in fields:
+        if not torch.equal(getattr(got, f), getattr(want, f)):
+            raise AssertionError(f"{label}: graphed burst {f} != eager")
+    cap = graphs.CAPTURES[-1] if len(graphs.CAPTURES) > n0 else None
+    g_ms, e_ms, raw = burst_times(graphed, eager, args, n_steps)
+    res = dict(graphed_ms_per_step=g_ms, eager_ms_per_step=e_ms,
+               readings=raw, capture=cap, steps=n_steps)
+    log(f"{label}: graphed burst of {n_steps} bitwise its eager burst; "
+        f"graphed {g_ms:.4f} ms/step, eager {e_ms:.4f} ms/step (e g g e "
+        + ", ".join(f"{r:.4f}" for r in raw) + ")"
+        + ("" if cap is None else
+           f"; capture {cap['capture_s']:.3f} s, instantiate "
+           f"{cap['instantiate_s']:.3f} s, {cap['nodes']} nodes"))
+    return res, got
+
+
+def graph_gates(s8, params, dev, card):
+    """Phase 27's graphed bursts, each bitwise its eager burst and timed:
+    the resident step (64 steps at scene_1m from the seeded state; the
+    wrap + surface tension + adaptive variant from the wall movers;
+    config 4's stack; obstacles, 16 steps under one field and 16 under a
+    swapped one), one resident burst replayed under
+    ``torch.cuda.set_sync_debug_mode("error")`` with its launches counted,
+    and the grid, dense and pallas engines' bursts (4 steps) on the CLI's
+    default scene."""
+    import tpufluid_torch as tt
+    from tpufluid_torch import cli, graphs
+    from tpufluid_torch import step as steps
+    from tpufluid_torch.ops import forcefield, resident
+
+    grid_fields = ("pos_x", "pos_y", "vel_x", "vel_y", "occ_row", "tick",
+                   "lost")
+    out = {}
+    seeded = resident.from_particles(seeded_state(s8, dev), s8)
+    run64 = resident.make_grid_multi_step(s8, 64)
+    eager64 = resident.make_eager_grid_multi_step(s8, 64)
+    out["resident"], _ = graph_case("scene_1m resident", run64, eager64,
+                                    (seeded, params), grid_fields, 64)
+    # replays with no host sync; the launches of the burst
+    want = eager64(seeded, params)
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = run64(seeded, params)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in read_counts().items() if v}
+    far = resident.LAUNCHES["far_reinsert"]
+    for f in grid_fields:
+        if not torch.equal(getattr(got, f), getattr(want, f)):
+            raise AssertionError(f"burst under sync debug: {f} != eager")
+    if counts != dict.fromkeys(("rebin", "density", "forces_integrate"),
+                               64) or far != 64:
+        raise AssertionError(f"graphed burst launches {counts}, "
+                             f"far_reinsert {far}")
+    log(f"scene_1m resident burst of 64 replayed under sync debug mode "
+        f"'error': no sync, bitwise; launches {counts}, far_reinsert {far}")
+    out["resident"]["launches"] = dict(counts, far_reinsert=far)
+
+    vkw = dict(x_boundary="wrap", surface_tension=True,
+               adaptive_subsampling=True)
+    p_st = tt.TickParams.default(dev, **ST_PARAMS)
+    wst, _ = wall_state(s8, dev)
+    out["wrap"], _ = graph_case(
+        "scene_1m resident wrap + surface tension + adaptive",
+        resident.make_grid_multi_step(s8, 64, **vkw),
+        resident.make_eager_grid_multi_step(s8, 64, **vkw),
+        (resident.from_particles(wst, s8), p_st), grid_fields, 64)
+
+    bs, plist = config4(dev)
+    out["config4"], _ = graph_case(
+        "config 4 [544, 8, 512]",
+        resident.make_grid_multi_step(bs, 64, n_worlds=CONFIG4_WORLDS),
+        resident.make_eager_grid_multi_step(bs, 64,
+                                            n_worlds=CONFIG4_WORLDS),
+        (resident.init_batched_grid_state(bs, CONFIG4_WORLDS, dev),
+         resident.batched_params(plist)), grid_fields, 64)
+
+    shifted = [(kind, (c[0] + 8.0, c[1] - 5.0), *rest)
+               for kind, c, *rest in OBSTACLES_1M]
+    fields = [forcefield.obstacle_force_field(
+        forcefield.Objects.from_list(o, dev), s8)
+        for o in (OBSTACLES_1M, shifted)]
+    run16 = resident.make_grid_multi_step(s8, 16, has_force_field=True)
+    eager16 = resident.make_eager_grid_multi_step(s8, 16,
+                                                  has_force_field=True)
+    gs = seeded
+    for i, fld in enumerate(fields):
+        res, gs = graph_case(f"scene_1m resident, obstacles, field {i}",
+                             run16, eager16, (gs, params, fld), grid_fields,
+                             16)
+        out[f"obstacles_{i}"] = res
+
+    for mode in ("grid", "dense", "pallas"):
+        app = cli.build_app(cli.parser().parse_args(
+            ["run", "--device", "cuda", "--neighbor-mode", mode]))
+        out[mode], _ = graph_case(
+            f"CLI default scene (100k, K={app.settings.cell_capacity}) "
+            f"{mode}", steps.make_multi_step(app.settings, 4,
+                                             neighbor_mode=mode),
+            steps.make_eager_multi_step(app.settings, 4, neighbor_mode=mode),
+            (app.state, app.params),
+            ("position", "predicted", "velocity", "density", "cell", "tick"),
+            4)
+    # every capture of the run so far (phases 3-27), by step
+    caps = {}
+    for c in graphs.CAPTURES:
+        caps.setdefault(c["what"], []).append(c)
+    out["captures"] = {
+        w: dict(count=len(cs), nodes=sorted({c["nodes"] for c in cs},
+                                            key=str),
+                capture_s=[min(c["capture_s"] for c in cs),
+                           max(c["capture_s"] for c in cs)],
+                instantiate_s=[min(c["instantiate_s"] for c in cs),
+                               max(c["instantiate_s"] for c in cs)])
+        for w, cs in caps.items()}
+    for w, c in out["captures"].items():
+        log(f"captured {c['count']}x: {w}: {c['nodes']} nodes, capture "
+            f"{c['capture_s'][0]:.3f}-{c['capture_s'][1]:.3f} s, "
+            f"instantiate {c['instantiate_s'][0]:.3f}-"
+            f"{c['instantiate_s'][1]:.3f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -2634,6 +2919,7 @@ def main() -> int:
     end.record()
     torch.cuda.synchronize()
     launches = read_counts()
+    far_launches = resident.LAUNCHES["far_reinsert"]
     ms_step = start.elapsed_time(end) / 200
     m = app.metrics()
     ps, live = resident.to_particles(app.grid_state, app.settings)
@@ -2651,6 +2937,9 @@ def main() -> int:
     if launches != {**dict.fromkeys(launches, 0), "rebin": 200,
                     "density": 200, "forces_integrate": 200}:
         raise AssertionError(f"kernel launches in the run: {launches}")
+    if far_launches != 200:  # the far-mover pass: every step, gate or not
+        raise AssertionError(f"far_reinsert launches in the run: "
+                             f"{far_launches}")
     resident_prof = profile_steps(app, 20, "scene_1m resident")
 
     # 4. the reference's default scene through the CLI's run path
@@ -3032,6 +3321,13 @@ def main() -> int:
     # shards of the card)
     config5 = config5_phase(card)
 
+    # 27. the far-mover kernel against its plain version, and the graphed
+    # bursts against their eager bursts
+    torch.use_deterministic_algorithms(True)
+    far = far_gates(s8, scene.params, dev)
+    torch.use_deterministic_algorithms(False)
+    bursts = graph_gates(s8, scene.params, dev, card)
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         if name == "metaball_coarse":
@@ -3043,6 +3339,12 @@ def main() -> int:
                 default_scene=coarse["default scene"])
         elif name == "rebin_valid":
             entry = dict(launches=launches[name], **rebin_valid)
+        elif name == "far_reinsert":
+            entry = dict(launches=far_launches, **{
+                k: far["none"][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                            "bound_ms", "bound_by",
+                                            "library_ms")},
+                cases=far, burst_launches=bursts["resident"]["launches"])
         elif name == "physics":
             entry = dict(launches=l_fused["physics"],
                          split_path_launches=l_split["physics"],
@@ -3116,7 +3418,8 @@ def main() -> int:
                       "sharded": {tag: {f"D={d}": r for d, r in row.items()}
                                   for tag, row in sharded.items()},
                       "slab": {f"D={d}": r for d, r in slab.items()},
-                      "bench": bench_res, "config5_model": config5}))
+                      "bench": bench_res, "config5_model": config5,
+                      "bursts": bursts}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

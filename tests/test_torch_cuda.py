@@ -30,7 +30,10 @@ grids and at the largest K its tile takes; FluidApp.set_mouse
 drives 16 resident ticks at scene_1m without loss; and both sharded steps
 (row-band resident, slab pallas on a grid with dead columns) are bitwise
 their plain versions on D shards of one card; config 5's audited bytes
-of one sharded step at scene_4m on 8 shards of the card equal the formula.
+of one sharded step at scene_4m on 8 shards of the card equal the formula;
+the resident step's far-mover pass (csrc/far_reinsert.cu, gated on the
+device) bitwise its plain version, and every burst replayed as a CUDA
+graph bitwise its eager burst, the resident one with no host sync.
 """
 
 import dataclasses
@@ -1082,3 +1085,181 @@ def test_config5_measured_bytes_at_scene_4m(cuda):
     formula = comm_audit.resident_comm_formula(spec)["bytes_per_dir"]
     assert bench._measured_comm_bytes_per_dir(spec, cuda) == formula \
         == 397_320
+
+
+# ------------------------------------- the far-mover pass and the bursts
+
+FAR_CASES = {"movers": {}, "none": {}, "over": dict(far_capacity=5),
+             "wrap": dict(x_boundary="wrap"), "worlds": dict(n_worlds=2),
+             "many": {}}
+
+
+def _far_input(case, cuda):
+    """(settings, state, params, step kwargs) of a far-mover case."""
+    s = tt.SimSettings(particle_count=3000, size=(9.0, 8.0), cell_capacity=8)
+    p = tt.TickParams.default(cuda, gravity=(0.0, -9.8))
+    kw = FAR_CASES[case]
+    if case == "none":
+        return s, resident.init_grid_state(s, cuda), p, kw
+    if case == "many":  # more movers than the insert pass sorts in shared
+        # memory (16,384): its sort runs in global memory
+        s = tt.SimSettings(particle_count=30000, size=(30.0, 30.0),
+                           cell_capacity=64)
+        gs = _state(s, cuda, 4)
+        g = torch.Generator(device=cuda).manual_seed(4)
+        kick = (torch.rand(gs.vel_x.shape, generator=g, device=cuda)
+                - 0.5) * 600.0
+        return s, dataclasses.replace(gs, vel_x=kick,
+                                      vel_y=kick.flip(2)), p, kw
+    gs = _state(s, cuda, 3)
+    if case == "wrap":  # every particle near an x wall moving out, wrapped
+        near = (gs.pos_x.abs() > 4.0) & (gs.pos_x < fused.SENTINEL_HALF)
+        gs = dataclasses.replace(gs, vel_x=torch.where(
+            near, torch.sign(gs.pos_x) * 60.0, gs.vel_x))
+        gs = resident.make_grid_step(s, **kw)(gs, p)
+    if case == "worlds":
+        gs = dataclasses.replace(
+            gs, **{f: torch.cat([getattr(gs, f), getattr(gs, f)])
+                   for f in ("pos_x", "pos_y", "vel_x", "occ_row")},
+            vel_y=torch.cat([gs.vel_y, gs.vel_y * 0.5]))
+        p = resident.batched_params([p, tt.TickParams.default(
+            cuda, gravity=(0.0, -4.9), viscosity_coefficient=10.0)])
+    return s, gs, p, kw
+
+
+@pytest.mark.parametrize("case", list(FAR_CASES))
+def test_far_reinsert_matches_plain(cuda, case):
+    """csrc/far_reinsert.cu against its plain version (``_reinsert_far``,
+    run whatever the count) on the kernel rebin's outputs: grids, occ_row
+    and lost bitwise; with no mover the rebin's outputs untouched and the
+    far-step counter unmoved, else the counter 1; "over" (capacity 5)
+    drops the rest into lost ("wrap" piles its crossers into the first
+    column, whose cells may overflow); "many" sorts its movers in global
+    memory; one launch counted either way."""
+    s, gs, p, kw = _far_input(case, cuda)
+    step = resident.make_grid_step(s, **kw)
+    _, row_shift = step._world_tables(cuda)
+    rb = fused.rebin(gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, gs.occ_row,
+                     p.delta, step.settings, row_shift=row_shift)
+    n_far = int(rb[5].sum())
+    lost0 = gs.lost + rb[6].sum().to(torch.int32)
+    counter = torch.zeros(1, dtype=torch.int64, device=cuda)
+    before = resident.LAUNCHES["far_reinsert"]
+    got = resident.far_reinsert(gs, *(t.clone() for t in rb[:5]), rb[5],
+                                lost0.clone(), p.delta, step.settings,
+                                step.far_capacity, counter)
+    assert resident.LAUNCHES["far_reinsert"] == before + 1
+    *want, dropped = resident._reinsert_far(gs, *rb[:4], rb[5].sum(), p.delta,
+                                            step.settings, step.far_capacity)
+    for a, b in zip(got, (*want, lost0 + dropped)):
+        assert torch.equal(a, b)
+    assert int(counter) == (n_far > 0)
+    if case == "none":
+        assert n_far == 0
+        for a, b in zip(got[:5], rb[:5]):
+            assert torch.equal(a, b)
+    else:
+        assert n_far >= 8
+    if case == "over":
+        assert int(dropped) >= n_far - 5
+    if case == "many":
+        assert min(n_far, step.far_capacity) > 16384
+
+
+BURSTS = {"base": {}, "wrap": dict(x_boundary="wrap", surface_tension=True,
+                                   adaptive_subsampling=True),
+          "worlds": dict(n_worlds=2), "obstacles": dict(has_force_field=True)}
+
+
+@pytest.mark.parametrize("case", list(BURSTS))
+def test_graphed_resident_burst_matches_eager(cuda, case):
+    """``make_grid_multi_step`` (a CUDA graph replayed once a step) against
+    ``make_eager_grid_multi_step``, bitwise every field, over two bursts
+    (the first captures, the second only replays; obstacles: the second
+    under a new field). The launch counters read one launch of each
+    kernel a step, and a burst's result is not overwritten by the next."""
+    s = tt.SimSettings(particle_count=3000, size=(9.0, 8.0), cell_capacity=8,
+                       texture_size=(90, 80))
+    p = tt.TickParams.default(cuda, gravity=(0.0, -9.8))
+    kw = BURSTS[case]
+    gs = _state(s, cuda, 5)
+    if case == "worlds":
+        gs = dataclasses.replace(
+            gs, **{f: torch.cat([getattr(gs, f), getattr(gs, f)])
+                   for f in ("pos_x", "pos_y", "vel_x", "vel_y", "occ_row")})
+        p = resident.batched_params([p, tt.TickParams.default(
+            cuda, gravity=(0.0, -4.9), viscosity_coefficient=10.0)])
+    extra = [(), ()]
+    if case == "obstacles":
+        from tpufluid_torch.ops import forcefield
+        extra = [(forcefield.obstacle_force_field(
+            forcefield.Objects.from_list([("circle", c, 1.0)], cuda), s),)
+            for c in ((0.0, 0.0), (2.0, -1.0))]
+    if case == "wrap":
+        p = tt.TickParams.default(cuda, surface_tension_threshold=0.05,
+                                  surface_tension_coefficient=5.0)
+    run = resident.make_grid_multi_step(s, 6, **kw)
+    eager = resident.make_eager_grid_multi_step(s, 6, **kw)
+    fields = ("pos_x", "pos_y", "vel_x", "vel_y", "occ_row", "tick", "lost")
+    for i in range(2):
+        before = dict(fused.LAUNCHES)
+        far0 = resident.LAUNCHES["far_reinsert"]
+        got = run(gs, p, *extra[i])
+        torch.cuda.synchronize()
+        assert {n: fused.LAUNCHES[n] - before[n] for n in ("rebin", "density",
+                "forces_integrate")} == dict.fromkeys(
+            ("rebin", "density", "forces_integrate"), 6)
+        assert resident.LAUNCHES["far_reinsert"] == far0 + 6
+        want = eager(gs, p, *extra[i])
+        for f in fields:
+            assert torch.equal(getattr(got, f), getattr(want, f)), (i, f)
+        kept = {f: getattr(got, f).clone() for f in fields}
+        nxt = run(got, p, *extra[i])
+        for f in fields:
+            assert torch.equal(getattr(got, f), kept[f]), (i, f)
+        assert int(nxt.tick) == int(got.tick) + 6
+        gs = got
+
+
+@pytest.mark.parametrize("mode", ["grid", "naive", "dense", "pallas"])
+def test_graphed_step_burst_matches_eager(cuda, mode):
+    """``step.make_multi_step`` (a CUDA graph) against
+    ``make_eager_multi_step``, bitwise every field, over two bursts;
+    burst sizes of one step share its graph."""
+    from tpufluid_torch import graphs
+    from tpufluid_torch import step as steps
+
+    s = tt.SimSettings(particle_count=1000 if mode == "naive" else 3000,
+                       size=(9.0, 8.0), cell_capacity=16)
+    p = tt.TickParams.default(cuda, gravity=(0.0, -9.8))
+    st = tt.init_state(s, cuda)
+    run = steps.make_multi_step(s, 5, neighbor_mode=mode)
+    eager = steps.make_eager_multi_step(s, 5, neighbor_mode=mode)
+    fields = ("position", "predicted", "velocity", "density", "cell", "tick")
+    for _ in range(2):
+        got, want = run(st, p), eager(st, p)
+        for f in fields:
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+        st = got
+    n = len(graphs.CAPTURES)
+    steps.make_multi_step(s, 2, neighbor_mode=mode)(st, p)
+    assert len(graphs.CAPTURES) == n
+
+
+def test_resident_burst_replays_without_sync(cuda):
+    """A captured resident burst with far movers replays under
+    ``torch.cuda.set_sync_debug_mode("error")``: no host read."""
+    s = tt.SimSettings(particle_count=3000, size=(9.0, 8.0), cell_capacity=8)
+    p = tt.TickParams.default(cuda, gravity=(0.0, -9.8))
+    gs = _state(s, cuda, 9)
+    run = resident.make_grid_multi_step(s, 4)
+    want = run(gs, p)  # captures
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = run(gs, p)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for f in ("pos_x", "pos_y", "vel_x", "vel_y", "occ_row", "tick", "lost"):
+        assert torch.equal(getattr(got, f), getattr(want, f))
+    assert run.step.far_steps >= 2

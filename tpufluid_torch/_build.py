@@ -57,6 +57,9 @@ _SIGNATURES = {
     "tf_sph_forces_tile": [_I],
     "tf_sph_forces_max_k": [],
     "tf_chamfer_push_field": [_P, _I, _I, _P],
+    "tf_far_reinsert": [_P] * 7 + [_P] * 3 + [_P] * 4 + [_P] * 3 + [_I] * 6
+    + [_F] * 3 + [_I] * 2 + [_P],
+    "tf_far_smem_entries": [],
 }
 
 _lib = None

@@ -1,0 +1,159 @@
+"""CUDA graphs of the step bursts: the counterpart of the JAX package's
+``jax.jit(lax.scan(step))``, which runs a burst of ticks as one device
+program with no host round-trip between ticks.
+
+A burst's step is captured once as a CUDA graph over static buffers: the
+state it reads (and overwrites with its result), the params' copies and
+any field's. A burst copies its inputs into them, replays the graph once
+per step and hands back a copy of the result, never a buffer that the
+next replay overwrites. The first burst runs its first step eagerly, on a
+side stream (that step builds the kernels, sets their shared-memory limits
+and fills the step's caches, none of which a capture may do), and captures
+the graph from that step's result. A replay launches the same kernels in
+the same order as the eager step, so a graphed burst is bitwise its eager
+burst. A capture that fails raises; nothing falls back to the eager loop.
+
+Launch counts: a kernel wrapper counts a launch when Python calls it,
+which a replay does not do. The counts a capture made are taken back and
+added again on every replay, so the counters read the launches that ran.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import time
+
+import torch
+
+
+def _counters():
+    """Every kernel wrapper's launch-count dict."""
+    from .ops import fused, rebin, render_coarse, resident, sph
+
+    return (fused.LAUNCHES, rebin.LAUNCHES, render_coarse.LAUNCHES,
+            sph.LAUNCHES, resident.LAUNCHES)
+
+
+def signature(obj) -> tuple:
+    """Shapes and types of a dataclass of tensors (the static copies a
+    graph of it holds)."""
+    return tuple((f.name, tuple(getattr(obj, f.name).shape),
+                  getattr(obj, f.name).dtype)
+                 for f in dataclasses.fields(obj))
+
+
+def clone_fields(obj, device=None):
+    """A copy of a dataclass of tensors, each field cloned (onto
+    ``device`` where given)."""
+    def one(t):
+        return (t if device is None else t.to(device)).clone()
+
+    return dataclasses.replace(obj, **{
+        f.name: one(getattr(obj, f.name)) for f in dataclasses.fields(obj)})
+
+
+def copy_fields(dst, src) -> None:
+    """Each tensor field of ``src`` copied into ``dst``'s, in place."""
+    for f in dataclasses.fields(dst):
+        getattr(dst, f.name).copy_(getattr(src, f.name))
+
+
+def on_side_stream(fn, device):
+    """``fn()`` on a side stream that first waits for the current stream,
+    which then waits for it (PyTorch's warm-up before a capture)."""
+    cur = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        out = fn()
+    cur.wait_stream(side)
+    return out
+
+
+def node_count(graph: torch.cuda.CUDAGraph):
+    """Nodes of a captured graph (libcuda's ``cuGraphGetNodes``), or None
+    where ``libcuda.so.1`` does not load."""
+    try:
+        lib = ctypes.CDLL("libcuda.so.1")
+    except OSError:
+        return None
+    fn = lib.cuGraphGetNodes
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.POINTER(ctypes.c_size_t)]
+    n = ctypes.c_size_t(0)
+    err = fn(ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    return int(n.value) if err == 0 else None
+
+
+# every capture's record: what, capture_s, instantiate_s, nodes, launches
+CAPTURES: list = []
+# the burst runners by key: (family, runner)
+_RUNNERS: dict = {}
+
+
+def burst(key, family, device, n_steps: int, step, build, state, *inputs):
+    """``n_steps`` of ``step(state, *inputs)`` as a burst: the calls of the
+    runner cached under ``key`` (``runner(state, n_steps, *inputs)``,
+    replays of a graph). A key's first burst runs its first step eagerly on
+    a side stream, then builds the runner from that step's result
+    (``build(state, *inputs)``), dropping the runners of the same
+    ``family`` under other keys (a step's graphs go when the step is
+    rebuilt at another cell capacity)."""
+    if n_steps <= 0:
+        return state
+    hit = _RUNNERS.get(key)
+    if hit is None:
+        state = on_side_stream(lambda: step(state, *inputs), device)
+        for k in [k for k, (f, _) in _RUNNERS.items() if f == family]:
+            del _RUNNERS[k]
+        hit = _RUNNERS[key] = (family, build(state, *inputs))
+        n_steps -= 1
+        if n_steps == 0:
+            return state
+    return hit[1](state, n_steps, *inputs)
+
+
+class StepGraph:
+    """``body()`` captured as a CUDA graph on ``device``; ``replay(n)`` runs
+    it n times on the current stream. ``capture_s``, ``instantiate_s``:
+    the host seconds of the capture and of the instantiation; ``nodes``:
+    the graph's node count; ``launches``: the kernel launches of one
+    replay, by counter."""
+
+    def __init__(self, body, device, what: str):
+        device = torch.device(device)
+        counts = _counters()
+        before = [dict(c) for c in counts]
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(self.graph, stream=stream):
+                body()
+            t1 = time.perf_counter()
+            self.graph.instantiate()
+        except Exception as err:
+            raise RuntimeError(f"capturing {what} as a CUDA graph failed: "
+                               f"{err}") from err
+        finally:
+            delta = [{n: c[n] - b.get(n, 0) for n in c}
+                     for c, b in zip(counts, before)]
+            for c, b in zip(counts, before):
+                c.update(b)
+        self.instantiate_s = time.perf_counter() - t1
+        self.capture_s = t1 - t0
+        self.nodes = node_count(self.graph)
+        self._delta = [{n: v for n, v in d.items() if v} for d in delta]
+        self.launches = {n: v for d in self._delta for n, v in d.items()}
+        CAPTURES.append(dict(what=what, capture_s=self.capture_s,
+                             instantiate_s=self.instantiate_s,
+                             nodes=self.nodes, launches=self.launches))
+
+    def replay(self, n: int) -> None:
+        for _ in range(n):
+            self.graph.replay()
+        for counts, d in zip(_counters(), self._delta):
+            for name, v in d.items():
+                counts[name] += v * n

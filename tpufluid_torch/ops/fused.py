@@ -256,6 +256,28 @@ def _launched(name: str, err: int, launches=LAUNCHES) -> None:
     launches[name] += 1
 
 
+def _outputs(out, shape, dev):
+    """A kernel's four output grids: new ones, or the caller's ``out``
+    (checked), which must not be any of the kernel's inputs."""
+    if out is None:
+        return [torch.empty(shape, dtype=torch.float32, device=dev)
+                for _ in range(4)]
+    out = list(out)
+    if len(out) != 4 or any(o.device != dev for o in out):
+        raise ValueError(f"out must be four grids on {dev}")
+    _check_grids(shape, *out)
+    return out
+
+
+def _into(out, res):
+    """``res`` copied into ``out`` when given (the plain versions)."""
+    if out is None:
+        return res
+    for o, r in zip(out, res):
+        o.copy_(r)
+    return tuple(out)
+
+
 # ----------------------------------------------------------------- rebin
 
 def _rebin_consts(settings: SimSettings):
@@ -783,7 +805,7 @@ def _count_variants(flags: int, wid_t) -> None:
 def forces_integrate(pos_x, pos_y, vel_x, vel_y, pres, invr, occ_row,
                      params, settings: SimSettings, frame, ff_cells=None,
                      x_boundary="bounce", surface_tension: bool = False,
-                     adaptive_subsampling: bool = False, wid=None):
+                     adaptive_subsampling: bool = False, wid=None, out=None):
     """Symmetrised spiky pressure and viscosity over the 3x3 stencil,
     fused with the full integration (gravity, mouse impulse, NaN reset,
     speed clamp, bounce or x wrap). Returns (pos_x', pos_y', vel_x',
@@ -792,17 +814,18 @@ def forces_integrate(pos_x, pos_y, vel_x, vel_y, pres, invr, occ_row,
     target cell (``resident.forcefield_cells``). ``surface_tension`` adds
     the colour-field force, ``adaptive_subsampling`` strides the pressure
     candidates by the self density. ``wid``: i32[Gy] world of each row for
-    batched world stacks; the params may then carry a leading [W]. On a
-    CUDA device ``csrc/forces.cu`` runs on the tile it picks from K
+    batched world stacks; the params may then carry a leading [W]. ``out``:
+    four grids that take the result (none of the inputs). On a CUDA device
+    ``csrc/forces.cu`` runs on the tile it picks from K
     (:func:`forces_tile`)."""
     flags = _flags(x_boundary, ff_cells, surface_tension,
                    adaptive_subsampling)
     ffs = () if ff_cells is None else tuple(ff_cells)
     if not _on_cuda(pos_x, pos_y, vel_x, vel_y, pres, invr, occ_row, *ffs):
-        return forces_integrate_plain(
+        return _into(out, forces_integrate_plain(
             pos_x, pos_y, vel_x, vel_y, pres, invr, occ_row, params,
             settings, frame, ff_cells, x_boundary, surface_tension,
-            adaptive_subsampling, wid)
+            adaptive_subsampling, wid))
     gy, k, gx = pos_x.shape
     _check_grids((gy, k, gx), pos_x, pos_y, vel_x, vel_y, pres, invr)
     _check_occ(occ_row, gy)
@@ -813,8 +836,7 @@ def forces_integrate(pos_x, pos_y, vel_x, vel_y, pres, invr, occ_row,
     sc = _forces_sc(params, settings, wid_t, dev)
     wid_t = _one_world(sc, wid_t)
     fr = torch.as_tensor(frame, dtype=torch.int64, device=dev).reshape(1)
-    outs = [torch.empty((gy, k, gx), dtype=torch.float32, device=dev)
-            for _ in range(4)]
+    outs = _outputs(out, (gy, k, gx), dev)
     lib = _build.load()
     err = lib.tf_forces(
         _ptr(pos_x), _ptr(pos_y), _ptr(vel_x), _ptr(vel_y), _ptr(pres),
@@ -847,21 +869,23 @@ def physics_plain(pos_x, pos_y, vel_x, vel_y, occ_row, params,
 def physics(pos_x, pos_y, vel_x, vel_y, occ_row, params,
             settings: SimSettings, frame, ff_cells=None, x_boundary="bounce",
             surface_tension: bool = False,
-            adaptive_subsampling: bool = False, wid=None):
+            adaptive_subsampling: bool = False, wid=None, out=None):
     """Density + 3x3-stencil forces + full integration as one kernel.
 
     Same contract as :func:`density` followed by
     :func:`forces_integrate`, and bitwise equal to that pair: returns
-    (pos_x', pos_y', vel_x', vel_y'). pres and 1/rho never leave the
-    block (``csrc/physics.cu``, on the tile it picks from K:
+    (pos_x', pos_y', vel_x', vel_y'), in ``out`` when given (as for
+    :func:`forces_integrate`). pres and 1/rho never leave the block
+    (``csrc/physics.cu``, on the tile it picks from K:
     :func:`physics_tile`)."""
     flags = _flags(x_boundary, ff_cells, surface_tension,
                    adaptive_subsampling)
     ffs = () if ff_cells is None else tuple(ff_cells)
     if not _on_cuda(pos_x, pos_y, vel_x, vel_y, occ_row, *ffs):
-        return physics_plain(pos_x, pos_y, vel_x, vel_y, occ_row, params,
-                             settings, frame, ff_cells, x_boundary,
-                             surface_tension, adaptive_subsampling, wid)
+        return _into(out, physics_plain(
+            pos_x, pos_y, vel_x, vel_y, occ_row, params, settings, frame,
+            ff_cells, x_boundary, surface_tension, adaptive_subsampling,
+            wid))
     gy, k, gx = pos_x.shape
     _check_grids((gy, k, gx), pos_x, pos_y, vel_x, vel_y)
     _check_occ(occ_row, gy)
@@ -872,8 +896,7 @@ def physics(pos_x, pos_y, vel_x, vel_y, occ_row, params,
     sc = _forces_sc(params, settings, wid_t, dev, physics=True)
     wid_t = _one_world(sc, wid_t)
     fr = torch.as_tensor(frame, dtype=torch.int64, device=dev).reshape(1)
-    outs = [torch.empty((gy, k, gx), dtype=torch.float32, device=dev)
-            for _ in range(4)]
+    outs = _outputs(out, (gy, k, gx), dev)
     h2, norm, _, _ = _density_consts(settings)
     lib = _build.load()
     err = lib.tf_physics(

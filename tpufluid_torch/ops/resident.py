@@ -8,8 +8,10 @@ shapes, so the two engines' states compare one to one). One step:
 
   1. rebin: slots move to their next predicted cell (``fused.rebin``);
   2. far movers (> 1 cell in one step, or across the x wall under
-     ``x_boundary="wrap"``) re-insert through plain tensor code, only when
-     the rebin counted any;
+     ``x_boundary="wrap"``) re-insert (``far_reinsert``): on a CUDA device
+     ``csrc/far_reinsert.cu``, launched every step and gated on the
+     device by the rebin's count, as the JAX step's ``lax.cond``; on the
+     CPU its plain version, run when the count read on the host is not 0;
   3. physics: density -> (pressure, 1/rho) (``fused.density``), then the
      forces fused with the integration (``fused.forces_integrate``), with
      the per-cell obstacle push-out when the step is built with
@@ -25,8 +27,10 @@ row to its world, and the per-tick tunables carry a leading [B] dim
 Arrivals beyond ``cell_capacity`` and far movers beyond ``far_capacity``
 are dropped and counted in ``GridState.lost``, never silently.
 
-Host syncs: one per step, reading the far-mover count to decide whether
-step 2 runs (the JAX step branches on the device with ``lax.cond``).
+Host syncs: none on a CUDA device, so a burst of steps is captured as one
+CUDA graph and replayed (``make_grid_multi_step``, the JAX package's
+``jax.jit(lax.scan(step))``); on the CPU one per step, the far-mover
+count's, and a burst is a Python loop.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from typing import Tuple
 
 import torch
 
+from .. import _build, graphs
 from ..params import SimSettings
 from ..state import ParticleState, init_state
 from . import grid as gridops
@@ -173,18 +178,13 @@ def to_particles(gs: GridState,
     ), live
 
 
-def _reinsert_far(gs: GridState, px, py, vx, vy, n_far, dt,
-                  settings: SimSettings, far_capacity: int):
-    """Far-mover fallback (``tpufluid.ops.resident`` ``do_far``): take the
-    far movers of the pre-rebin grid in slot order (at most
-    ``far_capacity``), order them by target cell, and append each to its
-    target cell after the slots the rebin filled. Returns the new grids,
-    occ_row and the count dropped for want of room. In a batched stack a
-    world's cell rows map to its own stacked rows."""
-    gy, k, gxp = px.shape
-    size = px.numel()
-    dev = px.device
-    grid_w = settings.grid_w
+def far_movers(gs: GridState, dt, settings: SimSettings):
+    """(far, ncx, ncy): which slots of ``gs`` hold a far mover (a live
+    slot whose predicted cell lies beyond the 3 x 3 cells around its own),
+    and each slot's predicted cell, its row in the stacked frame of a
+    batched stack."""
+    gy, k, gxp = gs.pos_x.shape
+    dev = gs.pos_x.device
     ncx, ncy = fused._cells(gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, dt,
                             settings)
     scx = torch.arange(gxp, device=dev)[None, None, :]
@@ -194,6 +194,23 @@ def _reinsert_far(gs: GridState, px, py, vx, vy, n_far, dt,
         ncy = ncy + (scy // rows_w) * rows_w
     far = (gs.pos_x < SENTINEL_HALF) & (
         ((ncy - scy).abs() > 1) | ((ncx - scx).abs() > 1))
+    return far, ncx, ncy
+
+
+def _reinsert_far(gs: GridState, px, py, vx, vy, n_far, dt,
+                  settings: SimSettings, far_capacity: int):
+    """Far-mover fallback (``tpufluid.ops.resident`` ``do_far``), the plain
+    version of :func:`far_reinsert`: take the far movers of the pre-rebin
+    grid in slot order (at most ``far_capacity``), order them by target
+    cell, and append each to its target cell after the slots the rebin
+    filled. Returns the new grids, occ_row and the count dropped for want
+    of room; with ``n_far == 0`` the rebin's grids and occ_row, unchanged.
+    In a batched stack a world's cell rows map to its own stacked rows."""
+    gy, k, gxp = px.shape
+    size = px.numel()
+    dev = px.device
+    grid_w = settings.grid_w
+    far, ncx, ncy = far_movers(gs, dt, settings)
     sort_key = torch.where(far.reshape(-1), 0, 1)
     _, perm = torch.sort(sort_key, stable=True)
     sel = perm[:far_capacity]
@@ -228,6 +245,69 @@ def put_flat(grid: torch.Tensor, flat: torch.Tensor, vals: torch.Tensor):
     buf = torch.cat([grid.reshape(-1), grid.new_zeros(1)])
     buf.index_put_((flat,), vals)
     return buf[:size].reshape(grid.shape)
+
+
+# far-mover pass launches (csrc/far_reinsert.cu; CUDA tensors only), one a
+# step of the kernel step on a CUDA device, gate open or not. Apart from
+# fused.LAUNCHES, which counts the step's rebin and physics kernels.
+LAUNCHES = {"far_reinsert": 0}
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def far_reinsert(gs: GridState, px, py, vx, vy, occ_row, far_n, lost, dt,
+                 settings: SimSettings, far_capacity: int, far_steps=None):
+    """The far movers of ``gs`` put back into the rebin's outputs.
+
+    ``px .. occ_row``, ``far_n``: the rebin's outputs on ``gs``; ``lost``:
+    i32 0-d, the step's count so far. Returns (px, py, vx, vy, occ_row,
+    lost) as :func:`_reinsert_far` gives them, with its dropped count added
+    to ``lost``. On a CUDA device ``csrc/far_reinsert.cu`` updates the
+    given tensors in place: it reads ``n_far = far_n.sum()`` on the device
+    and writes nothing when it is 0 (the JAX step's ``lax.cond``), and adds
+    1 to ``far_steps`` (i64[1]) when it is not; no host read. On the CPU the
+    plain version runs whatever the count (the step gates it there)."""
+    grids = (px, py, vx, vy)
+    if not fused._on_cuda(*grids, occ_row, far_n, lost, *_grid_tensors(gs)):
+        *out, dropped = _reinsert_far(gs, *grids, far_n.sum(), dt, settings,
+                                      far_capacity)
+        return (*out, lost + dropped)
+    gy, k, gx = px.shape
+    fused._check_grids((gy, k, gx), *grids, *_grid_tensors(gs)[:4])
+    for t, name in ((occ_row, "occ_row"), (gs.occ_row, "gs.occ_row"),
+                    (far_n, "far_n")):
+        fused._check_occ(t, gy, name)
+    if lost.shape != () or lost.dtype != torch.int32:
+        raise ValueError(f"lost must be i32 0-d, got {lost.dtype}"
+                         f"{list(lost.shape)}")
+    dev = px.device
+    if far_steps is None:
+        far_steps = torch.zeros(1, dtype=torch.int64, device=dev)
+    if far_steps.shape != (1,) or far_steps.dtype != torch.int64:
+        raise ValueError("far_steps must be i64[1]")
+    lib = _build.load()
+    n_pad = _pow2(far_capacity)
+    keys = torch.empty(n_pad, dtype=torch.int64, device=dev)
+    movers = torch.empty((far_capacity, 4), dtype=torch.float32, device=dev)
+    # slots of a sort too large for shared memory
+    gslot = torch.empty(n_pad if n_pad > lib.tf_far_smem_entries() else 1,
+                        dtype=torch.int32, device=dev)
+    h_inv, half_x, half_y, cx_max, cy_max = fused._rebin_consts(settings)
+    err = lib.tf_far_reinsert(
+        *(fused._ptr(t) for t in _grid_tensors(gs)[:5]), fused._ptr(far_n),
+        fused._ptr(fused._as_f32(dt, dev).reshape(1)), fused._ptr(keys),
+        fused._ptr(movers), fused._ptr(gslot),
+        *(fused._ptr(t) for t in (*grids, occ_row, lost, far_steps)),
+        gy, k, gx, _rows(settings), settings.grid_w, far_capacity, h_inv,
+        half_x, half_y, cx_max, cy_max, fused._stream(dev))
+    fused._launched("far_reinsert", err, LAUNCHES)
+    return (*grids, occ_row, lost)
+
+
+def _grid_tensors(gs: GridState):
+    return (gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, gs.occ_row)
 
 
 def forcefield_cells(forcefield: torch.Tensor, settings: SimSettings,
@@ -285,7 +365,7 @@ def make_grid_step(settings: SimSettings, far_capacity: int | None = None,
                    has_force_field: bool = False,
                    surface_tension: bool = False,
                    adaptive_subsampling: bool = False,
-                   n_worlds: int = 1):
+                   n_worlds: int = 1) -> "GridStep":
     """Resident step, memoised on its arguments: ``step(gs, params)``, or
     ``step(gs, params, forcefield)`` with ``has_force_field`` (forcefield:
     the f32[H, W, 2] push-out field of ``forcefield.obstacle_force_field``;
@@ -298,11 +378,11 @@ def make_grid_step(settings: SimSettings, far_capacity: int | None = None,
            surface_tension, adaptive_subsampling, n_worlds, split)
     hit = _STEP_CACHE.get(key)
     if hit is None:
-        hit = _STEP_CACHE[key] = _make_step(
+        hit = _STEP_CACHE[key] = GridStep(
             settings, far_capacity, x_boundary, has_force_field,
-            surface_tension, adaptive_subsampling, n_worlds, fused.rebin,
-            fused.density, fused.forces_integrate,
-            None if split else fused.physics)
+            surface_tension, adaptive_subsampling, n_worlds,
+            (fused.rebin, fused.density, fused.forces_integrate,
+             None if split else fused.physics), far_kernel=True)
     return hit
 
 
@@ -312,99 +392,191 @@ def make_plain_grid_step(settings: SimSettings,
                          has_force_field: bool = False,
                          surface_tension: bool = False,
                          adaptive_subsampling: bool = False,
-                         n_worlds: int = 1):
+                         n_worlds: int = 1) -> "GridStep":
     """The resident step built on the kernels' plain PyTorch versions, on
-    any device: the reference that the CUDA step is held to on the card."""
-    return _make_step(settings, far_capacity, x_boundary, has_force_field,
-                      surface_tension, adaptive_subsampling, n_worlds,
-                      fused.rebin_plain, fused.density_plain,
-                      fused.forces_integrate_plain, None)
+    any device, its far-mover pass gated on the host: the reference that
+    the CUDA step is held to on the card."""
+    return GridStep(settings, far_capacity, x_boundary, has_force_field,
+                    surface_tension, adaptive_subsampling, n_worlds,
+                    (fused.rebin_plain, fused.density_plain,
+                     fused.forces_integrate_plain, None), far_kernel=False)
 
 
-def _make_step(settings: SimSettings, far_capacity, x_boundary: str,
-               has_force_field: bool, surface_tension: bool,
-               adaptive_subsampling: bool, n_worlds: int, rebin, density,
-               forces_integrate, physics):
-    if x_boundary not in ("bounce", "wrap"):
-        raise ValueError(f"unknown x_boundary {x_boundary!r}")
-    if n_worlds < 1:
-        raise ValueError(f"n_worlds {n_worlds} < 1")
-    settings = pad_capacity(settings)
-    k = settings.cell_capacity
-    rows_w = _rows(settings)
-    gy_p = rows_w * n_worlds
-    gxp = _gxp(settings)
-    if far_capacity is None:
-        # impact phases can fling thousands of >1-cell movers in one step
-        far_capacity = max(4096, (gy_p * k * gxp) // 128)
-    variant = dict(x_boundary=x_boundary, surface_tension=surface_tension,
-                   adaptive_subsampling=adaptive_subsampling)
-    # batched stacks: each row's world, and its cell-row frame offset
-    tables = {}
+class GridStep:
+    """One resident step: ``step(gs, params[, forcefield]) -> GridState``.
 
-    def world_tables(device):
-        if n_worlds == 1:
+    ``far_steps``: the steps that ran the far-mover pass with movers. The
+    CUDA step counts them on the device (reading the count waits for it);
+    the CPU step and the plain step read the rebin's count on the host and
+    skip the pass when it is 0."""
+
+    def __init__(self, settings: SimSettings, far_capacity, x_boundary: str,
+                 has_force_field: bool, surface_tension: bool,
+                 adaptive_subsampling: bool, n_worlds: int, kernels,
+                 far_kernel: bool):
+        if x_boundary not in ("bounce", "wrap"):
+            raise ValueError(f"unknown x_boundary {x_boundary!r}")
+        if n_worlds < 1:
+            raise ValueError(f"n_worlds {n_worlds} < 1")
+        # a step of the same arguments but K: its burst graphs go when
+        # this step captures its own
+        self.family = (dataclasses.replace(settings, cell_capacity=1),
+                       far_capacity, x_boundary, has_force_field,
+                       surface_tension, adaptive_subsampling, n_worlds,
+                       kernels)
+        self.settings = settings = pad_capacity(settings)
+        k = settings.cell_capacity
+        self.rows_w = _rows(settings)
+        self.shape = (self.rows_w * n_worlds, k, _gxp(settings))
+        if far_capacity is None:
+            # impact phases can fling thousands of >1-cell movers in one step
+            far_capacity = max(4096, (self.shape[0] * k * self.shape[2])
+                               // 128)
+        self.far_capacity = far_capacity
+        self.has_force_field = has_force_field
+        self.n_worlds = n_worlds
+        self.variant = dict(x_boundary=x_boundary,
+                            surface_tension=surface_tension,
+                            adaptive_subsampling=adaptive_subsampling)
+        self.rebin, self.density, self.forces_integrate, self.physics = \
+            kernels
+        self.far_kernel = far_kernel
+        self._tables = {}
+        self._far_host = 0
+        self._far_dev = {}  # device -> i64[1]
+        # the field's cell samples, kept while the same field tensor comes
+        # back: sampling once per field instead of once per step gives the
+        # same numbers (a field is replaced, never written in place)
+        self._ff_memo = (None, None)
+
+    @property
+    def far_steps(self) -> int:
+        return self._far_host + sum(int(c) for c in self._far_dev.values())
+
+    def _world_tables(self, device):
+        """A batched stack's (wid, row_shift) on ``device``: each row's
+        world, and its cell-row frame offset."""
+        if self.n_worlds == 1:
             return None, None
-        if device not in tables:
-            w = torch.arange(n_worlds, dtype=torch.int32, device=device)
-            w = w.repeat_interleave(rows_w)
-            tables[device] = (w, -(w * rows_w))
-        return tables[device]
+        if device not in self._tables:
+            w = torch.arange(self.n_worlds, dtype=torch.int32, device=device)
+            w = w.repeat_interleave(self.rows_w)
+            self._tables[device] = (w, -(w * self.rows_w))
+        return self._tables[device]
 
-    # the field's cell samples, kept while the same field tensor comes
-    # back: sampling once per field instead of once per step gives the
-    # same numbers (a field is replaced, never written in place)
-    ff_memo = [None, None]
+    def _far_counter(self, device):
+        if device not in self._far_dev:
+            self._far_dev[device] = torch.zeros(1, dtype=torch.int64,
+                                                device=device)
+        return self._far_dev[device]
 
-    def cells_of(forcefield):
+    def cells(self, forcefield):
+        """The obstacle field's per-cell samples (``_world_cells``), or
+        None for a step built without ``has_force_field``."""
+        if not self.has_force_field:
+            return None
         if forcefield is None:
             raise ValueError("step built with has_force_field=True needs a "
                              "forcefield argument")
-        if ff_memo[0] is not forcefield:
-            ff_memo[:] = [forcefield, _world_cells(forcefield, settings,
-                                                   n_worlds)]
-        return ff_memo[1]
+        if self._ff_memo[0] is not forcefield:
+            self._ff_memo = (forcefield, _world_cells(
+                forcefield, self.settings, self.n_worlds))
+        return self._ff_memo[1]
 
-    def step(gs: GridState, params, forcefield=None) -> GridState:
-        ff_cells = cells_of(forcefield) if has_force_field else None
-        if gs.pos_x.shape != (gy_p, k, gxp):
+    def __call__(self, gs: GridState, params, forcefield=None) -> GridState:
+        return self.advance(gs, params, self.cells(forcefield))
+
+    def advance(self, gs: GridState, params, ff_cells,
+                out: GridState | None = None) -> GridState:
+        """One step from ``gs`` with the field's cell samples ``ff_cells``.
+        ``out`` (a CUDA step only; may be ``gs`` itself): the state that
+        takes the result, written after every read of ``gs``."""
+        if gs.pos_x.shape != self.shape:
             raise ValueError(f"state shape {tuple(gs.pos_x.shape)} does not "
-                             f"match settings {(gy_p, k, gxp)}")
+                             f"match settings {self.shape}")
+        settings = self.settings
         dt = params.delta
-        if n_worlds > 1 and dt.numel() != 1:
+        if self.n_worlds > 1 and dt.numel() != 1:
             raise ValueError(
                 "batched resident mode shares one delta across worlds "
                 "(pass a scalar); gravity/viscosity/etc. may be [B]")
-        wid, row_shift = world_tables(gs.pos_x.device)
+        dev = gs.pos_x.device
+        wid, row_shift = self._world_tables(dev)
         frame = gs.tick + 1
-        px, py, vx, vy, occ_row, far_n, over_n = rebin(
+        px, py, vx, vy, occ_row, far_n, over_n = self.rebin(
             gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, gs.occ_row, dt, settings,
             row_shift=row_shift)
-        n_far = far_n.sum()
         lost = gs.lost + over_n.sum().to(torch.int32)
-        if int(n_far) > 0:  # the step's one host sync
+        if self.far_kernel and dev.type == "cuda":
+            px, py, vx, vy, occ_row, lost = far_reinsert(
+                gs, px, py, vx, vy, occ_row, far_n, lost, dt, settings,
+                self.far_capacity, self._far_counter(dev))
+        elif int(far_n.sum()) > 0:  # a host read: the CPU, the plain step
             px, py, vx, vy, occ_row, dropped = _reinsert_far(
-                gs, px, py, vx, vy, n_far, dt, settings, far_capacity)
+                gs, px, py, vx, vy, far_n.sum(), dt, settings,
+                self.far_capacity)
             lost = lost + dropped
-            step.far_steps += 1
-        if physics is not None:
-            npx, npy, nvx, nvy = physics(
-                px, py, vx, vy, occ_row, params, settings, frame,
-                ff_cells=ff_cells, wid=wid, **variant)
+            self._far_host += 1
+        dst = None if out is None else (out.pos_x, out.pos_y, out.vel_x,
+                                        out.vel_y)
+        if self.physics is not None:
+            new = self.physics(px, py, vx, vy, occ_row, params, settings,
+                               frame, ff_cells=ff_cells, wid=wid, out=dst,
+                               **self.variant)
         else:
-            pres, invr = density(
+            pres, invr = self.density(
                 px, py, vx, vy, occ_row, params.mass, dt,
                 params.pressure_constant, params.rest_density, settings,
                 wid=wid)
-            npx, npy, nvx, nvy = forces_integrate(
+            kw = {} if dst is None else dict(out=dst)
+            new = self.forces_integrate(
                 px, py, vx, vy, pres, invr, occ_row, params, settings, frame,
-                ff_cells=ff_cells, wid=wid, **variant)
-        return GridState(pos_x=npx, pos_y=npy, vel_x=nvx, vel_y=nvy,
-                         occ_row=occ_row, tick=frame, lost=lost)
+                ff_cells=ff_cells, wid=wid, **kw, **self.variant)
+        if out is None:
+            return GridState(*new, occ_row=occ_row, tick=frame, lost=lost)
+        out.occ_row.copy_(occ_row)
+        out.tick.copy_(frame)
+        out.lost.copy_(lost)
+        return out
 
-    # steps that ran the far-mover fallback (one host-synced plain pass)
-    step.far_steps = 0
-    return step
+    def burst(self, gs: GridState, params, n_steps: int,
+              forcefield=None) -> GridState:
+        """``n_steps`` steps on a CUDA device as replays of this step's
+        CUDA graph (``graphs.burst``); fresh tensors out."""
+        ff_cells = self.cells(forcefield)
+        dev = gs.pos_x.device
+        return graphs.burst(
+            (self, dev, graphs.signature(params)), (self.family, dev), dev,
+            n_steps, self.advance,
+            lambda g, p, ff: _ResidentGraph(self, g, p, ff), gs, params,
+            ff_cells)
+
+
+class _ResidentGraph:
+    """A resident step captured as one CUDA graph over a static state that
+    it reads and then overwrites with its result (``advance(out=)``), the
+    params' static copies and the field's cell samples' static copies; a
+    call copies its inputs in, replays the graph once a step, and hands
+    back a copy of the result, never the static buffers."""
+
+    def __init__(self, step: GridStep, gs: GridState, params, ff_cells):
+        dev = gs.pos_x.device
+        self.gs = graphs.clone_fields(gs, dev)
+        self.params = graphs.clone_fields(params, dev)
+        self.ff = (None if ff_cells is None
+                   else tuple(f.clone() for f in ff_cells))
+        self.graph = graphs.StepGraph(
+            lambda: step.advance(self.gs, self.params, self.ff, out=self.gs),
+            dev, f"the resident step {list(step.shape)}")
+
+    def __call__(self, gs: GridState, n_steps: int, params, ff_cells):
+        graphs.copy_fields(self.gs, gs)
+        graphs.copy_fields(self.params, params)
+        if ff_cells is not None:
+            for dst, src in zip(self.ff, ff_cells):
+                dst.copy_(src)
+        self.graph.replay(n_steps)
+        return graphs.clone_fields(self.gs)
 
 
 def _world_cells(forcefield: torch.Tensor, settings: SimSettings,
@@ -427,8 +599,27 @@ _STEP_CACHE: dict = {}
 
 
 def make_grid_multi_step(settings: SimSettings, n_steps: int, **kw):
-    """``run(gs, params[, forcefield])``: ``n_steps`` resident steps in a
-    Python loop (``kw``: those of ``make_grid_step``)."""
+    """``run(gs, params[, forcefield])``: ``n_steps`` resident steps
+    (``kw``: those of ``make_grid_step``). On a CUDA device the burst
+    replays the step's CUDA graph once a step (``GridStep.burst``: the JAX
+    package's ``jax.jit(lax.scan(step))``, no host work between steps),
+    bitwise the eager burst of ``make_eager_grid_multi_step``; a failed
+    capture raises. On the CPU the eager burst, a Python loop."""
+    eager = make_eager_grid_multi_step(settings, n_steps, **kw)
+    step = eager.step
+
+    def run(gs: GridState, params, *forcefield) -> GridState:
+        if gs.pos_x.device.type == "cuda":
+            return step.burst(gs, params, n_steps, *forcefield)
+        return eager(gs, params, *forcefield)
+
+    run.step = step
+    return run
+
+
+def make_eager_grid_multi_step(settings: SimSettings, n_steps: int, **kw):
+    """``make_grid_multi_step``'s burst as a Python loop of eager steps on
+    any device: what the graphed burst is held to on the card."""
     step = make_grid_step(settings, **kw)
 
     def run(gs: GridState, params, *forcefield) -> GridState:

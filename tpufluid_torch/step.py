@@ -22,12 +22,14 @@ and every constant tensor is made once per device.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Optional
 
 import numpy as np
 import torch
 
+from . import graphs
 from .params import EPSILON, MAX_SPEED, SimSettings
 from .state import ParticleState
 from .ops import dense as denseops
@@ -294,14 +296,42 @@ _MULTI_STEP_CACHE: dict = {}
 
 
 def make_multi_step(settings: SimSettings, n_steps: int, **kw):
-    """``run(state, params[, forcefield])``: ``n_steps`` steps in a Python
-    loop, queued without a host sync (the JAX package's ``lax.scan``
-    burst). Memoised on its arguments, so ``FluidApp.run`` reuses one
-    per burst size."""
+    """``run(state, params[, forcefield])``: ``n_steps`` steps. On a CUDA
+    device the burst replays the step's CUDA graph once a step
+    (``graphs.burst``; the JAX package's ``jax.jit(lax.scan(step))``, no
+    host work between steps), bitwise the eager burst of
+    ``make_eager_multi_step``; a failed capture raises. On the CPU the
+    eager burst, a Python loop. Memoised on its arguments, so
+    ``FluidApp.run`` reuses one per burst size; the burst sizes of one step
+    share its graph."""
     key = (settings, n_steps, tuple(sorted(kw.items())))
     hit = _MULTI_STEP_CACHE.get(key)
     if hit is not None:
         return hit
+    eager = make_eager_multi_step(settings, n_steps, **kw)
+    flags = tuple(sorted(kw.items()))
+
+    def run(state: ParticleState, params, *forcefield) -> ParticleState:
+        dev = state.position.device
+        if dev.type != "cuda":
+            return eager(state, params, *forcefield)
+        inputs = (flags, dev, graphs.signature(params),
+                  tuple((tuple(f.shape), f.dtype) for f in forcefield))
+        family = (dataclasses.replace(settings, cell_capacity=1),) + inputs
+        what = (f"the {kw.get('neighbor_mode', 'grid')} step of "
+                f"{settings.particle_count} particles")
+        return graphs.burst(
+            (settings,) + inputs, family, dev, n_steps, eager.step,
+            lambda st, *a: _ParticleGraph(eager.step, what, st, *a), state,
+            params, *forcefield)
+
+    _MULTI_STEP_CACHE[key] = run
+    return run
+
+
+def make_eager_multi_step(settings: SimSettings, n_steps: int, **kw):
+    """``make_multi_step``'s burst as a Python loop of eager steps on any
+    device: what the graphed burst is held to on the card."""
     step = make_step(settings, **kw)
 
     def run(state: ParticleState, params, *forcefield) -> ParticleState:
@@ -309,5 +339,44 @@ def make_multi_step(settings: SimSettings, n_steps: int, **kw):
             state = step(state, params, *forcefield)
         return state
 
-    _MULTI_STEP_CACHE[key] = run
+    run.step = step
     return run
+
+
+class _ParticleGraph:
+    """A per-step engine's step captured as one CUDA graph over a static
+    state: the step reads its position, velocity and tick and the graph
+    ends by copying the result's into them; the params and the field are
+    static copies. A call copies its inputs in, replays the graph once a
+    step, and hands back copies, never the static buffers."""
+
+    def __init__(self, step, what: str, state: ParticleState, params,
+                 *forcefield):
+        dev = state.position.device
+        self.state = graphs.clone_fields(state, dev)
+        self.params = graphs.clone_fields(params, dev)
+        self.field = tuple(f.to(dev).clone() for f in forcefield)
+        self.out = None
+
+        def body():
+            out = step(self.state, self.params, *self.field)
+            for f in ("position", "velocity", "tick"):
+                getattr(self.state, f).copy_(getattr(out, f))
+            self.out = out
+
+        self.graph = graphs.StepGraph(body, dev, what)
+
+    def __call__(self, state: ParticleState, n_steps: int, params,
+                 *forcefield) -> ParticleState:
+        for f in ("position", "velocity", "tick"):
+            getattr(self.state, f).copy_(getattr(state, f))
+        graphs.copy_fields(self.params, params)
+        for dst, src in zip(self.field, forcefield):
+            dst.copy_(src)
+        self.graph.replay(n_steps)
+        return ParticleState(
+            position=self.state.position.clone(),
+            predicted=self.out.predicted.clone(),
+            velocity=self.state.velocity.clone(),
+            density=self.out.density.clone(), cell=self.out.cell.clone(),
+            tick=self.state.tick.clone())
