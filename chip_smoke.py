@@ -94,13 +94,21 @@ Builds the CUDA kernels from ``tpufluid_torch/csrc`` and runs, in order:
     ``checked_step`` on the grid and dense engines, clean and with a NaN
     input (located at ``input``);
 23. the row-band sharded resident step on D = 2 and 4 shards of one card
-    (``[cuda:0] * D``), scene_1m's lattice with 16 far movers, without
-    and with a push field that varies by row: bitwise against its plain version over 4
-    synced steps (rebin with a row shift on band + 2 rows, density and
-    forces on band + 4 rows with the windowed field), then 32 steps with
-    the counts reset, held to the single-device step (live count, no
-    loss, sorted positions), and the audited traffic against the
-    formula; ms/step at D = 1, 2, 4;
+    (``[cuda:0] * D``): first its far-mover kernels (``csrc/far_sharded.cu``,
+    collect and insert, gated on the device) against their plain
+    versions, bitwise, on the post-merge bands of scene_1m's lattice with
+    16 far movers crossing bands (timed), at rest (none; timed), the
+    seeded state over a capacity of 8 a band (packet drops), and the wall
+    movers after a wrap step (thousands; timed); then the step, graphed
+    (a CUDA graph a call), from the lattice with 16 far movers, without
+    and with a push field that varies by row: bitwise against its plain
+    version over 4 synced steps (rebin with a row shift on band + 2 rows,
+    density and forces on band + 4 rows with the windowed field) and
+    against its eager twin over 8, then 32 graphed steps with the counts
+    reset under ``torch.cuda.set_sync_debug_mode("error")``, held to the
+    single-device step (live count, no loss, sorted positions), graphed
+    against eager ms/step, the capture's seconds and nodes, the audited
+    traffic against the formula; ms/step at D = 1, 2, 4;
 24. the slab-sharded step of the per-step engines on D = 2 and 4 shards
     of one card, scene_1m's lattice under gravity: pallas mode bitwise
     against its plain version over 4 synced steps (the sph kernels on
@@ -110,7 +118,9 @@ Builds the CUDA kernels from ``tpufluid_torch/csrc`` and runs, in order:
     formula; grid mode on bench.py's parity scene within 5e-4 of the
     single-device step over 5 steps, and 40 steps of sideways gravity
     moving particles across slabs with none lost; every slab step after
-    a warm one under ``torch.cuda.set_sync_debug_mode("error")``;
+    a warm one under ``torch.cuda.set_sync_debug_mode("error")``; each
+    mode's graphed step (a CUDA graph a call) bitwise its eager twin over
+    4 steps, both timed, with the capture's seconds and nodes;
 25. the bench harness: the CLI's ``bench --config 1`` and ``--config 4``
     (JSON lines parsed, finite ms/step), ``bench_sharded`` resident and
     dense on ``[cuda:0] * 2``, and the CPU-vs-card divergence of the
@@ -124,7 +134,9 @@ Builds the CUDA kernels from ``tpufluid_torch/csrc`` and runs, in order:
     scene_4m's 8-shard spec timed on the card, and one audited step of the
     sharded resident step on 8 shards of the card at scene_4m, whose bytes
     must equal the formula's 397,320; then a torch.profiler reading of 20
-    band steps and the band's losses;
+    band steps and the band's losses, and the graphed sharded step's
+    ms/step at scene_4m on 8 shards of the card (a shard's share against
+    the band's);
 27. the resident step's far-mover pass (``csrc/far_reinsert.cu``, gated on
     the device) against its plain version, bitwise: scene_1m's seeded
     state (256 far movers), the lattice at rest (none: the rebin's outputs
@@ -227,6 +239,12 @@ KERNELS = {
     # the counterpart of XLA code (do_far under lax.cond), no Pallas kernel
     "far_reinsert": ("tpufluid_torch/csrc/far_reinsert.cu",
                      "tpufluid/ops/resident.py:396"),
+    # the row-band sharded step's do_far under lax.cond (XLA code): its
+    # packet half and its insert half
+    "far_collect": ("tpufluid_torch/csrc/far_sharded.cu",
+                    "tpufluid/parallel/shard.py:661"),
+    "far_insert": ("tpufluid_torch/csrc/far_sharded.cu",
+                   "tpufluid/parallel/shard.py:684"),
 }
 # bench.py:run_parity's scene (the slab step's grid-mode gate, phase 24)
 PARITY_N = 16384
@@ -588,19 +606,20 @@ def compare_has_ff(settings, params, field, label):
 def reset_counts():
     """Every kernel wrapper's count to 0, the far-mover pass's
     (``resident.LAUNCHES``, apart from ``read_counts``) too."""
-    from tpufluid_torch.ops import fused, rebin, render_coarse, resident, sph
+    from tpufluid_torch.ops import (far_sharded, fused, rebin, render_coarse,
+                                    resident, sph)
 
     for counts in (fused.LAUNCHES, rebin.LAUNCHES, render_coarse.LAUNCHES,
-                   sph.LAUNCHES, resident.LAUNCHES):
+                   sph.LAUNCHES, resident.LAUNCHES, far_sharded.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
 
 def read_counts() -> dict:
-    from tpufluid_torch.ops import fused, rebin, render_coarse, sph
+    from tpufluid_torch.ops import far_sharded, fused, rebin, render_coarse, sph
 
     return {**fused.LAUNCHES, **rebin.LAUNCHES, **render_coarse.LAUNCHES,
-            **sph.LAUNCHES}
+            **sph.LAUNCHES, **far_sharded.LAUNCHES}
 
 
 def render_cli():
@@ -2054,18 +2073,199 @@ def far_mover_state(settings, device, n_far: int = 16):
                                tick=st.tick.to(device))
 
 
+def step_loop(step, n_steps: int):
+    """``run(state, *args)``: ``n_steps`` calls of a sharded step."""
+    def run(state, *args):
+        for _ in range(n_steps):
+            state = step(state, *args)[0]
+        return state
+
+    return run
+
+
+def last_capture(prefix: str):
+    """The newest capture record (``graphs.CAPTURES``) whose ``what``
+    starts with ``prefix``."""
+    from tpufluid_torch import graphs
+
+    hits = [c for c in graphs.CAPTURES if c["what"].startswith(prefix)]
+    return hits[-1] if hits else None
+
+
+def capture_text(cap) -> str:
+    return ("no capture" if cap is None else
+            f"capture {cap['capture_s']:.3f} s, instantiate "
+            f"{cap['instantiate_s']:.3f} s, {cap['nodes']} nodes")
+
+
+def band_far_bytes(bands, far_n, n_far: int, fcap: int) -> list:
+    """Bytes the collect must move, per band: the gate's int; with movers
+    anywhere, the band's per-row counts, the four fields below occupancy
+    of the rows that hold movers, and the packet and its drop count
+    written."""
+    out = []
+    for b, fn in zip(bands, far_n):
+        if n_far == 0:
+            out.append(4)
+            continue
+        rows = fn > 0
+        occ = b.occ_row.clamp(max=b.pos_x.shape[1])[rows].double().sum()
+        out.append(4 + 4 * fn.numel() + float(occ) * b.pos_x.shape[2] * 16
+                   + 20 * fcap + 4)
+    return out
+
+
+def band_far_case(sgs, spec, mesh, params, label, timed=False):
+    """csrc/far_sharded.cu against its plain versions on the kernel step's
+    post-merge bands of ``sgs`` (``shard.rebin_and_merge`` with the rebin
+    kernel): the collect's packets and drop counts bitwise where the psum'd
+    count is not 0; the insert's grids, occ_row and lost bitwise on every
+    band (its plain version: ``insert_far_plain`` plus the drops), and
+    with no mover the post-merge bands, occ_row and lost untouched. Timed:
+    each half by repeated calls (the insert on one copy of the bands, a
+    call with movers inserting them again: the same work), the plain
+    versions on the same inputs, ms a launch (the mean over the bands)."""
+    from tpufluid_torch.ops import far_sharded as fs, fused
+    from tpufluid_torch.parallel import shard
+
+    s, rloc, fcap = spec.settings, spec.rows_per_dev, spec.far_capacity
+    n_dev, dt = spec.n_devices, params.delta
+    bands = sgs.bands
+    reb, band4, occ_band, n_lost = shard.rebin_and_merge(
+        mesh, bands, [dt] * n_dev, shard.band_shifts(spec, mesh), s)
+    total = [sum(r[5].sum() for r in reb).to(torch.int32)] * n_dev
+    n_far = int(total[0])
+    far_n = [r[5][1:rloc + 1] for r in reb]
+
+    def collect():
+        return [fs.far_collect(b.pos_x, b.pos_y, b.vel_x, b.vel_y,
+                               b.occ_row, far_n[d], total[d], dt, s,
+                               d * rloc, fcap) for d, b in enumerate(bands)]
+
+    def collect_plain():
+        return [fs.far_packet_plain(b.pos_x, b.pos_y, b.vel_x, b.vel_y, dt,
+                                    s, d * rloc, fcap)
+                for d, b in enumerate(bands)]
+
+    got, want = collect(), collect_plain()
+    if n_far:
+        for d in range(n_dev):
+            bitwise(got[d], want[d], f"{label} far_collect band {d}")
+    allp = torch.cat([p for p, _ in got])
+    allp_plain = torch.cat([p for p, _ in want])
+    copies = [(tuple(a.clone() for a in band4[d]), occ_band[d].clone(),
+               n_lost[d].clone()) for d in range(n_dev)]
+
+    def insert(cp=copies):
+        return [fs.far_insert(*cp[d], allp, total[d], got[d][1], dt, s,
+                              d * rloc) for d in range(n_dev)]
+
+    def insert_plain():
+        return [fs.insert_far_plain(band4[d], allp_plain, dt, s, d * rloc)
+                for d in range(n_dev)]
+
+    kout = insert()
+    mine, dropped = [], 0
+    for d, (pg4, pocc, pdrop) in enumerate(insert_plain()):
+        g4, occ, lost = kout[d]
+        bitwise((*g4, occ, lost), (*pg4, pocc, n_lost[d] + pdrop
+                                   + want[d][1]), f"{label} far_insert "
+                f"band {d}")
+        if n_far == 0:
+            bitwise((*g4, occ, lost), (*band4[d], occ_band[d], n_lost[d]),
+                    f"{label} far_insert band {d}, no mover")
+        gcx, gcy = fused._cells(*(allp_plain[:, i] for i in range(4)), dt, s)
+        mine.append(int(((allp_plain[:, 4] > 0.5) & (gcy >= d * rloc)
+                         & (gcy < (d + 1) * rloc)).sum()))
+        dropped += int(pdrop + want[d][1])
+    res = dict(d=n_dev, n_far=n_far, far_capacity=fcap,
+               pk_drop=[int(w[1]) for w in want], dropped=dropped,
+               band_movers=mine, max_abs_err=0.0)
+    log(f"{label} D={n_dev}: far_collect and far_insert bitwise equal to "
+        f"plain ({n_far} far movers, capacity {fcap} a band, band movers "
+        f"{mine}, packet drops {res['pk_drop']}, {dropped} dropped)")
+    if timed:
+        res["collect"] = c = {}
+        c["ms"], c["plain_ms"], raw = timed_pair(collect, collect_plain)
+        c["ms"], c["plain_ms"] = c["ms"] / n_dev, c["plain_ms"] / n_dev
+        c["readings"] = [r / n_dev for r in raw]
+        c["bound_ms"], c["bound_by"] = bound(sum(band_far_bytes(
+            bands, far_n, n_far, fcap)) / n_dev, 0)
+        res["insert"] = i = {}
+        i["ms"], i["plain_ms"], raw = timed_pair(insert, insert_plain)
+        i["ms"], i["plain_ms"] = i["ms"] / n_dev, i["plain_ms"] / n_dev
+        i["readings"] = [r / n_dev for r in raw]
+        k = s.cell_capacity
+        ibytes = (4 if n_far == 0 else
+                  sum(4 + 4 * allp.shape[0] + m * (16 + 4 * k + 16) + 8
+                      for m in mine) / n_dev)
+        i["bound_ms"], i["bound_by"] = bound(ibytes, 0)
+        for name, r in (("far_collect", c), ("far_insert", i)):
+            r["library_ms"] = None
+            log(f"{label} D={n_dev} {name}: kernel {r['ms']:.4f} ms a "
+                f"launch, plain {r['plain_ms']:.3f} ms, bound "
+                f"{r['bound_ms']:.6f} ms ({r['bound_by']}; readings k k p p "
+                + ", ".join(f"{x:.4f}" for x in r["readings"]) + ")")
+    return res
+
+
+def band_far_gates(s8, params, dev):
+    """Phase 23's far kernel cases at D = 2 and 4 on scene_1m: the 16 far
+    movers of ``far_mover_state`` crossing bands (timed), the lattice at
+    rest (none; timed), the seeded state (254 movers) over a capacity of
+    8 a band (packet drops), and the wall movers one wrap step later
+    (thousands; timed)."""
+    from tpufluid_torch.ops import resident
+    from tpufluid_torch.parallel import (
+        build_resident_spec, make_eager_sharded_resident_step,
+        make_resident_mesh, shard_grid_state)
+
+    out = {}
+    wst, _ = wall_state(s8, dev)
+    for d in (2, 4):
+        spec = build_resident_spec(s8, d)
+        mesh = make_resident_mesh(spec, [dev] * d)
+        cases = {}
+        cases["seeded"] = band_far_case(shard_grid_state(
+            resident.from_particles(far_mover_state(s8, dev), s8), spec,
+            mesh), spec, mesh, params, "scene_1m 16 movers", timed=True)
+        cases["none"] = band_far_case(shard_grid_state(
+            resident.init_grid_state(s8, dev), spec, mesh), spec, mesh,
+            params, "scene_1m lattice", timed=True)
+        over = build_resident_spec(s8, d, far_capacity=8)
+        cases["over"] = band_far_case(shard_grid_state(
+            resident.from_particles(seeded_state(s8, dev), s8), over, mesh),
+            over, mesh, params, "scene_1m seeded, capacity 8")
+        wrap = make_eager_sharded_resident_step(spec, mesh,
+                                                x_boundary="wrap")
+        sgs = wrap(shard_grid_state(resident.from_particles(wst, s8), spec,
+                                    mesh), params)[0]
+        cases["wrap"] = band_far_case(sgs, spec, mesh, params,
+                                      "scene_1m wall movers, wrapped",
+                                      timed=True)
+        if not (cases["none"]["n_far"] == 0 and cases["seeded"]["n_far"] > 0
+                and sum(cases["over"]["pk_drop"]) > 0
+                and cases["wrap"]["n_far"] > 1000):
+            raise AssertionError(f"sharded far cases D={d}: {cases}")
+        out[d] = cases
+    return out
+
+
 def sharded_runs(s8, params, field, dev, card):
     """The row-band sharded step on D = 2 and 4 shards of one card, from
     scene_1m's lattice with 16 far movers, without and with a push field
-    (``shear_field``): bitwise against its plain version over 4 synced
-    steps, then 32 steps with the counts reset, held to the single-device
-    step (live count, no loss, sorted positions), and audited. ms/step at
-    D = 1 (the single-device step), 2 and 4."""
-    from tpufluid_torch.ops import fused, resident
+    (``shear_field``): graphed (a CUDA graph a call) bitwise against its
+    plain version over 4 synced steps and against its eager twin over 8,
+    then 32 graphed steps with the counts reset under
+    ``torch.cuda.set_sync_debug_mode("error")``, held to the
+    single-device step (live count, no loss, sorted positions), audited,
+    and timed graphed against eager. ms/step at D = 1 (the single-device
+    step), 2 and 4."""
+    from tpufluid_torch.ops import resident
     from tpufluid_torch.parallel import (
         build_resident_spec, comm_audit, gather_resident, make_resident_mesh,
-        make_plain_sharded_resident_step, make_sharded_resident_step,
-        shard_grid_state, unshard_grid_state)
+        make_eager_sharded_resident_step, make_plain_sharded_resident_step,
+        make_sharded_resident_step, shard_grid_state, unshard_grid_state)
 
     n = s8.particle_count
     gs0 = resident.from_particles(far_mover_state(s8, dev), s8)
@@ -2104,9 +2304,20 @@ def sharded_runs(s8, params, field, dev, card):
             mesh = make_resident_mesh(spec, [dev] * d)
             kstep = make_sharded_resident_step(spec, mesh,
                                                has_force_field=has_ff)
+            estep = make_eager_sharded_resident_step(spec, mesh,
+                                                     has_force_field=has_ff)
             pstep = make_plain_sharded_resident_step(spec, mesh,
                                                      has_force_field=has_ff)
-            sgs = shard_grid_state(gs0, spec, mesh)
+            if not kstep.graphed or estep.graphed:
+                raise AssertionError(f"sharded D={d}: graphed "
+                                     f"{kstep.graphed}, eager twin "
+                                     f"{estep.graphed}")
+            sgs0 = shard_grid_state(gs0, spec, mesh)
+            # captured here, as a caller would, not under the
+            # deterministic mode of the comparison below (its scatters
+            # would be captured too)
+            kstep(sgs0, params, *extra)
+            sgs = sgs0
             torch.use_deterministic_algorithms(True)
             for i in range(4):
                 k, kst = kstep(sgs, params, *extra)
@@ -2122,32 +2333,56 @@ def sharded_runs(s8, params, field, dev, card):
                     raise AssertionError(f"sharded D={d} {tag}: n_valid")
                 sgs = p
             torch.use_deterministic_algorithms(False)
-            sgs = shard_grid_state(gs0, spec, mesh)
-            kstep(sgs, params, *extra)  # warm
+            a = b = sgs0
+            for i in range(8):
+                a, ast = kstep(a, params, *extra)
+                b, bst = estep(b, params, *extra)
+                ag, bg = unshard_grid_state(a), unshard_grid_state(b)
+                for f in GRID_FIELDS:
+                    if not torch.equal(getattr(ag, f), getattr(bg, f)):
+                        raise AssertionError(
+                            f"sharded D={d} {tag} step {i}: {f}: graphed "
+                            f"!= eager")
+                if not torch.equal(ast["n_valid"], bst["n_valid"]):
+                    raise AssertionError(f"sharded D={d} {tag}: n_valid "
+                                         f"graphed != eager")
+            cap = last_capture(f"the row-band sharded step, D={d} ")
+            sgs = sgs0
             torch.cuda.synchronize()
             reset_counts()
             t0 = time.perf_counter()
             start.record()
-            for i in range(32):
-                sgs, stats = kstep(sgs, params, *extra)
-                if i == 3:
-                    s4 = sgs
-            end.record()
+            with no_host_sync():
+                for i in range(32):
+                    sgs, stats = kstep(sgs, params, *extra)
+                    if i == 3:
+                        s4 = sgs
+                end.record()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = read_counts()
             ms = start.elapsed_time(end) / 32
+            g_ms, e_ms, raw = burst_times(
+                step_loop(kstep, 32), step_loop(estep, 32),
+                (sgs0, params, *extra), 32)
             audit = comm_audit.audit_step(kstep, sgs, params, *extra)
             model = comm_audit.resident_comm_formula(spec)
-            profile = None
+            profile = eager_profile = None
             if not has_ff:
                 held = [sgs]
 
                 def one():
                     held[0] = kstep(held[0], params)[0]
 
-                profile = profile_steps(None, 8, f"sharded scene_1m D={d}",
-                                        step=one)
+                profile = profile_steps(None, 8, f"sharded scene_1m D={d} "
+                                        f"graphed", step=one)
+
+                def one_eager():
+                    held[0] = estep(held[0], params)[0]
+
+                eager_profile = profile_steps(
+                    None, 8, f"sharded scene_1m D={d} eager",
+                    step=one_eager)
             ps4, l4 = gather_resident(s4, spec)
             ps, live = gather_resident(sgs, spec)
             drift4 = sorted_drift(ps4.position[:int(l4)],
@@ -2156,11 +2391,13 @@ def sharded_runs(s8, params, field, dev, card):
                                    p32.position[:int(live32)])
             want = {**dict.fromkeys(launches, 0), **dict.fromkeys(
                 ("rebin", "rebin_row_shift", "density",
-                 "forces_integrate"), 32 * d)}
+                 "forces_integrate", "far_collect", "far_insert"), 32 * d)}
             if has_ff:
                 want["forces_integrate_has_ff"] = 32 * d
             row[d] = dict(
                 ms_per_step=ms, wall_ms_per_step=1e3 * wall / 32,
+                graphed_ms_per_step=g_ms, eager_ms_per_step=e_ms,
+                readings=raw, capture=cap,
                 launches_per_step={k: v / 32 for k, v in launches.items()
                                    if v},
                 n_valid=stats["n_valid"].tolist(), lost=int(sgs.lost),
@@ -2168,11 +2405,16 @@ def sharded_runs(s8, params, field, dev, card):
                 bytes_per_step=audit["ppermute_bytes_total"],
                 far_packet_bytes=audit["all_gather_bytes_conditional"],
                 rows_per_shard=spec.rows_per_dev,
-                far_capacity=spec.far_capacity, profile=profile)
+                far_capacity=spec.far_capacity, profile=profile,
+                eager_profile=eager_profile)
             log(f"sharded scene_1m D={d} ({tag}, {spec.rows_per_dev} rows "
-                f"a shard on one card): {ms:.4f} ms/step (CUDA events over "
-                f"32 steps; host {row[d]['wall_ms_per_step']:.4f}), "
-                f"launches/step {row[d]['launches_per_step']}, n_valid "
+                f"a shard on one card): graphed bitwise its plain version "
+                f"(4 steps) and its eager twin (8 steps); {ms:.4f} ms/step "
+                f"graphed (CUDA events over 32 steps under sync debug "
+                f"'error'; host {row[d]['wall_ms_per_step']:.4f}); graphed "
+                f"{g_ms:.4f} / eager {e_ms:.4f} ms/step (e g g e "
+                + ", ".join(f"{r:.4f}" for r in raw) + f"); {capture_text(cap)}"
+                f"; launches/step {row[d]['launches_per_step']}, n_valid "
                 f"{row[d]['n_valid']}, lost {int(sgs.lost)}; against the "
                 f"single-device step: live {int(live)} vs {int(live32)}, "
                 f"sorted position drift {drift4:.3g} at step 4, "
@@ -2195,7 +2437,7 @@ def sharded_runs(s8, params, field, dev, card):
                 raise AssertionError(f"sharded D={d} audit: {audit}")
         log(f"sharded scene_1m ({tag}): ms/step D=1 "
             f"{row[1]['ms_per_step']:.4f}, D=2 {row[2]['ms_per_step']:.4f}, "
-            f"D=4 {row[4]['ms_per_step']:.4f} ({card})")
+            f"D=4 {row[4]['ms_per_step']:.4f} graphed ({card})")
         out[tag] = row
     return out
 
@@ -2254,6 +2496,31 @@ def timed_slab(step, st, params, n_steps, label, profile_steps_n):
                 busy_share=prof["busy_share"] if prof else None), st, stats
 
 
+def slab_graph_case(kstep, estep, st0, params, n_steps, label, card):
+    """The graphed slab step against its eager twin from ``st0``: 4 steps
+    bitwise (state, valid, stats), then ``n_steps`` of each timed in
+    turns (``burst_times``); the capture's seconds and nodes."""
+    if not kstep.graphed or estep.graphed:
+        raise AssertionError(f"{label}: graphed {kstep.graphed}, eager "
+                             f"twin {estep.graphed}")
+    a = b = st0
+    for i in range(4):
+        a, ast = kstep(a, params)
+        b, bst = estep(b, params)
+        slab_equal(a, b, ast, bst, f"{label} step {i}: graphed vs eager")
+    cap = last_capture(f"the slab-sharded step, D={len(st0.slabs)}, "
+                       f"{label.split()[-1]}")
+    g_ms, e_ms, raw = burst_times(step_loop(kstep, n_steps),
+                                  step_loop(estep, n_steps), (st0, params),
+                                  n_steps)
+    log(f"{label}: graphed bitwise its eager twin over 4 steps; graphed "
+        f"{g_ms:.4f} / eager {e_ms:.4f} ms/step over {n_steps} (e g g e "
+        + ", ".join(f"{r:.4f}" for r in raw) + f"); {capture_text(cap)} "
+        f"({card})")
+    return dict(graphed_ms_per_step=g_ms, eager_ms_per_step=e_ms,
+                readings=raw, steps=n_steps, capture=cap)
+
+
 def slab_runs(s8, dev, card):
     """The slab-sharded step on D = 2 and 4 shards of one card
     (``[cuda:0] * D``). At scene_1m, from the spawn lattice under gravity:
@@ -2270,7 +2537,7 @@ def slab_runs(s8, dev, card):
     import tpufluid_torch as tt
     from tpufluid_torch.parallel import (
         build_shard_spec, comm_audit, gather_state, init_sharded, make_mesh,
-        make_plain_sharded_step, make_sharded_step)
+        make_eager_sharded_step, make_plain_sharded_step, make_sharded_step)
 
     n = s8.particle_count
     params = tt.TickParams.default(dev, gravity=(0.0, -9.8))
@@ -2334,6 +2601,11 @@ def slab_runs(s8, dev, card):
             if not (drift <= 1e-6 and drops == 0 and res["launches"] == want
                     and sum(res["n_valid"]) == n):
                 raise AssertionError(f"slab D={d} {mode}: {res}")
+            res["graph"] = slab_graph_case(
+                step, make_eager_sharded_step(spec, mesh,
+                                              neighbor_mode=mode),
+                st0, params, 16 if mode == "pallas" else 4,
+                f"slab scene_1m D={d} {mode}", card)
             row[mode] = res
         audit = comm_audit.audit_step(steps["pallas"], st0, params)
         formula = (spec.halo_capacity + spec.migration_capacity) * (8 + 8 + 1)
@@ -2374,6 +2646,10 @@ def slab_runs(s8, dev, card):
                                      f"{stats['n_valid'].tolist()}")
         res, _, _ = timed_slab(gstep, init_sharded(spec, mesh), pp, 16,
                                f"slab parity scene D={d} grid", 2)
+        res["graph"] = slab_graph_case(
+            gstep, make_eager_sharded_step(spec, mesh),
+            init_sharded(spec, mesh), pp, 16,
+            f"slab parity scene D={d} grid", card)
         # 40 steps of sideways gravity, room for every particle per shard
         mspec = build_shard_spec(sp, d, capacity_factor=3.0)
         mstep = make_sharded_step(mspec, mesh)
@@ -2585,6 +2861,38 @@ def config5_phase(card):
     band_lost = int(state[0].lost)
     log(f"config5 band: lost {band_lost} of {band.settings.particle_count} "
         f"in 30 steps")
+    # the graphed sharded step at scene_4m on 8 shards of the card: a
+    # shard's share of its ms/step against the band's (what the estimate
+    # leaves out: the step's merges, packets and copies)
+    from tpufluid_torch.parallel import (
+        init_sharded_resident, make_resident_mesh, make_sharded_resident_step)
+    mesh8 = make_resident_mesh(spec, [dev] * spec.n_devices)
+    step8 = make_sharded_resident_step(spec, mesh8)
+    held = [init_sharded_resident(spec, mesh8)]
+    for _ in range(2):
+        held[0] = step8(held[0], band.params)[0]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(10):
+        held[0] = step8(held[0], band.params)[0]
+    end.record()
+    torch.cuda.synchronize()
+    ms8 = start.elapsed_time(end) / 10
+
+    def one_sharded():
+        held[0] = step8(held[0], band.params)[0]
+
+    prof8 = profile_steps(None, 4, "scene_4m graphed sharded step, 8 shards "
+                          "of one card", step=one_sharded)
+    sharded8 = dict(ms_per_step=ms8, ms_per_shard=ms8 / spec.n_devices,
+                    graphed=step8.graphed, profile=prof8,
+                    capture=last_capture("the row-band sharded step, D=8 "))
+    log(f"scene_4m graphed sharded step on 8 shards of one card: {ms8:.4f} "
+        f"ms/step (CUDA events over 10), {ms8 / spec.n_devices:.4f} a shard "
+        f"against the band's {rec['measured_band_ms_per_step']:.4f} and "
+        f"est_ms_per_step {rec['est_ms_per_step']:.4f} ({card_line()})")
     if prof is not None:
         busy = prof["busy_ms_per_step"]
         log(f"config5 band: device busy {busy:.4f} ms/step of the measured "
@@ -2593,6 +2901,7 @@ def config5_phase(card):
             f"est_ms_per_step")
     return dict(rec, launches={k: launches[k] for k in path},
                 band_profile=prof, band_lost_30=band_lost, wall_s=wall,
+                sharded_8=sharded8,
                 gate_wall_s=gate_wall,
                 gate_max_abs_err=gate_errs)
 
@@ -2748,9 +3057,7 @@ def graph_case(label, graphed, eager, args, fields, n_steps: int):
     log(f"{label}: graphed burst of {n_steps} bitwise its eager burst; "
         f"graphed {g_ms:.4f} ms/step, eager {e_ms:.4f} ms/step (e g g e "
         + ", ".join(f"{r:.4f}" for r in raw) + ")"
-        + ("" if cap is None else
-           f"; capture {cap['capture_s']:.3f} s, instantiate "
-           f"{cap['instantiate_s']:.3f} s, {cap['nodes']} nodes"))
+        + ("" if cap is None else f"; {capture_text(cap)}"))
     return res, got
 
 
@@ -3307,7 +3614,11 @@ def main() -> int:
     # 22. the NaN-provenance tools at scene_1m
     debug = debugging_check(s8, scene.params, dev, card)
 
-    # 23. the row-band sharded step, D = 2 and 4 on one card
+    # 23. the row-band sharded step, D = 2 and 4 on one card: its far
+    # kernels against their plain versions, then the step
+    torch.use_deterministic_algorithms(True)
+    band_far = band_far_gates(s8, scene.params, dev)
+    torch.use_deterministic_algorithms(False)
     sharded = sharded_runs(s8, scene.params, shear_field(s8, dev), dev, card)
 
     # 24. the slab-sharded step, D = 2 and 4 on one card
@@ -3345,6 +3656,22 @@ def main() -> int:
                                             "bound_ms", "bound_by",
                                             "library_ms")},
                 cases=far, burst_launches=bursts["resident"]["launches"])
+        elif name in ("far_collect", "far_insert"):
+            half = name.split("_")[1]
+            entry = dict(
+                launches=round(32 * sharded["plain"][2]["launches_per_step"]
+                               [name]), max_abs_err=0.0,
+                **{k: band_far[2]["seeded"][half][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                sharded_path_launches={
+                    f"D={d}": round(32 * sharded["plain"][d]
+                                    ["launches_per_step"][name])
+                    for d in (2, 4)},
+                cases={f"D={d}": {c: {k: v for k, v in r.items()
+                                      if k not in ("collect", "insert")}
+                                  | ({half: r[half]} if half in r else {})
+                                  for c, r in band_far[d].items()}
+                       for d in (2, 4)})
         elif name == "physics":
             entry = dict(launches=l_fused["physics"],
                          split_path_launches=l_split["physics"],

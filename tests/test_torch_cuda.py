@@ -33,7 +33,10 @@ their plain versions on D shards of one card; config 5's audited bytes
 of one sharded step at scene_4m on 8 shards of the card equal the formula;
 the resident step's far-mover pass (csrc/far_reinsert.cu, gated on the
 device) bitwise its plain version, and every burst replayed as a CUDA
-graph bitwise its eager burst, the resident one with no host sync.
+graph bitwise its eager burst, the resident one with no host sync; the
+row-band sharded step's far-mover kernels (csrc/far_sharded.cu) bitwise
+their plain versions, and both sharded steps replayed as a CUDA graph a
+call bitwise their eager twins (a swapped field, no host sync, audited).
 """
 
 import dataclasses
@@ -1263,3 +1266,249 @@ def test_resident_burst_replays_without_sync(cuda):
     for f in ("pos_x", "pos_y", "vel_x", "vel_y", "occ_row", "tick", "lost"):
         assert torch.equal(getattr(got, f), getattr(want, f))
     assert run.step.far_steps >= 2
+
+
+# ------------------------ the sharded steps' far pass and one-program form
+
+BAND_FAR_CASES = {"none": 2, "movers": 2, "over": 2, "wrap": 4, "many": 2}
+
+
+def _band_far_input(case, cuda):
+    """(spec, mesh, sharded state, params) of a sharded far-mover case:
+    the lattice at rest ("none"), 16 far movers ("movers"), the same over
+    a capacity of 8 a band ("over"), the wall movers one wrap step later
+    ("wrap"), and more movers into one band than the insert sorts in
+    shared memory (16,384; "many")."""
+    from tpufluid_torch.parallel import (
+        build_resident_spec, make_eager_sharded_resident_step,
+        make_resident_mesh, shard_grid_state)
+
+    d = BAND_FAR_CASES[case]
+    s = tt.SimSettings(particle_count=2048, size=(8.0, 8.0),
+                       cell_capacity=8)
+    p = tt.TickParams.default(cuda, gravity=(0.0, -9.8))
+    cap = {"over": 8, "many": 32768}.get(case)
+    if case == "many":
+        s = tt.SimSettings(particle_count=40000, size=(30.0, 30.0),
+                           cell_capacity=64)
+    spec = build_resident_spec(s, d, far_capacity=cap)
+    mesh = make_resident_mesh(spec, [cuda] * d)
+    if case == "none":
+        return spec, mesh, shard_grid_state(
+            resident.init_grid_state(s, cuda), spec, mesh), p
+    gs = _state(spec.settings, cuda, 21)
+    if case == "many":
+        g = torch.Generator(device=cuda).manual_seed(4)
+        kick = (torch.rand(gs.vel_x.shape, generator=g, device=cuda)
+                - 0.5) * 600.0
+        gs = dataclasses.replace(gs, vel_x=kick, vel_y=kick.flip(2))
+    sgs = shard_grid_state(gs, spec, mesh)
+    if case == "wrap":
+        near = (gs.pos_x.abs() > 3.0) & (gs.pos_x < fused.SENTINEL_HALF)
+        gs = dataclasses.replace(gs, vel_x=torch.where(
+            near, torch.sign(gs.pos_x) * 60.0, gs.vel_x))
+        sgs = make_eager_sharded_resident_step(spec, mesh, x_boundary="wrap")(
+            shard_grid_state(gs, spec, mesh), p)[0]
+    return spec, mesh, sgs, p
+
+
+@pytest.mark.parametrize("case", list(BAND_FAR_CASES))
+def test_far_sharded_matches_plain(cuda, case):
+    """csrc/far_sharded.cu against its plain versions on the kernel
+    step's post-merge bands: the collect's packets and drop counts bitwise
+    (where the psum'd count is not 0), the insert's grids, occ_row and
+    lost bitwise on every band, and with no mover the bands, occ_row and
+    lost untouched; one launch of each a band, counted either way."""
+    from tpufluid_torch.ops import far_sharded as fs
+    from tpufluid_torch.parallel import shard
+
+    spec, mesh, sgs, p = _band_far_input(case, cuda)
+    s, rloc, fcap = spec.settings, spec.rows_per_dev, spec.far_capacity
+    d_n, dt = spec.n_devices, p.delta
+    reb, band4, occ_band, n_lost = shard.rebin_and_merge(
+        mesh, sgs.bands, [dt] * d_n, shard.band_shifts(spec, mesh), s)
+    total = sum(r[5].sum() for r in reb).to(torch.int32)
+    n_far = int(total)
+    before = dict(fs.LAUNCHES)
+    got = [fs.far_collect(b.pos_x, b.pos_y, b.vel_x, b.vel_y, b.occ_row,
+                          reb[d][5][1:rloc + 1], total, dt, s, d * rloc,
+                          fcap) for d, b in enumerate(sgs.bands)]
+    want = [fs.far_packet_plain(b.pos_x, b.pos_y, b.vel_x, b.vel_y, dt, s,
+                                d * rloc, fcap)
+            for d, b in enumerate(sgs.bands)]
+    if n_far:
+        for g, w in zip(got, want):
+            assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
+    allp = torch.cat([g[0] for g in got])
+    allp_plain = torch.cat([w[0] for w in want])
+    mine = []
+    for d in range(d_n):
+        kg4, kocc, klost = fs.far_insert(
+            tuple(a.clone() for a in band4[d]), occ_band[d].clone(),
+            n_lost[d].clone(), allp, total, got[d][1], dt, s, d * rloc)
+        pg4, pocc, pdrop = fs.insert_far_plain(band4[d], allp_plain, dt, s,
+                                               d * rloc)
+        for a, b in zip((*kg4, kocc, klost),
+                        (*pg4, pocc, n_lost[d] + pdrop + want[d][1])):
+            assert torch.equal(a, b), (d, case)
+        if n_far == 0:
+            for a, b in zip((*kg4, kocc, klost),
+                            (*band4[d], occ_band[d], n_lost[d])):
+                assert torch.equal(a, b)
+        _, gcy = fused._cells(*(allp_plain[:, i] for i in range(4)), dt, s)
+        mine.append(int(((allp_plain[:, 4] > 0.5) & (gcy >= d * rloc)
+                         & (gcy < (d + 1) * rloc)).sum()))
+    assert fs.LAUNCHES == {n: before[n] + d_n for n in before}
+    assert (n_far == 0) == (case == "none")
+    if case == "over":
+        assert sum(int(w[1]) for w in want) > 0
+    if case == "wrap":
+        assert n_far >= 20
+    if case == "many":
+        assert max(mine) > 16384
+
+
+def _sharded_states(s, cuda, d, seed):
+    from tpufluid_torch.parallel import (
+        build_resident_spec, make_resident_mesh, shard_grid_state)
+
+    spec = build_resident_spec(s, d)
+    mesh = make_resident_mesh(spec, [cuda] * d)
+    return spec, mesh, shard_grid_state(_state(s, cuda, seed), spec, mesh)
+
+
+@pytest.mark.parametrize("d,has_ff", [(2, False), (4, True)])
+def test_graphed_sharded_step_matches_eager(cuda, d, has_ff):
+    """``make_sharded_resident_step`` on ``[cuda] * d`` (a CUDA graph a
+    call) against ``make_eager_sharded_resident_step``, bitwise over 6
+    steps with far movers crossing bands (with a field: a new field from
+    step 3, which refills the graph's static cells); one launch of each
+    kernel a band a call; a result not overwritten by the next call; a
+    replay under ``torch.cuda.set_sync_debug_mode("error")``; one
+    capture."""
+    from tpufluid_torch import graphs
+    from tpufluid_torch.ops import far_sharded as fs
+    from tpufluid_torch.parallel import (
+        make_eager_sharded_resident_step, make_sharded_resident_step,
+        unshard_grid_state)
+
+    s = tt.SimSettings(particle_count=2048, size=(8.0, 8.0),
+                       cell_capacity=8, texture_size=(72, 72))
+    spec, mesh, sgs = _sharded_states(s, cuda, d, 21)
+    p = tt.TickParams.default(cuda, gravity=(0.0, -9.8))
+    g = torch.Generator().manual_seed(5)
+    fields = [((torch.rand((72, 72, 2), generator=g) - 0.5).to(cuda),)
+              for _ in range(2)] if has_ff else [(), ()]
+    kstep = make_sharded_resident_step(spec, mesh, has_force_field=has_ff)
+    estep = make_eager_sharded_resident_step(spec, mesh,
+                                             has_force_field=has_ff)
+    assert kstep.graphed and not estep.graphed
+    n0 = len(graphs.CAPTURES)
+    fields_ = ("pos_x", "pos_y", "vel_x", "vel_y", "occ_row", "tick", "lost")
+    for i in range(6):
+        extra = fields[i // 3]
+        before = {**fused.LAUNCHES, **fs.LAUNCHES}
+        a, ast = kstep(sgs, p, *extra)
+        torch.cuda.synchronize()
+        after = {**fused.LAUNCHES, **fs.LAUNCHES}
+        for n in ("rebin_row_shift", "density", "forces_integrate",
+                  "far_collect", "far_insert"):
+            assert after[n] == before[n] + d, (i, n)
+        b, bst = estep(sgs, p, *extra)
+        ag, bg = unshard_grid_state(a), unshard_grid_state(b)
+        for f in fields_:
+            assert torch.equal(getattr(ag, f), getattr(bg, f)), (i, f)
+        assert torch.equal(ast["n_valid"], bst["n_valid"])
+        kept = [getattr(ag, f).clone() for f in fields_]
+        nxt = kstep(a, p, *extra)[0]
+        ag = unshard_grid_state(a)
+        for f, k in zip(fields_, kept):
+            assert torch.equal(getattr(ag, f), k), (i, f)
+        assert int(nxt.tick) == int(a.tick) + 1
+        sgs = a
+    assert len(graphs.CAPTURES) == n0 + 1
+    want = estep(sgs, p, *fields[1])[0]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = kstep(sgs, p, *fields[1])[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for f in fields_:
+        assert torch.equal(getattr(unshard_grid_state(got), f),
+                           getattr(unshard_grid_state(want), f)), f
+
+
+def test_audit_of_graphed_sharded_step(cuda):
+    """``comm_audit.audit_step`` on a graphed row-band step, around its
+    first call (eager, then the capture) and around a replay: one step's
+    collectives both times, the formula's bytes; the same for a graphed
+    slab step against its eager twin."""
+    from tpufluid_torch.parallel import (
+        build_shard_spec, comm_audit, init_sharded, make_eager_sharded_step,
+        make_mesh, make_sharded_resident_step, make_sharded_step)
+
+    s = tt.SimSettings(particle_count=2048, size=(8.0, 8.0),
+                       cell_capacity=8)
+    spec, mesh, sgs = _sharded_states(s, cuda, 4, 8)
+    p = tt.TickParams.default(cuda, gravity=(0.0, -9.8))
+    step = make_sharded_resident_step(spec, mesh)
+    model = comm_audit.resident_comm_formula(spec)
+    for _ in range(2):  # capture, then replay
+        audit = comm_audit.audit_step(step, sgs, p)
+        assert audit["ppermute_bytes_per_dir"] == model["bytes_per_dir"]
+        assert audit["all_gather_bytes_conditional"] == \
+            model["far_packet_bytes"]
+    sspec = build_shard_spec(s, 2)
+    smesh = make_mesh(sspec, [cuda] * 2)
+    st = init_sharded(sspec, smesh)
+    want = comm_audit.audit_step(make_eager_sharded_step(sspec, smesh), st, p)
+    kstep = make_sharded_step(sspec, smesh)
+    for _ in range(2):
+        got = comm_audit.audit_step(kstep, st, p)
+        assert got["ppermute_bytes_per_dir"] == \
+            want["ppermute_bytes_per_dir"] > 0
+        assert [o.shape for o in got["ops"]] == [o.shape for o in want["ops"]]
+
+
+@pytest.mark.parametrize("mode", ["grid", "dense", "pallas"])
+def test_graphed_slab_step_matches_eager(cuda, mode):
+    """``make_sharded_step`` on ``[cuda] * 2`` (a CUDA graph a call)
+    against ``make_eager_sharded_step``, bitwise over 4 steps with debug
+    stats, the field swapped after 2 (the static copy refilled), and one
+    replay under sync debug "error"."""
+    from tpufluid_torch.parallel import (
+        build_shard_spec, init_sharded, make_eager_sharded_step, make_mesh,
+        make_sharded_step)
+
+    s = tt.SimSettings(particle_count=512, particle_spacing=0.1,
+                       smoothing_radius=0.2, size=(4.0, 8.0),
+                       cell_capacity=8, texture_size=(72, 72))
+    spec = build_shard_spec(s, 2)
+    mesh = make_mesh(spec, [cuda] * 2)
+    p = tt.TickParams.default(cuda, gravity=(0.0, -9.8))
+    g = torch.Generator().manual_seed(6)
+    fields = [(torch.rand((72, 72, 2), generator=g) - 0.5).to(cuda)
+              for _ in range(2)]
+    kw = dict(neighbor_mode=mode, debug=True, has_force_field=True)
+    kstep = make_sharded_step(spec, mesh, **kw)
+    estep = make_eager_sharded_step(spec, mesh, **kw)
+    assert kstep.graphed and not estep.graphed
+    a = b = init_sharded(spec, mesh)
+    for i in range(5):
+        if i < 4:
+            a, ast = kstep(a, p, fields[i // 2])
+        else:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                a, ast = kstep(a, p, fields[1])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        b, bst = estep(b, p, fields[min(i // 2, 1)])
+        for x, y in zip(a.slabs, b.slabs):
+            for f in ("position", "velocity", "valid", "tick"):
+                assert torch.equal(getattr(x, f), getattr(y, f)), (i, f)
+        assert ast.keys() == bst.keys()
+        for k in ast:
+            assert torch.equal(ast[k], bst[k]), (i, k)

@@ -60,6 +60,10 @@ _SIGNATURES = {
     "tf_far_reinsert": [_P] * 7 + [_P] * 3 + [_P] * 4 + [_P] * 3 + [_I] * 6
     + [_F] * 3 + [_I] * 2 + [_P],
     "tf_far_smem_entries": [],
+    "tf_far_band_collect": [_P] * 8 + [_P] * 2 + [_I] * 5 + [_F] * 3
+    + [_I] * 2 + [_P],
+    "tf_far_band_insert": [_P, _I] + [_P] * 5 + [_P] * 6 + [_I] * 5
+    + [_F] * 3 + [_I] * 2 + [_P],
 }
 
 _lib = None

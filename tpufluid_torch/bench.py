@@ -402,9 +402,11 @@ def config5_model(out=None, device=None) -> dict:
         est_particle_steps_per_sec=n / t_step,
         note=("derived: one band's step measured on one card, plus a link "
               "model of the step's audited traffic; it leaves out the "
-              "sharded step's host cost, which one controller pays for "
-              "every shard, so it is a lower bound of this port's ms/step "
-              "on 8 cards; multi-card correctness is held on one card by "
+              "sharded step's own work beside the band's kernels (the edge "
+              "rows' merges, the halo and far-mover packets, the copies "
+              "of its collectives: device work in the step's CUDA graph "
+              "on one card), so it is a lower bound of this port's "
+              "ms/step on 8 cards; multi-card correctness is held on one card by "
               "the sharded step bitwise its plain version at D = 2 and 4 "
               "(chip_smoke.py phase 23) and at D = 8 for one scene_4m step "
               "(phase 26), and at D = 8 by tests/test_torch_shard*.py "

@@ -47,26 +47,10 @@
 //     thread adds n_far - fits to lost and 1 to the far-step counter.
 // No float is summed: the outputs are bitwise the plain version's
 // (ops/resident.py _reinsert_far).
-#include "common.cuh"
+#include "far_common.cuh"
 
 #define TF_FAR_COLLECT_THREADS 256
 #define TF_FAR_INSERT_THREADS 1024
-// keys (8 B) and slots (4 B) of this many movers sort in shared memory
-#define TF_FAR_SMEM_ENTRIES 16384
-
-// The sum of v over the block, in every thread (NT a multiple of 32).
-template <int NT>
-__device__ __forceinline__ int tf_far_block_sum(int v, int* red) {
-    for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-    __syncthreads();  // red may still be read by a previous call
-    if (lane == 0) red[w] = v;
-    __syncthreads();
-    int s = 0;
-    for (int i = 0; i < NT / 32; ++i) s += red[i];
-    return s;
-}
 
 __global__ void __launch_bounds__(TF_FAR_COLLECT_THREADS)
 far_collect_kernel(const float* __restrict__ px, const float* __restrict__ py,
@@ -151,48 +135,22 @@ far_insert_kernel(const int* __restrict__ far_n,
     const int n_far = tf_far_block_sum<NT>(part, red);
     if (n_far == 0) return;  // the gate
     const int n = min(n_far, cap);
-    int n_pad = 1;
-    while (n_pad < n) n_pad <<= 1;
+    const int n_pad = tf_far_pow2(n);
     const bool in_smem = n_pad <= TF_FAR_SMEM_ENTRIES;
     unsigned long long* buf = in_smem ? skeys : keys;
     int* slots = in_smem ? reinterpret_cast<int*>(skeys + n_pad) : gslot;
     for (int i = tid; i < n_pad; i += NT)
         buf[i] = i < n ? keys[i] : ~0ull;
     __syncthreads();
-    // bitonic sort, ascending; __syncthreads makes each pass's writes,
-    // shared or global, visible to the block
-    for (int k = 2; k <= n_pad; k <<= 1) {
-        for (int j = k >> 1; j > 0; j >>= 1) {
-            for (int i = tid; i < n_pad; i += NT) {
-                const int l = i ^ j;
-                if (l > i) {
-                    const unsigned long long a = buf[i], b = buf[l];
-                    if ((a > b) == ((i & k) == 0)) {
-                        buf[i] = b;
-                        buf[l] = a;
-                    }
-                }
-            }
-            __syncthreads();
-        }
-    }
+    tf_far_sort<NT>(buf, n_pad);
     // each mover's slot: its cell's live count plus its rank in the run
     int fit = 0;
     for (int p = tid; p < n; p += NT) {
         const unsigned key = (unsigned)(buf[p] >> 32);
-        const unsigned long long first = (unsigned long long)key << 32;
-        int lo = 0, hi = p;
-        while (lo < hi) {
-            const int mid = (lo + hi) >> 1;
-            if (buf[mid] < first) lo = mid + 1;
-            else hi = mid;
-        }
         const int cy = min((int)(key / (unsigned)grid_w), gy - 1);
         const int cx = min((int)(key % (unsigned)grid_w), gx - 1);
-        int occ = 0;
-        for (int kk = 0; kk < K; ++kk)
-            occ += tf_live(px[tf_index(cy, kk, cx, K, gx)]) ? 1 : 0;
-        const int slot = occ + (p - lo);
+        const int slot = tf_far_cell_count(px, cy, cx, K, gx) +
+                         tf_far_rank(buf, p);
         slots[p] = slot < K ? slot : -1;
         fit += slot < K;
     }

@@ -1,6 +1,7 @@
 """CUDA graphs of the step bursts: the counterpart of the JAX package's
 ``jax.jit(lax.scan(step))``, which runs a burst of ticks as one device
-program with no host round-trip between ticks.
+program with no host round-trip between ticks; and of the sharded steps'
+``jax.jit(shard_map(step))``, one device program a call (``CallGraph``).
 
 A burst's step is captured once as a CUDA graph over static buffers: the
 state it reads (and overwrites with its result), the params' copies and
@@ -16,10 +17,13 @@ burst. A capture that fails raises; nothing falls back to the eager loop.
 Launch counts: a kernel wrapper counts a launch when Python calls it,
 which a replay does not do. The counts a capture made are taken back and
 added again on every replay, so the counters read the launches that ran.
+A sharded step's mesh notes its collectives as Python makes them; a
+``CallGraph`` keeps its capture's notes and notes them again per replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import time
@@ -29,10 +33,10 @@ import torch
 
 def _counters():
     """Every kernel wrapper's launch-count dict."""
-    from .ops import fused, rebin, render_coarse, resident, sph
+    from .ops import far_sharded, fused, rebin, render_coarse, resident, sph
 
     return (fused.LAUNCHES, rebin.LAUNCHES, render_coarse.LAUNCHES,
-            sph.LAUNCHES, resident.LAUNCHES)
+            sph.LAUNCHES, resident.LAUNCHES, far_sharded.LAUNCHES)
 
 
 def signature(obj) -> tuple:
@@ -157,3 +161,98 @@ class StepGraph:
         for counts, d in zip(_counters(), self._delta):
             for name, v in d.items():
                 counts[name] += v * n
+
+
+def flatten(obj, out=None):
+    """(tensors, spec) of a tree of tensors: dataclasses, tuples, lists,
+    dicts and None around them. ``unflatten(spec, tensors)`` rebuilds it."""
+    out = [] if out is None else out
+    if isinstance(obj, torch.Tensor):
+        out.append(obj)
+        spec = "t"
+    elif obj is None:
+        spec = None
+    elif dataclasses.is_dataclass(obj):
+        spec = (type(obj), tuple((f.name, flatten(getattr(obj, f.name),
+                                                  out)[1])
+                                 for f in dataclasses.fields(obj)))
+    elif isinstance(obj, (tuple, list)):
+        spec = (type(obj), tuple(flatten(x, out)[1] for x in obj))
+    elif isinstance(obj, dict):
+        spec = (dict, tuple((k, flatten(v, out)[1]) for k, v in obj.items()))
+    else:
+        raise TypeError(f"not a tensor tree: {type(obj).__name__}")
+    return out, spec
+
+
+def unflatten(spec, tensors):
+    it = iter(tensors)
+
+    def build(sp):
+        if sp == "t":
+            return next(it)
+        if sp is None:
+            return None
+        kind, parts = sp
+        if kind is dict:
+            return {k: build(v) for k, v in parts}
+        if kind in (tuple, list):
+            return kind(build(v) for v in parts)
+        return kind(**{k: build(v) for k, v in parts})
+
+    return build(spec)
+
+
+class CallGraph:
+    """``fn(*args)`` captured once as a CUDA graph over static copies of
+    the tensors of ``args`` (``flat``, ``spec``: ``flatten(args)``); a call
+    with the tensors of arguments of the same structure and shapes copies
+    them in, replays once, and hands back clones of the outputs in
+    ``fn``'s structure, never the static buffers. ``mesh``: a sharded
+    step's mesh; the collectives the capture noted are noted again on
+    every replay (``Mesh.replayed``), so an audit of a replay counts one
+    step's traffic."""
+
+    def __init__(self, fn, flat, spec, device, what: str, mesh=None):
+        self.inputs = [t.clone() for t in flat]
+        self._out = None
+        self.mesh = mesh
+
+        def body():
+            self._out = flatten(fn(*unflatten(spec, self.inputs)))
+
+        with (mesh.recording() if mesh is not None
+              else contextlib.nullcontext()) as notes:
+            self.graph = StepGraph(body, device, what)
+        self.notes = notes
+
+    def __call__(self, flat):
+        for dst, src in zip(self.inputs, flat):
+            dst.copy_(src)
+        self.graph.replay(1)
+        if self.mesh is not None:
+            self.mesh.replayed(self.notes)
+        outs, spec = self._out
+        return unflatten(spec, [t.clone() for t in outs])
+
+
+def graphed_calls(fn, device, what: str, mesh=None):
+    """``call(*args)``: ``fn(*args)`` replayed as a ``CallGraph``, one per
+    argument structure with its tensors' shapes, dtypes and devices. Its
+    first call runs ``fn`` eagerly on a side stream (kernel builds,
+    shared-memory limits, cached tables), returns that result and captures
+    the graph from its arguments; later calls replay."""
+    cache = {}
+
+    def call(*args):
+        flat, spec = flatten(args)
+        key = (spec, tuple((tuple(t.shape), t.dtype, t.device)
+                           for t in flat))
+        g = cache.get(key)
+        if g is None:
+            out = on_side_stream(lambda: fn(*args), device)
+            cache[key] = CallGraph(fn, flat, spec, device, what, mesh)
+            return out
+        return g(flat)
+
+    return call

@@ -15,6 +15,8 @@ from .shard import (  # noqa: F401
     gather_state,
     init_sharded,
     init_sharded_resident,
+    make_eager_sharded_resident_step,
+    make_eager_sharded_step,
     make_mesh,
     make_plain_sharded_resident_step,
     make_plain_sharded_step,

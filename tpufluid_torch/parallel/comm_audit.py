@@ -4,9 +4,11 @@
 The JAX package reads the collectives out of the step's jaxpr. The port's
 mesh (``parallel.shard.Mesh``) notes each collective it makes while a
 recording is open, once per call with its per-shard operand, as a jaxpr
-holds it; ``audit_step`` runs one step under a recording. The far-mover
-packet is noted as conditional on every step, whether its gate opens or
-not, as JAX counts the ``lax.cond`` branch it traced.
+holds it; ``audit_step`` runs one step under a recording. A step that
+replays a CUDA graph notes again what its capture noted
+(``graphs.CallGraph``), so a replay audits as the eager step. The
+far-mover packet is noted as conditional on every step, whether its gate
+opens or not, as JAX counts the ``lax.cond`` branch it traced.
 
 This pins the per-step traffic of the row-band design
 (``resident_comm_formula``) to the code: a change that adds traffic

@@ -34,9 +34,10 @@ and exchanges only what crosses a band edge:
   3. far movers (more than one cell in a step): a packet of
      ``far_capacity`` rows from each shard, gathered by all; each shard
      inserts the rows whose target cell it owns, stable by target cell,
-     after its slots, and counts the drops. The gate is the sum of the
-     shards' far counts, read on the host once a step, as the
-     single-device step reads its own;
+     after its slots, and counts the drops (``ops.far_sharded``). The
+     gate is the sum of the shards' far counts, read by the kernels on
+     the device (the JAX step's ``lax.cond``), so a step reads nothing on
+     the host; the plain step reads it on the host;
   4. a two-row halo from each neighbour, then ``density`` and
      ``forces_integrate`` on band plus halo (the obstacle field sampled on
      the same rows, ``resident.forcefield_cells``' row window).
@@ -51,6 +52,14 @@ neighbour's device, ``all_gather`` a concatenation of the copied packets,
 ``psum`` a sum. The devices may repeat: D shards on one card run the same
 exchanges as D cards of one host, whose copies go peer to peer. The mesh
 records each transfer of a step for ``comm_audit.audit_step``.
+
+One program a call: on a mesh of one CUDA device, each call of either
+sharded step replays one CUDA graph of the whole step
+(``graphs.graphed_calls``), the counterpart of the JAX package's
+``jax.jit(shard_map(step))``, bitwise the eager step
+(``make_eager_sharded_resident_step``, ``make_eager_sharded_step``). A
+mesh over several cards runs eagerly, decided from ``mesh.devices`` when
+the step is built (``step.graphed``).
 """
 
 from __future__ import annotations
@@ -62,11 +71,12 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import graphs
 from ..ops import dense as denseops
+from ..ops import far_sharded as farops
 from ..ops import fused
 from ..ops import pairs, prng, sph
 from ..ops import resident as residentops
-from ..ops.dense import ranks
 from ..ops.fused import SENTINEL, SENTINEL_HALF
 from ..ops.grid import cell_id, cell_xy, point_windows
 from ..params import EPSILON, SimSettings
@@ -158,15 +168,25 @@ class Mesh:
 
     @contextlib.contextmanager
     def recording(self):
-        self._rec = rec = _Recording()
+        """Note the collectives made while open (a recording open around
+        this one resumes after it)."""
+        prev, self._rec = self._rec, _Recording()
+        rec = self._rec
         try:
             yield rec
         finally:
-            self._rec = None
+            self._rec = prev
 
     def begin_step(self) -> None:
         if self._rec is not None:
             self._rec.steps += 1
+
+    def replayed(self, rec: _Recording) -> None:
+        """A graph replay of the steps recorded in ``rec`` (its capture):
+        their steps and collectives noted again."""
+        if self._rec is not None:
+            self._rec.steps += rec.steps
+            self._rec.ops.extend(rec.ops)
 
     def note(self, primitive: str, shape, dtype: torch.dtype,
              conditional: bool = False) -> None:
@@ -335,6 +355,18 @@ def _merge_row(a4, b4, bcnt: torch.Tensor, k: int):
     return out, occ, over
 
 
+def _graphable(mesh: Mesh) -> bool:
+    """A mesh whose shards all lie on one CUDA device: its step can be
+    captured as one CUDA graph. A mesh over several cards runs eagerly
+    (a capture across cards is untested)."""
+    return len(set(mesh.devices)) == 1 and mesh.devices[0].type == "cuda"
+
+
+_RESIDENT_KERNELS = (fused.rebin, fused.density, fused.forces_integrate)
+_RESIDENT_PLAIN = (fused.rebin_plain, fused.density_plain,
+                   fused.forces_integrate_plain)
+
+
 def make_sharded_resident_step(spec: ResidentShardSpec,
                                mesh: Optional[Mesh] = None,
                                x_boundary: str = "bounce",
@@ -349,11 +381,32 @@ def make_sharded_resident_step(spec: ResidentShardSpec,
     subsampling): the reference's one engine does everything at once
     (compute.wgsl + shaders/compute.wgsl), so the sharded path must too.
     Each band runs the CUDA kernels on a CUDA device and their plain
-    versions on the CPU. ``step.mesh`` is the mesh."""
+    versions on the CPU; the far-mover pass runs every step
+    (``ops.far_sharded``: gated on the device on a CUDA device, its plain
+    version whatever the count on the CPU). On a mesh of one CUDA device
+    (``[cuda:0] * D``) each call replays one CUDA graph of the step (the
+    JAX package's ``jax.jit(shard_map(step))``; bitwise the eager step of
+    ``make_eager_sharded_resident_step``; a failed capture raises); any
+    other mesh runs eagerly. ``step.mesh`` is the mesh, ``step.graphed``
+    whether calls replay a graph."""
     return _make_sharded_step(
         spec, mesh or make_resident_mesh(spec), x_boundary, has_force_field,
-        surface_tension, adaptive_subsampling, fused.rebin, fused.density,
-        fused.forces_integrate)
+        surface_tension, adaptive_subsampling, _RESIDENT_KERNELS,
+        far_kernel=True, graph=True)
+
+
+def make_eager_sharded_resident_step(spec: ResidentShardSpec,
+                                     mesh: Optional[Mesh] = None,
+                                     x_boundary: str = "bounce",
+                                     has_force_field: bool = False,
+                                     surface_tension: bool = False,
+                                     adaptive_subsampling: bool = False):
+    """``make_sharded_resident_step``'s step run eagerly on any mesh: what
+    the graphed step is held to on the card."""
+    return _make_sharded_step(
+        spec, mesh or make_resident_mesh(spec), x_boundary, has_force_field,
+        surface_tension, adaptive_subsampling, _RESIDENT_KERNELS,
+        far_kernel=True, graph=False)
 
 
 def make_plain_sharded_resident_step(spec: ResidentShardSpec,
@@ -363,11 +416,13 @@ def make_plain_sharded_resident_step(spec: ResidentShardSpec,
                                      surface_tension: bool = False,
                                      adaptive_subsampling: bool = False):
     """The sharded step on the kernels' plain PyTorch versions, on any
-    device: the reference that the CUDA step is held to on the card."""
+    device, eager, its far-mover pass run when the bands' count read on
+    the host is not 0: the reference that the CUDA step is held to on the
+    card."""
     return _make_sharded_step(
         spec, mesh or make_resident_mesh(spec), x_boundary, has_force_field,
-        surface_tension, adaptive_subsampling, fused.rebin_plain,
-        fused.density_plain, fused.forces_integrate_plain)
+        surface_tension, adaptive_subsampling, _RESIDENT_PLAIN,
+        far_kernel=False, graph=False)
 
 
 def _params_on(params, device):
@@ -378,29 +433,85 @@ def _params_on(params, device):
         for f in dataclasses.fields(params)})
 
 
+def band_shifts(spec: ResidentShardSpec, mesh: Mesh) -> list:
+    """Each band's rebin row shift: band d's padded rows are global rows
+    d * rloc - 1 + arange(rloc + 2)."""
+    r = spec.rows_per_dev
+    return [torch.full((r + 2,), d * r - 1, dtype=torch.int32, device=dev)
+            for d, dev in enumerate(mesh.devices)]
+
+
+def _empty_rows(n, k, gxp, dev):
+    pos = torch.full((n, k, gxp), SENTINEL, dtype=torch.float32, device=dev)
+    vel = torch.zeros((n, k, gxp), dtype=torch.float32, device=dev)
+    return (pos, pos, vel, vel, torch.zeros((n,), dtype=torch.int32,
+                                            device=dev))
+
+
+def rebin_and_merge(mesh: Mesh, bands, dts, shifts, settings: SimSettings,
+                    rebin=fused.rebin):
+    """Stages 1-2 of the row-band step: each band rebinned over itself plus
+    one pad row each side (``rebin`` with the band's row shift), and the
+    pad rows' arrivals sent to the neighbours and appended behind their
+    edge rows, per cell. Returns (the rebins' outputs, the post-merge
+    grids, their occ_row and each band's count lost so far) by band."""
+    rloc, k, gxp = bands[0].pos_x.shape
+    reb = []
+    for d, b in enumerate(bands):
+        pad = _empty_rows(1, k, gxp, mesh.devices[d])
+        cat = lambda i, a: torch.cat([pad[i], a, pad[i]])
+        reb.append(rebin(
+            cat(0, b.pos_x), cat(1, b.pos_y), cat(2, b.vel_x),
+            cat(3, b.vel_y), cat(4, b.occ_row), dts[d], settings,
+            row_shift=shifts[d]))
+
+    def edge(r, row):
+        g4 = tuple(a[row] for a in r[:4])
+        return g4 + ((g4[0] < SENTINEL_HALF).sum(dim=0).to(torch.int32),)
+
+    from_below = mesh.shift([edge(r, rloc + 1) for r in reb], +1)
+    from_above = mesh.shift([edge(r, 0) for r in reb], -1)
+    band4, occ_band, n_lost = [], [], []
+    for d, r in enumerate(reb):
+        g4 = [a[1:rloc + 1] for a in r[:4]]
+        occ = r[4][1:rloc + 1]
+        over = r[6].sum().to(torch.int32)
+        for row, got in ((0, from_below[d]), (rloc - 1, from_above[d])):
+            if got is None:
+                continue
+            m4, occ_m, over_m = _merge_row(
+                tuple(a[row] for a in g4), got[:4], got[4], k)
+            g4 = [torch.cat([a[:row], m[None], a[row + 1:]])
+                  for a, m in zip(g4, m4)]
+            occ = torch.cat([occ[:row], occ_m.reshape(1), occ[row + 1:]])
+            over = over + over_m
+        band4.append(tuple(g4))
+        occ_band.append(occ)
+        n_lost.append(over)
+    return reb, band4, occ_band, n_lost
+
+
 def _make_sharded_step(spec: ResidentShardSpec, mesh: Mesh, x_boundary: str,
                        has_force_field: bool, surface_tension: bool,
-                       adaptive_subsampling: bool, rebin, density,
-                       forces_integrate):
+                       adaptive_subsampling: bool, kernels, far_kernel: bool,
+                       graph: bool):
     if x_boundary not in ("bounce", "wrap"):
         raise ValueError(f"unknown x_boundary {x_boundary!r}")
     if len(mesh) != spec.n_devices:
         raise ValueError(f"a mesh of {len(mesh)} devices for a spec of "
                          f"{spec.n_devices} shards")
+    rebin, density, forces_integrate = kernels
     settings = spec.settings
     n_dev = spec.n_devices
     rloc = spec.rows_per_dev
     k = settings.cell_capacity
     gxp = residentops._gxp(settings)
-    grid_w = settings.grid_w
     fcap = spec.far_capacity
     devices = mesh.devices
     variant = dict(x_boundary=x_boundary, surface_tension=surface_tension,
                    adaptive_subsampling=adaptive_subsampling)
-    # band d's padded rows are global rows d * rloc - 1 + arange(rloc + 2)
-    shifts = [torch.full((rloc + 2,), d * rloc - 1, dtype=torch.int32,
-                         device=dev) for d, dev in enumerate(devices)]
-    packet_shape = (fcap, 5)
+    shifts = band_shifts(spec, mesh)
+    packet_shape = (fcap, farops.PACKET_W)
     # each band's field samples, kept while the same field tensor comes
     # back (a field is replaced, never written in place)
     ff_memo = [[None, None] for _ in devices]
@@ -417,116 +528,40 @@ def _make_sharded_step(spec: ResidentShardSpec, mesh: Mesh, x_boundary: str,
                 n_rows=rloc + 4)]
         return memo[1]
 
-    def empty_rows(n, dev):
-        pos = torch.full((n, k, gxp), SENTINEL, dtype=torch.float32,
-                         device=dev)
-        vel = torch.zeros((n, k, gxp), dtype=torch.float32, device=dev)
-        return (pos, pos, vel, vel, torch.zeros((n,), dtype=torch.int32,
-                                                device=dev))
-
-    def far_packet(b, dt, d):
-        """Band b's far movers (pre-rebin) packed into ``fcap`` rows of
-        (pos_x, pos_y, vel_x, vel_y, valid), and the count left out."""
-        dev = b.pos_x.device
-        ncx, ncy = fused._cells(b.pos_x, b.pos_y, b.vel_x, b.vel_y, dt,
-                                settings)
-        scx = torch.arange(gxp, device=dev)[None, None, :]
-        scy = torch.arange(rloc, device=dev)[:, None, None] + d * rloc
-        far = (b.pos_x < SENTINEL_HALF) & (
-            ((ncy - scy).abs() > 1) | ((ncx - scx).abs() > 1))
-        fields = torch.stack([b.pos_x.reshape(-1), b.pos_y.reshape(-1),
-                              b.vel_x.reshape(-1), b.vel_y.reshape(-1)],
-                             dim=1)
-        (pk,), valid, dropped = _pack(far.reshape(-1), (fields,), fcap)
-        packet = torch.cat([pk, valid[:, None].to(torch.float32)], dim=1)
-        return packet, dropped
-
-    def insert_far(g4, allp, dt, d):
-        """Insert the gathered rows whose target cell band d owns, stable
-        by target cell, after each cell's slots. Returns the grids,
-        occ_row and the count that found no room."""
-        row_off = d * rloc
-        flag = allp[:, 4] > 0.5
-        gcx, gcy = fused._cells(allp[:, 0], allp[:, 1], allp[:, 2],
-                                allp[:, 3], dt, settings)
-        mine = flag & (gcy >= row_off) & (gcy < row_off + rloc)
-        lcell = torch.where(mine, (gcy - row_off) * grid_w + gcx, 2**30)
-        lcell_s, perm = torch.sort(lcell, stable=True)
-        rows = allp[perm]
-        mine_s = mine[perm]
-        rank = ranks(lcell_s)
-        occ_cell = (g4[0] < SENTINEL_HALF).sum(dim=1)  # [rloc, Gxp]
-        cy = torch.clamp(lcell_s // grid_w, 0, rloc - 1)
-        cx = torch.clamp(lcell_s % grid_w, 0, gxp - 1)
-        slot = occ_cell.reshape(-1)[cy * gxp + cx] + rank
-        fits = mine_s & (slot < k)
-        flat = torch.where(fits, (cy * k + slot) * gxp + cx, g4[0].numel())
-        g4 = tuple(residentops.put_flat(g, flat, rows[:, f])
-                   for f, g in enumerate(g4))
-        dropped = (mine_s.sum() - fits.sum()).to(torch.int32)
-        return g4, residentops.occ_row_of(g4[0]), dropped
-
-    def step(sgs: ShardedGridState, params, forcefield=None):
-        if len(sgs.bands) != n_dev:
-            raise ValueError(f"{len(sgs.bands)} bands for {n_dev} shards")
-        for b in sgs.bands:
-            if b.pos_x.shape != (rloc, k, gxp):
-                raise ValueError(f"band shape {tuple(b.pos_x.shape)} does "
-                                 f"not match the spec {(rloc, k, gxp)}")
-        mesh.begin_step()
-        bands = sgs.bands
-        prm = [_params_on(params, dev) for dev in devices]
-
-        # ---- 1. rebin over the band + 1 pad row per side
-        reb = []
-        for d, b in enumerate(bands):
-            pad = empty_rows(1, devices[d])
-            cat = lambda i, a: torch.cat([pad[i], a, pad[i]])
-            reb.append(rebin(
-                cat(0, b.pos_x), cat(1, b.pos_y), cat(2, b.vel_x),
-                cat(3, b.vel_y), cat(4, b.occ_row), prm[d].delta, settings,
-                row_shift=shifts[d]))
-
-        # ---- 2. boundary-row arrivals to the neighbours, merged behind
-        # the edge rows
-        def edge(r, row):
-            g4 = tuple(a[row] for a in r[:4])
-            return g4 + ((g4[0] < SENTINEL_HALF).sum(dim=0)
-                         .to(torch.int32),)
-
-        from_below = mesh.shift([edge(r, rloc + 1) for r in reb], +1)
-        from_above = mesh.shift([edge(r, 0) for r in reb], -1)
-        band4, occ_band, n_lost = [], [], []
-        for d, r in enumerate(reb):
-            g4 = [a[1:rloc + 1] for a in r[:4]]
-            occ = r[4][1:rloc + 1]
-            over = r[6].sum().to(torch.int32)
-            for row, got in ((0, from_below[d]), (rloc - 1, from_above[d])):
-                if got is None:
-                    continue
-                m4, occ_m, over_m = _merge_row(
-                    tuple(a[row] for a in g4), got[:4], got[4], k)
-                g4 = [torch.cat([a[:row], m[None], a[row + 1:]])
-                      for a, m in zip(g4, m4)]
-                occ = torch.cat([occ[:row], occ_m.reshape(1), occ[row + 1:]])
-                over = over + over_m
-            band4.append(tuple(g4))
-            occ_band.append(occ)
-            n_lost.append(over)
-
-        # ---- 3. far movers: packets gathered by all, gated by their sum
-        total_far = mesh.psum([r[5].sum().to(torch.int32) for r in reb])
-        if int(total_far[0]) > 0:  # the step's one host sync
-            packed = [far_packet(b, prm[d].delta, d)
-                      for d, b in enumerate(bands)]
+    def far_pass(bands, reb, band4, occ_band, n_lost, prm):
+        """Stage 3: far movers, a packet from each band gathered by all,
+        gated by the sum of the bands' counts: on the device (the
+        kernels' step), or on the host (the plain step)."""
+        total = mesh.psum([r[5].sum().to(torch.int32) for r in reb])
+        if far_kernel:
+            packed = [farops.far_collect(
+                b.pos_x, b.pos_y, b.vel_x, b.vel_y, b.occ_row,
+                reb[d][5][1:rloc + 1], total[d], prm[d].delta, settings,
+                d * rloc, fcap) for d, b in enumerate(bands)]
             allp = mesh.all_gather([p for p, _ in packed], conditional=True)
             for d in range(n_dev):
-                band4[d], occ_band[d], dropped = insert_far(
-                    band4[d], allp[d], prm[d].delta, d)
+                band4[d], occ_band[d], n_lost[d] = farops.far_insert(
+                    band4[d], occ_band[d], n_lost[d], allp[d], total[d],
+                    packed[d][1], prm[d].delta, settings, d * rloc)
+        elif int(total[0]) > 0:  # a host read: the plain step
+            packed = [farops.far_packet_plain(
+                b.pos_x, b.pos_y, b.vel_x, b.vel_y, prm[d].delta, settings,
+                d * rloc, fcap) for d, b in enumerate(bands)]
+            allp = mesh.all_gather([p for p, _ in packed], conditional=True)
+            for d in range(n_dev):
+                band4[d], occ_band[d], dropped = farops.insert_far_plain(
+                    band4[d], allp[d], prm[d].delta, settings, d * rloc)
                 n_lost[d] = n_lost[d] + dropped + packed[d][1]
         else:  # the gated packet still counts in the audit
             mesh.note("all_gather", packet_shape, torch.float32,
                       conditional=True)
+
+    def advance(bands, params, cells):
+        mesh.begin_step()
+        prm = [_params_on(params, dev) for dev in devices]
+        reb, band4, occ_band, n_lost = rebin_and_merge(
+            mesh, bands, [p.delta for p in prm], shifts, settings, rebin)
+        far_pass(bands, reb, band4, occ_band, n_lost, prm)
 
         # ---- 4. two-row halo, then physics on band + halo
         below = mesh.shift([tuple(a[rloc - 2:] for a in g4)
@@ -537,8 +572,8 @@ def _make_sharded_step(spec: ResidentShardSpec, mesh: Mesh, x_boundary: str,
         lost = mesh.psum(n_lost)
         out = []
         for d, dev in enumerate(devices):
-            lo = below[d] or empty_rows(2, dev)
-            hi = above[d] or empty_rows(2, dev)
+            lo = below[d] or _empty_rows(2, k, gxp, dev)
+            hi = above[d] or _empty_rows(2, k, gxp, dev)
             L = [torch.cat([lo[i], band4[d][i], hi[i]]) for i in range(4)]
             occ_l = torch.cat([lo[4], occ_band[d], hi[4]])
             p = prm[d]
@@ -546,7 +581,7 @@ def _make_sharded_step(spec: ResidentShardSpec, mesh: Mesh, x_boundary: str,
             pres, invr = density(L[0], L[1], L[2], L[3], occ_l, p.mass,
                                  p.delta, p.pressure_constant,
                                  p.rest_density, settings)
-            ff_cells = cells_of(d, forcefield) if has_force_field else None
+            ff_cells = None if cells is None else cells[d]
             npx, npy, nvx, nvy = forces_integrate(
                 L[0], L[1], L[2], L[3], pres, invr, occ_l, p, settings,
                 frame, ff_cells=ff_cells, **variant)
@@ -558,9 +593,29 @@ def _make_sharded_step(spec: ResidentShardSpec, mesh: Mesh, x_boundary: str,
         dev0 = devices[0]
         n_valid = torch.stack([(b.pos_x < SENTINEL_HALF).sum()
                                .to(torch.int32).to(dev0) for b in out])
+        return tuple(out), n_valid
+
+    graphed = graph and _graphable(mesh)
+    run = (graphs.graphed_calls(
+        advance, devices[0], f"the row-band sharded step, D={n_dev} "
+        f"[{rloc}, {k}, {gxp}]", mesh) if graphed else advance)
+
+    def step(sgs: ShardedGridState, params, forcefield=None):
+        if len(sgs.bands) != n_dev:
+            raise ValueError(f"{len(sgs.bands)} bands for {n_dev} shards")
+        for b in sgs.bands:
+            if b.pos_x.shape != (rloc, k, gxp):
+                raise ValueError(f"band shape {tuple(b.pos_x.shape)} does "
+                                 f"not match the spec {(rloc, k, gxp)}")
+        cells = (tuple(cells_of(d, forcefield) for d in range(n_dev))
+                 if has_force_field else None)
+        if graphed:
+            params = _params_on(params, devices[0])
+        out, n_valid = run(tuple(sgs.bands), params, cells)
         return ShardedGridState(tuple(out)), dict(n_valid=n_valid)
 
     step.mesh = mesh
+    step.graphed = graphed
     return step
 
 
@@ -711,9 +766,22 @@ def make_sharded_step(spec: ShardSpec, mesh: Optional[Mesh] = None,
     ``neighbor_mode``: "grid" (windowed pair math), "dense" (the
     slab-local slot grid in plain PyTorch) or "pallas" (the same grid
     through ``ops.sph``: the CUDA kernels on a CUDA device, their plain
-    versions on the CPU). ``step.mesh`` is the mesh."""
+    versions on the CPU). On a mesh of one CUDA device each call replays
+    one CUDA graph of the step, bitwise the eager step of
+    ``make_eager_sharded_step``; any other mesh runs eagerly.
+    ``step.mesh`` is the mesh, ``step.graphed`` whether calls replay a
+    graph."""
     return _make_slab_step(spec, mesh or make_mesh(spec), has_force_field,
-                           debug, neighbor_mode, None)
+                           debug, neighbor_mode, None, graph=True)
+
+
+def make_eager_sharded_step(spec: ShardSpec, mesh: Optional[Mesh] = None,
+                            has_force_field: bool = False,
+                            debug: bool = False, neighbor_mode: str = "grid"):
+    """``make_sharded_step``'s step run eagerly on any mesh: what the
+    graphed step is held to on the card."""
+    return _make_slab_step(spec, mesh or make_mesh(spec), has_force_field,
+                           debug, neighbor_mode, None, graph=False)
 
 
 def make_plain_sharded_step(spec: ShardSpec, mesh: Optional[Mesh] = None,
@@ -721,14 +789,16 @@ def make_plain_sharded_step(spec: ShardSpec, mesh: Optional[Mesh] = None,
                             debug: bool = False):
     """The pallas-mode sharded step on the plain PyTorch versions of its
     two kernels (``sph.density_plain``, ``sph.forces_plain``), on any
-    device: the reference that the CUDA step is held to on the card."""
+    device, eager: the reference that the CUDA step is held to on the
+    card."""
     return _make_slab_step(spec, mesh or make_mesh(spec), has_force_field,
                            debug, "pallas",
-                           (sph.density_plain, sph.forces_plain))
+                           (sph.density_plain, sph.forces_plain),
+                           graph=False)
 
 
 def _make_slab_step(spec: ShardSpec, mesh: Mesh, has_force_field: bool,
-                    debug: bool, neighbor_mode: str, passes):
+                    debug: bool, neighbor_mode: str, passes, graph: bool):
     if neighbor_mode not in ("grid", "dense", "pallas"):
         raise ValueError(f"unknown neighbor_mode {neighbor_mode!r}")
     if len(mesh) != spec.n_devices:
@@ -756,11 +826,8 @@ def _make_slab_step(spec: ShardSpec, mesh: Mesh, has_force_field: bool,
     ff_memo = [[None, None] for _ in devices]
 
     def field_on(d, forcefield):
-        if not has_force_field:
-            return None
         if forcefield is None:
-            raise ValueError("step built with has_force_field=True needs a "
-                             "forcefield argument")
+            return None
         memo = ff_memo[d]
         if memo[0] is not forcefield:
             memo[:] = [forcefield, forcefield.to(devices[d])]
@@ -837,19 +904,13 @@ def _make_slab_step(spec: ShardSpec, mesh: Mesh, has_force_field: bool,
         buf.index_put_((ra_tgt,), ra_vals)
         return buf[:c]
 
-    def step(state: ShardedState, params, forcefield=None):
-        if len(state.slabs) != n_dev:
-            raise ValueError(f"{len(state.slabs)} slabs for {n_dev} shards")
-        for s in state.slabs:
-            if s.position.shape != (c, 2):
-                raise ValueError(f"slab shape {tuple(s.position.shape)} "
-                                 f"does not match the spec's {(c, 2)}")
+    def advance(slabs, params, forcefield):
         mesh.begin_step()
         prm = [_params_on(params, dev) for dev in devices]
 
         # ---- predict, cells (g for invalid slots), the two-column halos
         pre = []
-        for d, s in enumerate(state.slabs):
+        for d, s in enumerate(slabs):
             pred = predict_positions(s.position, s.velocity, prm[d].delta,
                                      settings)
             cx = torch.where(s.valid, cell_id(pred, settings), g) % grid_w
@@ -865,7 +926,7 @@ def _make_slab_step(spec: ShardSpec, mesh: Mesh, has_force_field: bool,
 
         # ---- physics on local + halo, then the migration packs
         mid = []
-        for d, s in enumerate(state.slabs):
+        for d, s in enumerate(slabs):
             pred, hr, hl, halo_drop = pre[d]
             frame = s.tick + 1
             new_pos, new_vel, local_s, dbg = physics(
@@ -923,7 +984,33 @@ def _make_slab_step(spec: ShardSpec, mesh: Mesh, has_force_field: bool,
         dev0 = devices[0]
         out = {k: torch.stack([st[k].to(dev0, non_blocking=True)
                                for st in stats]) for k in stats[0]}
+        return tuple(slabs), out
+
+    graphed = graph and _graphable(mesh)
+    run = (graphs.graphed_calls(
+        advance, devices[0], f"the slab-sharded step, D={n_dev}, "
+        f"{neighbor_mode}{'' if passes is None else ' (plain passes)'}",
+        mesh) if graphed else advance)
+
+    def step(state: ShardedState, params, forcefield=None):
+        if len(state.slabs) != n_dev:
+            raise ValueError(f"{len(state.slabs)} slabs for {n_dev} shards")
+        for s in state.slabs:
+            if s.position.shape != (c, 2):
+                raise ValueError(f"slab shape {tuple(s.position.shape)} "
+                                 f"does not match the spec's {(c, 2)}")
+        if not has_force_field:
+            forcefield = None  # ignored, as the eager step ignores it
+        elif forcefield is None:
+            raise ValueError("step built with has_force_field=True needs a "
+                             "forcefield argument")
+        elif graphed:
+            forcefield = forcefield.to(devices[0])
+        if graphed:
+            params = _params_on(params, devices[0])
+        slabs, out = run(tuple(state.slabs), params, forcefield)
         return ShardedState(tuple(slabs)), out
 
     step.mesh = mesh
+    step.graphed = graphed
     return step
