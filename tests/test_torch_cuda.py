@@ -1512,3 +1512,42 @@ def test_graphed_slab_step_matches_eager(cuda, mode):
         assert ast.keys() == bst.keys()
         for k in ast:
             assert torch.equal(ast[k], bst[k]), (i, k)
+
+
+def test_app_run_syncs_only_in_the_audit(cuda):
+    """FluidApp.run(512) at a small resident scene under
+    ``torch.cuda.set_sync_debug_mode("error")``: the only host syncs are
+    the loss audit's reads (its two calls run with the mode lifted), and
+    the step timer's rate appears from its CUDA events without a sync."""
+    import time
+
+    from tpufluid_torch.app import FluidApp
+
+    s = tt.SimSettings(particle_count=3000, size=(9.0, 8.0), cell_capacity=8)
+    app = FluidApp(s, device=cuda, neighbor_mode="resident")
+    app.run(64)  # captures the burst
+    torch.cuda.synchronize()
+    audits = []
+    audit = app._audit_loss
+
+    def lifted():
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            audit()
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+        audits.append(app.grid_state.tick)
+
+    app._audit_loss = lifted
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        app.run(512)
+        deadline = time.perf_counter() + 30.0
+        while app.timer.last_rate == 0.0 and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        rate = app.timer.last_rate
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(audits) == 2
+    assert rate > 0.0
+    assert int(app.grid_state.tick) == 576

@@ -32,7 +32,7 @@ from .ops import render as renderops
 from .ops import render_binned, render_grid
 from .ops import resident as residentops
 from .utils import io as ioutils
-from .utils.profiling import StepTimer, health_check
+from .utils.profiling import StepTimer, count, health_check, span
 
 
 class SimState(enum.Enum):
@@ -125,6 +125,7 @@ class FluidApp:
         self.accumulator = 0.0
         self.dropped_frames = 0
         self.timer = StepTimer(self.device)
+        self._runs = 0  # serial of the run() calls, the spans' request
 
     # ---------------------------------------------------------------- control
 
@@ -232,11 +233,14 @@ class FluidApp:
         self._state_dirty = False
         if not self._resident:
             return
-        self._grid_state = residentops.from_particles(value, self.settings)
-        if self._capacity_policy == "grow":
-            # binning drops regrow at once: the source particles are still
-            # in hand, so nothing is lost (one device sync per load)
-            while int(self._grid_state.lost) > 0:
+        with span("tpufluid_torch.state"):
+            self._grid_state = residentops.from_particles(value,
+                                                          self.settings)
+            # binning drops regrow at once under "grow": the source
+            # particles are still in hand, so nothing is lost (one device
+            # sync per load)
+            while (self._capacity_policy == "grow"
+                   and self._read(self._grid_state.lost) > 0):
                 k = self.settings.cell_capacity
                 new_k = -(-(k + max(8, k // 4)) // 8) * 8
                 if new_k > self.MAX_CELL_CAPACITY:
@@ -244,8 +248,8 @@ class FluidApp:
                 self.settings = dataclasses.replace(self.settings,
                                                     cell_capacity=new_k)
                 self._rebuild_step()
-                self._grid_state = residentops.from_particles(value,
-                                                              self.settings)
+                self._grid_state = residentops.from_particles(
+                    value, self.settings)
         # regrow-and-replay bookkeeping
         self._snapshot = self._grid_state
         self._lost_baseline = None  # resolved at the first audit
@@ -283,20 +287,28 @@ class FluidApp:
             return
         if max_burst < 1:
             raise ValueError("max_burst must be >= 1")
-        remaining = n_steps
-        if not self._resident:
-            while remaining:
-                b = next(s for s in self._BURST_SIZES
-                         if s <= max_burst and s <= remaining)
-                run_fn = make_multi_step(
-                    self.settings, b, neighbor_mode=self.neighbor_mode,
-                    has_force_field=self._forcefield is not None,
-                    **self._step_kw)
+        self._runs += 1
+        with span("tpufluid_torch.run", self._runs, self.device):
+            if self._resident:
+                self._run_resident(n_steps, max_burst)
+            else:
+                self._run_steps(n_steps, max_burst)
+
+    def _run_steps(self, remaining: int, max_burst: int) -> None:
+        while remaining:
+            b = next(s for s in self._BURST_SIZES
+                     if s <= max_burst and s <= remaining)
+            run_fn = make_multi_step(
+                self.settings, b, neighbor_mode=self.neighbor_mode,
+                has_force_field=self._forcefield is not None,
+                **self._step_kw)
+            with span("tpufluid_torch.burst"):
                 self._state = run_fn(self._state, self.params,
                                      *self._ff_args())
-                self.timer.laps(b)
-                remaining -= b
-            return
+            self.timer.laps(b)
+            remaining -= b
+
+    def _run_resident(self, remaining: int, max_burst: int) -> None:
         while remaining:
             room = self.LOSS_CHECK_EVERY - self._ticks_since_audit
             b = next(s for s in self._BURST_SIZES
@@ -306,8 +318,9 @@ class FluidApp:
                 self.settings, b,
                 has_force_field=self._forcefield is not None,
                 **self._step_kw)
-            self._grid_state = run_fn(self._grid_state, self.params,
-                                      *self._ff_args())
+            with span("tpufluid_torch.burst"):
+                self._grid_state = run_fn(self._grid_state, self.params,
+                                          *self._ff_args())
             self._state_dirty = True
             self.timer.laps(b)
             self._ticks_since_snapshot += b
@@ -317,14 +330,25 @@ class FluidApp:
                 self._ticks_since_audit = 0
                 self._audit_loss()
 
+    @staticmethod
+    def _read(t: torch.Tensor) -> int:
+        """A device scalar read on the host (a sync), counted as
+        ``host_reads``."""
+        count("host_reads")
+        return int(t)
+
     def _audit_loss(self) -> None:
+        with span("tpufluid_torch.audit"):
+            self._audit()
+
+    def _audit(self) -> None:
         """Runtime mass-loss audit (one device->host sync). Under "grow" a
         lossy stretch is replayed from the last loss-free snapshot at a
         wider capacity, which is bitwise the always-wide trajectory."""
-        lost = int(self._grid_state.lost)
+        lost = self._read(self._grid_state.lost)
         lost0 = self._lost_baseline
         if lost0 is None:  # first audit: the snapshot's own count
-            lost0 = int(self._snapshot.lost)
+            lost0 = self._read(self._snapshot.lost)
         if lost > lost0 and self._capacity_policy == "grow":
             self._regrow_and_replay(lost0)
             return
@@ -353,7 +377,7 @@ class FluidApp:
         if new_k < 8:
             self._shrink_streak = 0
             return
-        occ = int(self._grid_state.occ_row.max())
+        occ = self._read(self._grid_state.occ_row.max())
         if occ > new_k - self.SHRINK_MARGIN:
             self._shrink_streak = 0
             return
@@ -361,13 +385,20 @@ class FluidApp:
         if self._shrink_streak < self.SHRINK_AFTER_AUDITS:
             return
         self._shrink_streak = 0
-        self.settings = dataclasses.replace(self.settings, cell_capacity=new_k)
-        self._rebuild_step()
-        self._grid_state = residentops.shrink_capacity(self._grid_state, new_k)
-        self._snapshot = self._grid_state
-        self._state_dirty = True
+        with span("tpufluid_torch.shrink"):
+            self.settings = dataclasses.replace(self.settings,
+                                                cell_capacity=new_k)
+            self._rebuild_step()
+            self._grid_state = residentops.shrink_capacity(self._grid_state,
+                                                           new_k)
+            self._snapshot = self._grid_state
+            self._state_dirty = True
 
     def _regrow_and_replay(self, lost0: int) -> None:
+        with span("tpufluid_torch.regrow"):
+            self._regrow(lost0)
+
+    def _regrow(self, lost0: int) -> None:
         self._shrink_streak = 0
         replay = self._ticks_since_snapshot
         # one event per overflow, however many widenings it needs
@@ -388,7 +419,7 @@ class FluidApp:
                 self._grid_state = self._step(self._grid_state, self.params,
                                               *self._ff_args())
             self._state_dirty = True
-            lost = int(self._grid_state.lost)
+            lost = self._read(self._grid_state.lost)
             if lost <= lost0:
                 self._snapshot = self._grid_state
                 self._lost_baseline = lost
@@ -454,9 +485,16 @@ class FluidApp:
         the field advances after each frame."""
         self.sim_state = SimState.RENDER
         for i in range(frames):
-            self.run(self.TICKS_PER_RENDER_FRAME)
-            frame = self.render_frame(width, height, mode=mode)
-            yield renderops.to_rgba8(frame).cpu().numpy()
+            with span("tpufluid_torch.frame", i):
+                self.run(self.TICKS_PER_RENDER_FRAME)
+                with span("tpufluid_torch.render"):
+                    frame = self.render_frame(width, height, mode=mode)
+                    with span("tpufluid_torch.rgba8"):
+                        rgba8 = renderops.to_rgba8(frame)
+                with span("tpufluid_torch.readback"):
+                    count("host_reads")
+                    rgba8 = rgba8.cpu().numpy()
+            yield rgba8
             self.advance_video_frame()
             if progress:
                 progress(i)

@@ -30,6 +30,8 @@ import time
 
 import torch
 
+from .utils.profiling import span
+
 
 def _counters():
     """Every kernel wrapper's launch-count dict."""
@@ -126,7 +128,10 @@ class StepGraph:
     replay, by counter."""
 
     def __init__(self, body, device, what: str):
-        device = torch.device(device)
+        with span("tpufluid_torch.capture"):
+            self._capture(body, torch.device(device), what)
+
+    def _capture(self, body, device, what: str) -> None:
         counts = _counters()
         before = [dict(c) for c in counts]
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)

@@ -24,6 +24,7 @@ import torch
 
 from ..params import SimSettings
 from ..state import ParticleState
+from ..utils.profiling import span
 from .render import Camera, _div
 from .render_binned import shade_metaball
 from .render_coarse import coarse_metaball_fields
@@ -82,12 +83,15 @@ def render_metaball_grid(gs, settings: SimSettings, width: int = 960,
 
     Positions are the grid's current positions (the per-pixel renderers
     use ``state.predicted``; the difference is v*dt)."""
-    speed = torch.sqrt(gs.vel_x * gs.vel_x + gs.vel_y * gs.vel_y)
-    dens_c, velf_c = coarse_metaball_fields(
-        gs.pos_x, gs.pos_y, speed, gs.occ_row, settings, supersample)
-    dens, velf = resample_fields((dens_c, velf_c), settings, width, height,
-                                 camera, supersample)
-    return shade_metaball(dens, velf, background, density_clamp_blue)
+    with span("tpufluid_torch.render.coarse"):
+        speed = torch.sqrt(gs.vel_x * gs.vel_x + gs.vel_y * gs.vel_y)
+        dens_c, velf_c = coarse_metaball_fields(
+            gs.pos_x, gs.pos_y, speed, gs.occ_row, settings, supersample)
+    with span("tpufluid_torch.render.resample"):
+        dens, velf = resample_fields((dens_c, velf_c), settings, width,
+                                     height, camera, supersample)
+    with span("tpufluid_torch.render.shade"):
+        return shade_metaball(dens, velf, background, density_clamp_blue)
 
 
 def render_metaball_state(state: ParticleState, settings: SimSettings,
