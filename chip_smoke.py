@@ -20,11 +20,14 @@ Builds the CUDA kernels from ``tpufluid_torch/csrc`` and runs, in order:
 7. the render path through the CLI's parser: 16 frames at 960x540 of the
    default scene falling onto a circle, counters reset just before it;
 8. the frame breakdown at scene_1m, 960x540;
-9. the dense engine's two kernels (sph_density, sph_forces) against their
+9. the pallas engine's two kernels (sph_density, sph_forces) against their
    plain versions, bitwise over the whole grid, on the slot grid of a
    seeded scene_1m state (K=8, K=32), the surface-tension variant on an
    h = 1.5 scene of 65,536 particles and the adaptive variant on scene_1m
-   with a clump above density 200, timed;
+   with a clump above density 200, timed; on the last two grids the
+   dense engine's kernels (dense_density, dense_forces) against the roll
+   passes (``ops.dense.density_pass``, ``force_pass``) with the flag,
+   bitwise over the whole grid;
 10. 20 synced pallas-mode steps at scene_1m, kernel step against plain step;
 11. ``FluidApp(scene_1m, neighbor_mode="pallas", device="cuda").run(200)``
     with the launch counters reset just before it, and a torch.profiler
@@ -38,7 +41,11 @@ Builds the CUDA kernels from ``tpufluid_torch/csrc`` and runs, in order:
     10 steps, the resident engine's mass and nearest-neighbour distance,
     the 200-step invariants of dense and resident), and the CLI's default
     ``run`` (the dense engine) on the reference's default scene for 64
-    steps;
+    steps, counters reset just before it (one launch of dense_density and
+    of dense_forces a step, no other kernel); then both kernels against
+    the roll passes, bitwise over the whole grid, on its last slot grid
+    ([267, 16, 384]) with the base flags, surface tension and adaptive
+    subsampling, timed against the passes;
 13. forces_integrate's variants against their plain versions, bitwise:
     x wrap at scene_1m with movers across the x walls, surface tension at
     scene_1m (and at h = 1.5, where it acts), adaptive subsampling on the
@@ -76,7 +83,7 @@ Builds the CUDA kernels from ``tpufluid_torch/csrc`` and runs, in order:
     against its plain version on each of those grids, and on the whole
     K=192 grid, timed; the metaball coarse kernel on the K=256 full-row
     grid (supersample 8) and the sparse K=192 grid (supersample 1); the
-    dense engine's sph_density and sph_forces, bitwise with each flag, on
+    pallas engine's sph_density and sph_forces, bitwise with each flag, on
     the slot grids of the same particles (41 rows at K=8 and 256, sparse
     at K=8 and 192), on a hand-made grid with live slots in the clamped
     first and last rows and the wrapped first and last columns, and on
@@ -114,7 +121,8 @@ Builds the CUDA kernels from ``tpufluid_torch/csrc`` and runs, in order:
     against its plain version over 4 synced steps (the sph kernels on
     slab-local grids 384 and 256 columns wide), dense and pallas within
     1e-6 of the single-device step after 2 steps, 16 timed steps each
-    with the launches counted, and the audited bytes against the
+    with the launches counted (one of each sph kernel, or of each dense
+    kernel, a shard a step), and the audited bytes against the
     formula; grid mode on bench.py's parity scene within 5e-4 of the
     single-device step over 5 steps, and 40 steps of sideways gravity
     moving particles across slabs with none lost; every slab step after
@@ -219,6 +227,18 @@ OPS_SPH = {"sph_density": (6, 6, 0), "sph_forces": (6, 36, 4)}
 # (f32 input fields read below each cell's occupancy, f32 output fields
 # written whole); the bool valid mask is read whole
 IO_SPH = {"sph_density": (2, 1), "sph_forces": (5, 4)}
+# the dense engine's kernels (the same tiles with the roll's pair terms),
+# counted as OPS_SPH from the ROLL forms of csrc/sph_density.cu (every
+# pair 6, in range 6: as sph_density) and csrc/sph_forces.cu (every pair
+# 6; in range 36: sqrt, the safe distance, two divisions for the
+# direction, the coincidence test; the pressure term 11: shared pressure
+# 2, the spiky kernel 3, its product and division by rho 2, two mul and
+# two sums; the viscosity term 20: the kernel's 13 with its three
+# divisions and two selects, the division by rho, two differences, two
+# mul, two sums; per live slot 3: the pressure k (rho - rho0) and the
+# safe rho, staged once); their fields as IO_SPH's
+OPS_SPH.update({"dense_density": (6, 6, 0), "dense_forces": (6, 36, 3)})
+IO_SPH.update({"dense_density": (2, 1), "dense_forces": (5, 4)})
 KERNELS = {
     "rebin": ("tpufluid_torch/csrc/rebin.cu",
               "tpufluid/ops/pallas/fused.py:396"),
@@ -236,6 +256,12 @@ KERNELS = {
                     "tpufluid/ops/pallas/sph.py:104"),
     "sph_forces": ("tpufluid_torch/csrc/sph_forces.cu",
                    "tpufluid/ops/pallas/sph.py:350"),
+    # the counterparts of XLA code (the dense engine's roll passes), no
+    # Pallas kernel
+    "dense_density": ("tpufluid_torch/csrc/sph_density.cu",
+                      "tpufluid/ops/dense.py:122"),
+    "dense_forces": ("tpufluid_torch/csrc/sph_forces.cu",
+                     "tpufluid/ops/dense.py:146"),
     # the counterpart of XLA code (do_far under lax.cond), no Pallas kernel
     "far_reinsert": ("tpufluid_torch/csrc/far_reinsert.cu",
                      "tpufluid/ops/resident.py:396"),
@@ -606,20 +632,22 @@ def compare_has_ff(settings, params, field, label):
 def reset_counts():
     """Every kernel wrapper's count to 0, the far-mover pass's
     (``resident.LAUNCHES``, apart from ``read_counts``) too."""
-    from tpufluid_torch.ops import (far_sharded, fused, rebin, render_coarse,
-                                    resident, sph)
+    from tpufluid_torch.ops import (dense, far_sharded, fused, rebin,
+                                    render_coarse, resident, sph)
 
     for counts in (fused.LAUNCHES, rebin.LAUNCHES, render_coarse.LAUNCHES,
-                   sph.LAUNCHES, resident.LAUNCHES, far_sharded.LAUNCHES):
+                   sph.LAUNCHES, resident.LAUNCHES, far_sharded.LAUNCHES,
+                   dense.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
 
 def read_counts() -> dict:
-    from tpufluid_torch.ops import far_sharded, fused, rebin, render_coarse, sph
+    from tpufluid_torch.ops import (dense, far_sharded, fused, rebin,
+                                    render_coarse, sph)
 
     return {**fused.LAUNCHES, **rebin.LAUNCHES, **render_coarse.LAUNCHES,
-            **sph.LAUNCHES, **far_sharded.LAUNCHES}
+            **sph.LAUNCHES, **far_sharded.LAUNCHES, **dense.LAUNCHES}
 
 
 def render_cli():
@@ -762,13 +790,19 @@ def dense_grid_of(state, settings, params):
                             b.sorted_cells, settings)
 
 
-def sph_pairs(g, settings) -> dict:
+def sph_pairs(g, settings, roll: bool = False) -> dict:
     """(target, live candidate) pairs of the 3x3 stencil (rows clamped,
-    columns wrapped, as the kernels walk it), and those in range: for
-    sph_density the targets are each cell's live slots and its first
-    empty one (r^2 < h^2), for sph_forces the live slots (r^2 <= h^2).
-    Also the live slots."""
+    or wrapped with ``roll`` as the dense kernels walk them; columns
+    wrapped), and those in range: for the density kernels the targets
+    are each cell's live slots and its first empty one (r^2 < h^2), for
+    the forces kernels the live slots (r^2 <= h^2). Also the live
+    slots."""
     from tpufluid_torch.ops import sph
+
+    def rows3(a):
+        if roll:
+            return [torch.roll(a, -r, dims=0) for r in (-1, 0, 1)]
+        return sph._rows3(a)
 
     h2 = sph._f32(settings.sqr_radius)
     k = g.px.shape[1]
@@ -779,8 +813,7 @@ def sph_pairs(g, settings) -> dict:
     out = dict(density_pairs=0, density_in=0, forces_pairs=0, forces_in=0,
                live=int(occ.sum()))
     live = g.valid
-    for cx, cy, cv in zip(sph._rows3(g.px), sph._rows3(g.py),
-                          sph._rows3(g.valid)):
+    for cx, cy, cv in zip(rows3(g.px), rows3(g.py), rows3(g.valid)):
         for dx in (-1, 0, 1):
             nx, ny, nv = (sph._roll_x(a, dx) for a in (cx, cy, cv))
             for kp in range(k):
@@ -798,12 +831,13 @@ def sph_pairs(g, settings) -> dict:
 
 
 def sph_bound(name, g, pairs):
-    """The bound of a dense kernel on grid ``g``: its input fields below
+    """The bound of a slot-grid kernel (sph_* or dense_*) on grid ``g``:
+    its input fields below
     each cell's occupancy, the valid mask and its outputs whole (as
     ``resident_bytes`` counts the resident kernels'), against OPS_SPH per
     pair and live slot."""
     n_pair, n_in, n_slot = OPS_SPH[name]
-    key = "density" if name == "sph_density" else "forces"
+    key = "density" if name.endswith("_density") else "forces"
     n_ops = (n_pair * pairs[f"{key}_pairs"] + n_in * pairs[f"{key}_in"]
              + n_slot * pairs["live"])
     f_in, f_out = IO_SPH[name]
@@ -863,6 +897,57 @@ def compare_sph(state, settings, params, label, flags=None):
                        lambda: sph.forces_plain(*fargs, **flags)),
     }
     return out, calls, want
+
+
+def compare_dense(g, settings, params, label, flags=None):
+    """dense_density and dense_forces (with ``flags``) against the roll
+    passes (``ops.dense.density_pass``, ``force_pass``) on slot grid
+    ``g``, bitwise over the whole grid, each with one launch counted.
+    Returns per-kernel dicts (max_abs_err, bound, live slots whose fx the
+    flag changes) and the calls for ``time_kernels``."""
+    from tpufluid_torch.ops import dense
+
+    flags = flags or {}
+    h, n = settings.smoothing_radius, settings.kernel_norms()
+    before = dict(dense.LAUNCHES)
+    rho = dense.density(g, params.mass, h)
+    rho_p = dense.density_pass(g, params.mass, h)
+    bitwise((rho,), (rho_p,), f"{label} dense_density")
+    d = torch.clamp(torch.clamp(rho_p, min=EPSILON), min=0.1)
+    fargs = (g, d, params, h, settings.sqr_radius, n.spiky_derivative,
+             n.viscosity, torch.tensor(9, device=d.device))
+    got = dense.forces(*fargs, **flags)
+    want = dense.force_pass(*fargs, **flags)
+    bitwise(got, want, f"{label} dense_forces {flags}")
+    torch.cuda.synchronize()
+    launched = {k: dense.LAUNCHES[k] - before[k] for k in before}
+    if launched != {"dense_density": 1, "dense_forces": 1}:
+        raise AssertionError(f"{label} dense launches {launched}")
+    changed = 0
+    if flags:
+        base = dense.forces(*fargs)
+        changed = int(((base[0] != got[0]) & g.valid).sum())
+    full = torch.ones_like(g.valid)
+    pairs = sph_pairs(g, settings, roll=True)
+    out = {"dense_density": dict(max_abs_err=abs_err(rho, rho_p, full)),
+           "dense_forces": dict(max_abs_err=max(abs_err(a, b, full)
+                                                for a, b in zip(got, want)),
+                                flag_changes_fx=changed)}
+    for name in out:
+        out[name]["bound_ms"], out[name]["bound_by"] = sph_bound(name, g,
+                                                                 pairs)
+        out[name]["grid"] = list(g.px.shape)
+    log(f"{label} {tuple(g.px.shape)} {flags or 'base'}: "
+        f"{int(g.valid.sum())} live slots (dropped {int(g.n_dropped)}), "
+        f"the flag changes fx at {changed} live slots, {pairs}; "
+        f"dense_density and dense_forces bitwise equal to the roll passes")
+    calls = {
+        "dense_density": (lambda: dense.density(g, params.mass, h),
+                          lambda: dense.density_pass(g, params.mass, h)),
+        "dense_forces": (lambda: dense.forces(*fargs, **flags),
+                         lambda: dense.force_pass(*fargs, **flags)),
+    }
+    return out, calls
 
 
 def clumped_state(settings, device):
@@ -1059,9 +1144,16 @@ def cli_pallas_run(card):
     return res
 
 
-def cli_default_run():
+def cli_default_run(card):
     """The CLI's ``run`` with no --neighbor-mode (the dense engine) on the
-    reference's default scene, 64 steps."""
+    reference's default scene, 64 steps with the counters reset just
+    before them: one launch of dense_density and of dense_forces a step
+    and no other kernel. Then 120 more steps timed (CUDA events) and a
+    torch.profiler reading of 8; then both kernels against the roll
+    passes, bitwise over the whole grid, on the slot grid of its last
+    state, with the base flags (timed against the passes), surface
+    tension and adaptive subsampling. Returns the run's
+    results and the per-kernel dicts."""
     from tpufluid_torch import cli
 
     args = cli.parser().parse_args(["run", "--device", "cuda", "--steps",
@@ -1069,20 +1161,48 @@ def cli_default_run():
     if args.neighbor_mode != "dense":
         raise AssertionError(f"CLI default engine {args.neighbor_mode}")
     torch.cuda.synchronize()
+    reset_counts()
     t0 = time.perf_counter()
     app = cli.run(args)
     wall = time.perf_counter() - t0
+    counts = read_counts()
     m = app.metrics(deep=True)
     log(f"CLI default run (dense, 100k, 53x53, K={app.settings.cell_capacity}"
         f"), 64 steps: wall {wall:.2f} s, {1e3 * wall / 64:.1f} ms/step; "
         f"tick {m['tick']}, NaN {m['nan_positions']}, max occupancy "
-        f"{m['max_cell_occupancy']}")
+        f"{m['max_cell_occupancy']}; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
     if not (m["tick"] == 64 and m["nan_positions"] == 0
             and not m["capacity_exceeded"]):
         raise AssertionError(f"CLI default run: {m}")
-    return dict(wall_s=wall, ms_per_step=1e3 * wall / 64,
-                cell_capacity=app.settings.cell_capacity,
-                profile=profile_steps(app, 2, "CLI default dense"))
+    if counts != {**dict.fromkeys(counts, 0), "dense_density": 64,
+                  "dense_forces": 64}:
+        raise AssertionError(f"CLI default run launches: {counts}")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    app.run(120)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / 120
+    log(f"CLI default run, 120 more steps: {ms:.4f} ms/step, "
+        f"{1e3 * app.settings.particle_count / ms:.4e} particle-steps/s "
+        f"(CUDA events; {card})")
+    res = dict(wall_s=wall, wall_ms_per_step=1e3 * wall / 64,
+               ms_per_step=ms, cell_capacity=app.settings.cell_capacity,
+               launches={k: v for k, v in counts.items() if v},
+               profile=profile_steps(app, 8, "CLI default dense"))
+    s, prm = app.settings, app.params
+    g = dense_grid_of(app.state, s, prm)
+    torch.use_deterministic_algorithms(True)
+    kern, calls = compare_dense(g, s, prm, "CLI default grid")
+    for key, flags in (("surface_tension", dict(surface_tension=True)),
+                       ("adaptive", dict(adaptive_subsampling=True))):
+        fres, _ = compare_dense(g, s, prm, f"CLI default grid {key}", flags)
+        kern["dense_forces"][key] = fres["dense_forces"]
+    torch.use_deterministic_algorithms(False)
+    time_kernels(calls, kern, f"CLI default grid {tuple(g.px.shape)}")
+    return res, kern
 
 
 # ------------------------------- the resident engine's rest (13-16)
@@ -2589,8 +2709,8 @@ def slab_runs(s8, dev, card):
                 2 if mode == "pallas" else 1)
             res.update(drift_2=drift, drops_2=drops,
                        n_valid=tstats["n_valid"].tolist())
-            want = ({"sph_density": 16 * d, "sph_forces": 16 * d}
-                    if mode == "pallas" else {})
+            want = {f"{'sph' if mode == 'pallas' else 'dense'}_{k}": 16 * d
+                    for k in ("density", "forces")}
             log(f"slab scene_1m D={d} {mode}: sorted position drift "
                 f"{drift:.3g} from the single-device step after 2 steps "
                 f"(bound 1e-6), drops {drops}; {res['ms_per_step']:.4f} "
@@ -3311,12 +3431,26 @@ def main() -> int:
                           cell_capacity=8)
     p_st = tt.TickParams.default(dev, surface_tension_threshold=0.05,
                                  surface_tension_coefficient=5.0)
-    st_res, st_calls, _ = compare_sph(seeded_state(s_st, dev), s_st, p_st,
-                                      "h=1.5 65536", dict(surface_tension=True))
+    st9 = seeded_state(s_st, dev)
+    st_res, st_calls, _ = compare_sph(st9, s_st, p_st, "h=1.5 65536",
+                                      dict(surface_tension=True))
     s16 = dataclasses.replace(s8, cell_capacity=16)
-    ad_res, ad_calls, _ = compare_sph(clumped_state(s16, dev), s16,
-                                      scene.params, "scene_1m clump K=16",
+    clump = clumped_state(s16, dev)
+    ad_res, ad_calls, _ = compare_sph(clump, s16, scene.params,
+                                      "scene_1m clump K=16",
                                       dict(adaptive_subsampling=True))
+    # the dense engine's kernels where each flag acts
+    dense_flags = {}
+    for key, (st9_, s9, p9, label) in (
+            ("surface_tension", (st9, s_st, p_st, "h=1.5 65536")),
+            ("adaptive_subsampling", (clump, s16, scene.params,
+                                      "scene_1m clump K=16"))):
+        fres, _ = compare_dense(dense_grid_of(st9_, s9, p9), s9, p9,
+                                f"{label} dense", {key: True})
+        if fres["dense_forces"]["flag_changes_fx"] == 0:
+            raise AssertionError(f"{label} dense: {key} changed no force")
+        dense_flags[key] = fres["dense_forces"]
+    del st9, clump
 
     # 10. synced pallas-mode steps, kernel step against plain step
     synced_pallas_steps(s8, scene.params, 20)
@@ -3376,7 +3510,7 @@ def main() -> int:
 
     # 12. engine parity, and the CLI's default run (the dense engine)
     parity = engine_parity()
-    cli_res = cli_default_run()
+    cli_res, dense_res = cli_default_run(card)
 
     # 13. forces_integrate's variants at scene_1m, then the app with all
     # three
@@ -3676,6 +3810,17 @@ def main() -> int:
             entry = dict(launches=l_fused["physics"],
                          split_path_launches=l_split["physics"],
                          tile=list(fused.physics_tile(8)), **physics_res)
+        elif name.startswith("dense_"):
+            entry = dict(launches=cli_res["launches"][name], **{
+                k: dense_res[name][k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "grid")}, library_ms=None)
+            if name == "dense_forces":
+                entry["surface_tension"] = dense_res[name]["surface_tension"]
+                entry["adaptive"] = dense_res[name]["adaptive"]
+                entry["flag_grids"] = dense_flags
+            entry["sharded_path_launches"] = {
+                f"D={d}": slab[d]["dense"]["launches"][name] for d in (2, 4)}
         elif name.startswith("sph_"):
             entry = dict(launches=p_launches[name],
                          resident_path_launches=launches[name],

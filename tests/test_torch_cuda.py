@@ -15,7 +15,11 @@ metaball fields bitwise. The dense engine's kernels are held bitwise to
 their plain versions over the whole grid, also on tile gates (ragged and
 sparse grids, K up to 256, live slots in the clamped edge rows and the
 wrapped edge columns, empty slots at nonzero positions), and raise above
-the largest K they stage. The resident engine's variants, its batched
+the largest K they stage. The dense engine's roll passes run as the
+kernels dense_density and dense_forces on the card: bitwise the plain
+passes on the same gates (rows wrapped), at the largest K they stage
+(raising one above it), and the dense step bitwise the step on the plain
+passes. The resident engine's variants, its batched
 stacks and the physics pass are held bitwise: to their plain versions, the
 physics kernel to the split kernel pair, a batched step to the
 single-world steps. The tile kernels of
@@ -739,6 +743,145 @@ def test_sph_kernels_refuse_k_above_limit(cuda):
         sph.density(grid_at(k_d + 1), p.mass, h)
     with pytest.raises(ValueError, match=f"largest .*, {k_f}$"):
         forces(grid_at(k_f + 1))
+
+
+# ---------------------------------- the dense engine's roll-pass kernels
+
+@pytest.mark.parametrize("flag", ["base", "surface_tension",
+                                  "adaptive_subsampling"])
+@pytest.mark.parametrize("case", ["k8", "k32", "ragged8", "ragged256",
+                                  "sparse8", "sparse192", "edges",
+                                  "dead_bits"])
+def test_dense_kernels_match_roll_passes(cuda, case, flag):
+    """dense_density and dense_forces against ``dense.density_pass`` and
+    ``dense.force_pass``, bitwise over the whole grid, with each flag: on
+    ``_dense_grid``'s scenes at K=8 and 32 (coincident pairs, an
+    over-full cell; the h 1.5 scene for surface tension, the clump past
+    density 200 for adaptive) and on the tile gates of the sph kernels
+    (ragged rows, a cell at K=256, halo cells of at most one slot, live
+    slots in the edge rows and columns, which the roll wraps, and empty
+    slots at nonzero positions)."""
+    if case in ("k8", "k32"):
+        scene = {"surface_tension": "st",
+                 "adaptive_subsampling": "clump"}.get(flag, "base")
+        s, p, g, _ = _dense_grid(cuda, int(case[1:]), scene)
+    else:
+        s, g = _sph_tile_grid(cuda, case)
+        p = tt.TickParams.default(cuda, gravity=(0.0, -9.8),
+                                  **ST_PARAMS_CUDA)
+    if case == "edges":  # rows 0 and Gy-1 meet across the wrap
+        assert bool(g.valid[0].any() and g.valid[-1].any())
+    h, n = s.smoothing_radius, s.kernel_norms()
+    before = dict(dense.LAUNCHES)
+    rho_p = dense.density_pass(g, p.mass, h)
+    assert torch.equal(dense.density(g, p.mass, h), rho_p)
+    d = torch.clamp(torch.clamp(rho_p, min=tt.EPSILON), min=0.1)
+    flags = {} if flag == "base" else {flag: True}
+    args = (g, d, p, h, s.sqr_radius, n.spiky_derivative, n.viscosity,
+            torch.tensor(9, device=cuda))
+    got = dense.forces(*args, **flags)
+    want = dense.force_pass(*args, **flags)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert {k: dense.LAUNCHES[k] - before[k] for k in before} == {
+        "dense_density": 1, "dense_forces": 1}
+    if flags and case in ("k8", "k32"):  # the flag changes the forces
+        base = dense.force_pass(*args)
+        assert not torch.equal(want[0][g.valid], base[0][g.valid])
+    if flag == "adaptive_subsampling" and case in ("k8", "k32"):
+        assert float(d[g.valid].max()) > 200.0
+
+
+def test_dense_kernels_refuse_k_above_limit(cuda):
+    """Each roll-pass kernel runs, bitwise its pass, at the largest K
+    whose 1 x 1 tile fits shared memory, and its wrapper raises, naming
+    that K, one above it."""
+    s = tt.SimSettings(particle_count=64, size=(9.0, 8.0))
+    p = tt.TickParams.default(cuda)
+    h, n = s.smoothing_radius, s.kernel_norms()
+    k_d = sph.max_capacity("dense_density")
+    k_f = sph.max_capacity("dense_forces")
+    assert k_d >= k_f >= 256
+
+    def grid_at(k):
+        z = torch.zeros((3, k, 128), device=cuda)
+        valid = torch.zeros((3, k, 128), dtype=torch.bool, device=cuda)
+        valid[1, :2, 5] = True
+        valid[0, :k, 5] = True  # a full cell at the largest K
+        px = z.clone()
+        px[1, 1, 5] = 0.05
+        px[0, :, 5] = torch.linspace(-0.1, 0.1, k)
+        return dense.DenseGrid(torch.zeros(0, dtype=torch.int64), px, z, z,
+                               z, valid, torch.tensor(0))
+
+    g = grid_at(k_d)
+    rho = dense.density(g, p.mass, h)
+    assert torch.equal(rho, dense.density_pass(g, p.mass, h))
+    assert float(rho[1, 0, 5]) > 0.0
+    args = lambda g: (g, torch.ones_like(g.px), p, h, s.sqr_radius,
+                      n.spiky_derivative, n.viscosity, torch.tensor(1))
+    g = grid_at(k_f)
+    for a, b in zip(dense.forces(*args(g)), dense.force_pass(*args(g))):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match=f"largest .*, {k_d}$"):
+        dense.density(grid_at(k_d + 1), p.mass, h)
+    with pytest.raises(ValueError, match=f"largest .*, {k_f}$"):
+        dense.forces(*args(grid_at(k_f + 1)))
+
+
+@pytest.mark.parametrize("flags", ["base", "variants"])
+def test_dense_step_runs_the_kernels(cuda, flags, monkeypatch):
+    """``make_step(neighbor_mode="dense")`` on the card against the same
+    step on the plain roll passes, bitwise every field over 5 steps; each
+    step launches dense_density and dense_forces once and calls neither
+    plain pass; a replay of a graphed burst of 4 counts 4 of each."""
+    from tpufluid_torch import step as steps
+
+    kw = {} if flags == "base" else dict(
+        surface_tension=True, adaptive_subsampling=True, x_boundary="wrap")
+    s = tt.SimSettings(particle_count=3000, size=(9.0, 8.0),
+                       cell_capacity=16)
+    p = tt.TickParams.default(cuda, gravity=(0.0, -9.8), **ST_PARAMS_CUDA)
+    plain = steps._make_step(
+        s, "dense", kw.get("surface_tension", False), False,
+        kw.get("x_boundary", "bounce"),
+        kw.get("adaptive_subsampling", False),
+        passes=(dense.density_pass, dense.force_pass))
+    calls = []
+
+    def counted(name):
+        fn = getattr(dense, name)
+
+        def run(*args, **kwargs):
+            calls.append(name)
+            return fn(*args, **kwargs)
+        return run
+
+    for name in ("density_pass", "force_pass"):
+        monkeypatch.setattr(dense, name, counted(name))
+    kernel = steps.make_step(s, neighbor_mode="dense", **kw)
+    a = b = tt.init_state(s, cuda)
+    fields = ("position", "predicted", "velocity", "density", "cell", "tick")
+    for i in range(5):
+        before = dict(dense.LAUNCHES)
+        a, b = kernel(a, p), plain(b, p)
+        torch.cuda.synchronize()
+        assert {k: dense.LAUNCHES[k] - before[k] for k in before} == {
+            "dense_density": 1, "dense_forces": 1}
+        for f in fields:
+            assert torch.equal(getattr(a, f), getattr(b, f)), (i, f)
+    assert calls == []
+    assert float(a.density.max()) > 0.1
+    # a graphed burst counts its kernels at every replay, not only at the
+    # capture
+    burst = steps.make_multi_step(s, 4, neighbor_mode="dense", **kw)
+    a = burst(a, p)  # captures
+    before = dict(dense.LAUNCHES)
+    burst(a, p)
+    assert {k: dense.LAUNCHES[k] - before[k] for k in before} == {
+        "dense_density": 4, "dense_forces": 4}
+    assert calls == []
 
 
 def _valid_edge_grid(device):

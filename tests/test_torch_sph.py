@@ -1,8 +1,10 @@
 """PyTorch port, the dense engine's physics against the JAX package on the
 CPU: ``ops.kernels`` and ``ops.pairs`` on the same arrays, the slot grid
-of ``ops.dense``, its roll passes, and the plain versions of the two CUDA
-kernels (``ops.sph``) against ``tpufluid.ops.pallas.sph`` in interpret
-mode on the same DenseGrid (6 x 6 world, 256 particles, K=8).
+of ``ops.dense``, its roll passes (which ``dense_forces_cols`` runs on CPU
+tensors, launching no kernel, unless ``passes=`` replaces them), and the
+plain versions of the two CUDA kernels (``ops.sph``) against
+``tpufluid.ops.pallas.sph`` in interpret mode on the same DenseGrid (6 x 6
+world, 256 particles, K=8).
 
 Integers (cell ids, the sort permutation, the ranks within cell runs,
 slots, ``n_dropped``) are held bitwise. Floats are held to BASELINE.md's per-step bounds, relative where
@@ -355,6 +357,97 @@ def test_dense_passes_match_jax():
                             torch.tensor(FRAME))
     for g, w, n in zip(got, want, ("fx", "fy", "gx", "gy")):
         _within_dv(g.numpy(), w, jd, p.delta, n)
+
+
+def _sorted_columns(name):
+    """(torch settings, params, sorted px, py, vx, vy, sorted cells) of a
+    scene."""
+    s, p, pos, vel = scene(name)
+    ts = interop.settings_from(s)
+    b = tgrid.bin_particles(tgrid.cell_id(_t(pos), ts), ts)
+    ps, vs = _t(pos)[b.perm], _t(vel)[b.perm]
+    return (ts, interop.tick_params_from_numpy(p, "cpu"), ps[:, 0], ps[:, 1],
+            vs[:, 0], vs[:, 1], b.sorted_cells)
+
+
+def _counted(monkeypatch, module, names, calls):
+    """Replace each function ``names`` of ``module`` by one that notes its
+    name in ``calls`` and calls it."""
+    for name in names:
+        fn = getattr(module, name)
+
+        def run(*args, _fn=fn, _name=name, **kwargs):
+            calls.append(_name)
+            return _fn(*args, **kwargs)
+        monkeypatch.setattr(module, name, run)
+
+
+@pytest.mark.parametrize("flag", ["base", "surface_tension",
+                                  "adaptive_subsampling"])
+def test_dense_forces_cols_runs_the_roll_passes_on_cpu(flag, monkeypatch):
+    """On CPU tensors ``dense_forces_cols`` runs ``density_pass`` and
+    ``force_pass`` once each, launches no kernel (``dense.LAUNCHES`` stays
+    0), and reads back at each particle's slot what the two passes give,
+    bitwise; a particle beyond capacity reads the density floor and zero
+    force."""
+    name = {"surface_tension": "st",
+            "adaptive_subsampling": "clump"}.get(flag, "base")
+    ts, tp, px, py, vx, vy, cells = _sorted_columns(name)
+    flags = {} if flag == "base" else {flag: True}
+    h, sq, spiky, visc = _norms(ts)
+    frame = torch.tensor(FRAME)
+    g = tdense.build_grid_cols(px, py, vx, vy, cells, ts)
+    d = tdense.density_pass(g, tp.mass, h)
+    d = torch.clamp(torch.clamp(d, min=tpufluid.EPSILON), min=0.1)
+    fields = (d, *tdense.force_pass(g, d, tp, h, sq, spiky, visc, frame,
+                                    **flags))
+    calls = []
+    _counted(monkeypatch, tdense, ("density_pass", "force_pass"), calls)
+    before = dict(tdense.LAUNCHES)
+    got = tdense.dense_forces_cols(px, py, vx, vy, cells, ts, tp,
+                                   ts.kernel_norms(), frame, **flags)
+    assert calls == ["density_pass", "force_pass"]
+    assert tdense.LAUNCHES == before == {"dense_density": 0,
+                                         "dense_forces": 0}
+    kept = g.flat < g.px.numel()
+    for a, f in zip(got, fields):
+        assert torch.equal(a[kept], f.reshape(-1)[g.flat[kept]])
+    assert int(got[5]) == int((~kept).sum()) == (2 if name == "base" else 0)
+    assert bool((got[0][~kept] == 0.1).all())
+    assert all(bool((a[~kept] == 0.0).all()) for a in got[1:5])
+
+
+def test_dense_forces_cols_passes_override(monkeypatch):
+    """``passes=`` replaces the two passes on any device (here the pallas
+    engine's plain versions, as ``pallas=True`` runs them on the CPU), and
+    the roll passes then run not at all."""
+    ts, tp, px, py, vx, vy, cells = _sorted_columns("base")
+    frame = torch.tensor(FRAME)
+    cols = (px, py, vx, vy, cells, ts, tp, ts.kernel_norms(), frame)
+    want = tdense.dense_forces_cols(*cols, pallas=True)
+    calls = []
+    _counted(monkeypatch, tdense, ("density_pass", "force_pass"), calls)
+    _counted(monkeypatch, tsph, ("density_plain", "forces_plain"), calls)
+    got = tdense.dense_forces_cols(
+        *cols, passes=(tsph.density_plain, tsph.forces_plain))
+    assert calls == ["density_plain", "forces_plain"]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert tdense.LAUNCHES == {"dense_density": 0, "dense_forces": 0}
+
+
+def test_dense_wrappers_refuse_other_devices():
+    """``dense.density`` and ``dense.forces`` run on the CPU or the card,
+    and raise for any other device."""
+    meta = torch.empty((4, 8, 128), device="meta")
+    g = tdense.DenseGrid(flat=meta, px=meta, py=meta, vx=meta, vy=meta,
+                         valid=meta.bool(), n_dropped=meta)
+    m = torch.empty((), device="meta")
+    params = type("P", (), {"mass": m})()
+    with pytest.raises(NotImplementedError):
+        tdense.density(g, m, H)
+    with pytest.raises(NotImplementedError):
+        tdense.forces(g, meta, params, H, H * H, 1.0, 1.0, m)
 
 
 # ------------------------------------------- plain versions vs Pallas

@@ -56,6 +56,9 @@ _SIGNATURES = {
     + [_P],
     "tf_sph_forces_tile": [_I],
     "tf_sph_forces_max_k": [],
+    "tf_dense_density": [_P] * 5 + [_I] * 3 + [_F] * 2 + [_P],
+    "tf_dense_forces": [_P] * 8 + [_P] * 4 + [_I] * 3 + [_I] * 2 + [_F] * 9
+    + [_P],
     "tf_chamfer_push_field": [_P, _I, _I, _P],
     "tf_far_reinsert": [_P] * 7 + [_P] * 3 + [_P] * 4 + [_P] * 3 + [_I] * 6
     + [_F] * 3 + [_I] * 2 + [_P],

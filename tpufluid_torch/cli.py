@@ -48,10 +48,11 @@ def _add_common(p):
                    choices=("resident", "grid", "dense", "pallas", "naive"),
                    default="dense",
                    help="engine: resident keeps the slot grid between "
-                        "steps; grid/naive/dense rebuild their neighbours "
-                        "every step in plain PyTorch; pallas runs dense's "
-                        "two passes as the CUDA kernels (their plain "
-                        "versions on the CPU). Default dense")
+                        "steps; grid/naive/dense/pallas rebuild their "
+                        "neighbours every step (grid/naive in plain "
+                        "PyTorch); dense runs its two roll passes as CUDA "
+                        "kernels, pallas the TPU kernels' passes (their "
+                        "plain versions on the CPU). Default dense")
     p.add_argument("--x-boundary", choices=("bounce", "wrap"),
                    default="bounce")
     p.add_argument("--adaptive-subsampling", action="store_true")

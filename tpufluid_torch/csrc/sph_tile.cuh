@@ -1,18 +1,20 @@
-// The dense engine's tile helpers, shared by sph_density.cu and
+// The slot grid's tile helpers, shared by sph_density.cu and
 // sph_forces.cu: one block of TF_TILE_THREADS per tile of R x C cells of
 // the slot grid f32[Gy][K][Gxp] (R and C powers of two, C dividing the
 // grid width, picked from K by tf_pick_tile) with all K slots, and the
 // tile's +-1 halo of (R + 2) x (C + 2) cells staged in shared memory.
 //
-// The dense grid of ops.dense.build_grid_cols differs from the resident
+// The slot grid of ops.dense.build_grid_cols differs from the resident
 // one: a cell's particles fill a prefix of its K slots flagged by a bool
-// valid mask (empty slots hold zeros, not SENTINEL), there is no row
-// occupancy, and the stencil's rows are clamped to [0, Gy-1] (a target in
-// row 0 visits row 0 twice) while its columns wrap modulo Gxp, as the TPU
-// kernels' clamped block index maps and lane rolls do. So halo row lr is
-// grid row clamp(y0 + lr - 1) and halo column lc is grid column
-// (x0 + lc - 1) mod Gxp, and each halo cell's occupancy is the length of
-// its valid prefix, read from the mask.
+// valid mask (empty slots hold zeros, not SENTINEL), and there is no row
+// occupancy. Columns wrap modulo Gxp. Rows take one of two forms, the
+// template parameter WRAP_ROWS: the TPU kernels' (pallas engine) clamp
+// them to [0, Gy-1], as their clamped block index maps do (a target in
+// row 0 visits row 0 twice); the roll passes' (dense engine) wrap them
+// modulo Gy, as torch.roll does. So halo row lr is grid row
+// clamp(y0 + lr - 1) or (y0 + lr - 1) mod Gy, halo column lc is grid
+// column (x0 + lc - 1) mod Gxp, and each halo cell's occupancy is the
+// length of its valid prefix, read from the mask.
 //
 // Shared memory: slot_bytes per halo slot, [row][slot][column] with pitch
 // C + 2, then cell_bytes per centre cell (density: the first empty slot's
@@ -76,7 +78,12 @@ __device__ __forceinline__ TfSphSmem tf_sph_smem(void* fields_end, int K,
     return t;
 }
 
+template <bool WRAP_ROWS>
 __device__ __forceinline__ int tf_sph_row(int y, int gy) {
+    if (WRAP_ROWS) {
+        y %= gy;
+        return y < 0 ? y + gy : y;
+    }
     return min(max(y, 0), gy - 1);
 }
 
@@ -89,6 +96,7 @@ __device__ __forceinline__ int tf_sph_col(int x, int gx) {
 // build_grid_cols makes them), into socc; kmax[0] and kmax[1] get the
 // largest occupancy of the halo and of the centre cells inside the grid.
 // Ends with __syncthreads().
+template <bool WRAP_ROWS>
 __device__ __forceinline__ void tf_sph_occupancy(const TfSphSmem& t,
                                                  const uint8_t* valid, int R,
                                                  int C, int K, int y0,
@@ -100,9 +108,9 @@ __device__ __forceinline__ void tf_sph_occupancy(const TfSphSmem& t,
     for (int i = threadIdx.x; i < HR * HC; i += TF_TILE_THREADS) {
         const int lr = i / HC;
         const int lc = i - lr * HC;
-        const uint8_t* v = valid + tf_index(tf_sph_row(y0 + lr - 1, gy), 0,
-                                            tf_sph_col(x0 + lc - 1, gx), K,
-                                            gx);
+        const uint8_t* v =
+            valid + tf_index(tf_sph_row<WRAP_ROWS>(y0 + lr - 1, gy), 0,
+                             tf_sph_col(x0 + lc - 1, gx), K, gx);
         int o = 0;
         while (o < K) {
             unsigned m = 0;
@@ -132,7 +140,7 @@ __device__ __forceinline__ void tf_sph_occupancy(const TfSphSmem& t,
 // loads in flight per thread. load(u, gi) reads grid slot gi into batch
 // entry u; store(u, lr, kk, lc) stages entry u at halo row lr, slot kk,
 // column lc. Ends with __syncthreads().
-template <class Load, class Store>
+template <bool WRAP_ROWS, class Load, class Store>
 __device__ __forceinline__ void tf_sph_stage(const TfSphSmem& t, int R,
                                              int C, int K, int y0, int x0,
                                              int gy, int gx, Load load,
@@ -156,8 +164,9 @@ __device__ __forceinline__ void tf_sph_stage(const TfSphSmem& t, int R,
                 ok[u] = kk[u] < t.socc[lr[u] * HC + lc[u]];
             }
             if (ok[u])
-                load(u, tf_index(tf_sph_row(y0 + lr[u] - 1, gy), kk[u],
-                                 tf_sph_col(x0 + lc[u] - 1, gx), K, gx));
+                load(u, tf_index(tf_sph_row<WRAP_ROWS>(y0 + lr[u] - 1, gy),
+                                 kk[u], tf_sph_col(x0 + lc[u] - 1, gx), K,
+                                 gx));
         }
 #pragma unroll
         for (int u = 0; u < TF_STAGE_BATCH; ++u)

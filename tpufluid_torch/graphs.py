@@ -35,10 +35,12 @@ from .utils.profiling import span
 
 def _counters():
     """Every kernel wrapper's launch-count dict."""
-    from .ops import far_sharded, fused, rebin, render_coarse, resident, sph
+    from .ops import (dense, far_sharded, fused, rebin, render_coarse,
+                      resident, sph)
 
     return (fused.LAUNCHES, rebin.LAUNCHES, render_coarse.LAUNCHES,
-            sph.LAUNCHES, resident.LAUNCHES, far_sharded.LAUNCHES)
+            sph.LAUNCHES, resident.LAUNCHES, far_sharded.LAUNCHES,
+            dense.LAUNCHES)
 
 
 def signature(obj) -> tuple:

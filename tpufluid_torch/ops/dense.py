@@ -11,11 +11,19 @@ The stencil passes (``density_pass``, ``force_pass``) are the XLA roll
 formulation of the JAX package: each of the nine (dy, dx) neighbour blocks
 is the whole grid rolled, and each candidate slot kp is a [Gy, 1, Gxp]
 slice broadcast against the [Gy, K, Gxp] targets. Rolls wrap through the
-empty sentinel ring and pad columns. In plain PyTorch this is some
-thousands of small launches per step; ``dense_forces_cols(pallas=True)``
-runs the two passes as the hand-written kernels of ``ops.sph`` instead.
-Particles beyond capacity keep their state but leave the neighbour sums for
-the step, and read back the density floor and zero force.
+empty sentinel ring and pad columns. They are the CPU path and the
+reference. ``density`` and ``forces`` dispatch on where the grid lies: on
+the CPU they run the passes; on a CUDA device they launch the hand-written
+kernels ``dense_density`` (``csrc/sph_density.cu``) and ``dense_forces``
+(``csrc/sph_forces.cu``), bitwise the passes over the whole grid, counted
+in ``LAUNCHES``, or raise; they never fall back. Those are the pallas
+engine's tile kernels with the roll's semantics: rows wrap, and each pair
+term rounds as the passes round it. Each stages a tile of cells with all K
+slots in shared memory, so takes K up to ``ops.sph.max_capacity``.
+``dense_forces_cols(pallas=True)`` runs the two passes as the kernels of
+``ops.sph`` instead (the TPU kernels' rounding). Particles beyond capacity
+keep their state but leave the neighbour sums for the step, and read back
+the density floor and zero force.
 """
 
 from __future__ import annotations
@@ -24,10 +32,15 @@ from typing import NamedTuple
 
 import torch
 
+from .. import _build
 from ..params import EPSILON, SimSettings
-from . import kernels
+from . import kernels, sph
+from .fused import _check_grids, _on_cuda, _ptr, _stream
 from .prng import U32, position_seed, rand_unit_vector
 from .pairs import ORDINAL_SALT, PAIR_ORDER_SALT
+
+# kernel launches per wrapper (CUDA tensors only)
+LAUNCHES = {"dense_density": 0, "dense_forces": 0}
 
 
 class DenseGrid(NamedTuple):
@@ -229,6 +242,63 @@ def force_pass(grid: DenseGrid, dens_g, params, h: float, sqr_radius: float,
     return fx, fy, gx_ * mu, gy_ * mu
 
 
+def density(grid: DenseGrid, mass, h: float) -> torch.Tensor:
+    """``density_pass``: on a CUDA device the kernel ``dense_density``,
+    bitwise the pass over the whole grid. ``mass``: a 0-d tensor on the
+    grid's device (read there, no host sync)."""
+    if not isinstance(mass, torch.Tensor):
+        mass = torch.as_tensor(mass, dtype=torch.float32,
+                               device=grid.px.device)
+    if not _on_cuda(grid.px, grid.py, grid.valid, mass):
+        return density_pass(grid, mass, h)
+    gy, k, gx = grid.px.shape
+    _check_grids((gy, k, gx), grid.px, grid.py)
+    sph._check_valid(grid.valid, grid.px.shape)
+    out = torch.empty((gy, k, gx), dtype=torch.float32, device=grid.px.device)
+    hf = kernels._f32(float(h))
+    norm = kernels._f32(4.0 / (kernels.PI * hf**8))  # as kernels.poly6
+    err = _build.load().tf_dense_density(
+        _ptr(grid.px), _ptr(grid.py), _ptr(grid.valid),
+        _ptr(mass.to(torch.float32).reshape(1)), _ptr(out), gy, k, gx,
+        kernels._h2(hf), norm, _stream(grid.px.device))
+    sph._launched_at("dense_density", err, k, LAUNCHES)
+    return out
+
+
+def forces(grid: DenseGrid, dens_g, params, h: float, sqr_radius: float,
+           spiky_norm: float, visc_norm: float, frame,
+           surface_tension: bool = False,
+           adaptive_subsampling: bool = False):
+    """``force_pass``: on a CUDA device the kernel ``dense_forces``,
+    bitwise the pass over the whole grid."""
+    if not _on_cuda(grid.px, grid.py, grid.vx, grid.vy, grid.valid, dens_g,
+                    params.mass):
+        return force_pass(grid, dens_g, params, h, sqr_radius, spiky_norm,
+                          visc_norm, frame, surface_tension,
+                          adaptive_subsampling)
+    gy, k, gx = grid.px.shape
+    _check_grids((gy, k, gx), grid.px, grid.py, grid.vx, grid.vy, dens_g)
+    sph._check_valid(grid.valid, grid.px.shape)
+    dev = grid.px.device
+    fr = torch.as_tensor(frame, device=dev).to(torch.int64).reshape(1)
+    outs = [torch.empty((gy, k, gx), dtype=torch.float32, device=dev)
+            for _ in range(4)]
+    # each constant rounded to f32 once, as ops.kernels rounds it
+    f32 = kernels._f32
+    hf, h2 = f32(float(h)), kernels._h2(float(h))
+    pi_h8 = kernels.PI * hf**8
+    err = _build.load().tf_dense_forces(
+        _ptr(grid.px), _ptr(grid.py), _ptr(grid.vx), _ptr(grid.vy),
+        _ptr(grid.valid), _ptr(dens_g), _ptr(sph._scalars(params)), _ptr(fr),
+        *(_ptr(o) for o in outs), gy, k, gx,
+        int(surface_tension), int(adaptive_subsampling),
+        hf, h2, f32(sqr_radius), f32(spiky_norm), f32(visc_norm),
+        f32(2.0 * hf**3), f32(-24.0 / pi_h8), f32(8.0 / pi_h8),
+        f32(3.0 * h2), _stream(dev))
+    sph._launched_at("dense_forces", err, k, LAUNCHES)
+    return tuple(outs)
+
+
 def dense_neighbor_forces(pred_s, vel_s, sorted_cells, settings: SimSettings,
                           params, norms, frame, pallas: bool = False,
                           dims=None, **variant_kw):
@@ -248,16 +318,14 @@ def dense_forces_cols(pxs, pys, vxs, vys, sorted_cells,
                       adaptive_subsampling: bool = False, passes=None):
     """The dense pipeline on sorted columns: build the slot grid, density
     (floored at EPSILON and 0.1), forces, and read each particle's values
-    back from its slot. ``pallas=True`` runs the two passes through
-    ``ops.sph`` (the CUDA kernels on a CUDA device); ``passes``, a
-    (density, forces) pair of the same signatures, replaces them. Returns
-    (density, f_pressure_x, f_pressure_y, f_visc_x, f_visc_y, n_dropped),
-    each [N]."""
-    from . import sph
-
+    back from its slot. The two passes are ``density`` and ``forces``
+    (the CUDA kernels on a CUDA device); ``pallas=True`` runs them through
+    ``ops.sph`` instead; ``passes``, a (density, forces) pair of the same
+    signatures, replaces them. Returns (density, f_pressure_x,
+    f_pressure_y, f_visc_x, f_visc_y, n_dropped), each [N]."""
     if passes is None:
         passes = ((sph.density, sph.forces) if pallas
-                  else (density_pass, force_pass))
+                  else (density, forces))
     density_fn, forces_fn = passes
     h = float(settings.smoothing_radius)
     grid = build_grid_cols(pxs, pys, vxs, vys, sorted_cells, settings,

@@ -62,10 +62,13 @@ def _check_valid(valid: torch.Tensor, shape):
 
 
 def max_capacity(name: str) -> int:
-    """The largest cell capacity K the kernel ``name`` ("sph_density" or
-    "sph_forces") takes: the largest whose 1 x 1 tile fits a block's
-    shared memory (builds the kernels if needed)."""
-    return getattr(_build.load(), f"tf_{name}_max_k")()
+    """The largest cell capacity K the kernel ``name`` ("sph_density",
+    "sph_forces", or ``ops.dense``'s "dense_density", "dense_forces")
+    takes: the largest whose 1 x 1 tile fits a block's shared memory
+    (builds the kernels if needed). The dense pair shares its sph twin's
+    tile, so its limit."""
+    return getattr(_build.load(),
+                   f"tf_sph_{name.split('_', 1)[1]}_max_k")()
 
 
 def _above_limit(name: str, k: int) -> ValueError:
@@ -82,13 +85,13 @@ def _tile(name: str, k: int):
     return packed >> 8, packed & 255
 
 
-def _launched_at(name: str, err: int, k: int) -> None:
-    """Count a launch of ``name`` at capacity ``k``, or raise: naming the
-    largest K the kernel takes where ``k`` is above it (the launcher finds
-    no tile then), else with the CUDA error."""
+def _launched_at(name: str, err: int, k: int, launches=LAUNCHES) -> None:
+    """Count a launch of ``name`` at capacity ``k`` in ``launches``, or
+    raise: naming the largest K the kernel takes where ``k`` is above it
+    (the launcher finds no tile then), else with the CUDA error."""
     if err != 0 and k > max_capacity(name):
         raise _above_limit(name, k)
-    _launched(name, err, LAUNCHES)
+    _launched(name, err, launches)
 
 
 def density_tile(k: int):

@@ -764,9 +764,10 @@ def make_sharded_step(spec: ShardSpec, mesh: Optional[Mesh] = None,
     also the sorted combined set's ``dbg_pred``, ``dbg_dens``,
     ``dbg_local``, ``dbg_cells``, ``dbg_fp``, ``dbg_fv``, [D, T, ...]).
     ``neighbor_mode``: "grid" (windowed pair math), "dense" (the
-    slab-local slot grid in plain PyTorch) or "pallas" (the same grid
-    through ``ops.sph``: the CUDA kernels on a CUDA device, their plain
-    versions on the CPU). On a mesh of one CUDA device each call replays
+    slab-local slot grid through ``ops.dense``' roll passes: their CUDA
+    kernels on a CUDA device) or "pallas" (the same grid through
+    ``ops.sph``: the CUDA kernels on a CUDA device, their plain versions
+    on the CPU). On a mesh of one CUDA device each call replays
     one CUDA graph of the step, bitwise the eager step of
     ``make_eager_sharded_step``; any other mesh runs eagerly.
     ``step.mesh`` is the mesh, ``step.graphed`` whether calls replay a

@@ -10,7 +10,9 @@ in cell-sorted order. Four neighbour modes share the integration:
   oracle;
 * ``"naive"``: all-pairs candidates, the O(N^2) oracle for tests;
 * ``"dense"``: the slot grid ``[Gy, K, Gxp]`` rebuilt every step and the
-  roll formulation of ``ops.dense`` in plain PyTorch;
+  roll formulation of ``ops.dense``, whose density and forces are the
+  hand-written CUDA kernels ``dense_density`` and ``dense_forces`` on a
+  CUDA device (bitwise the roll passes, which run on the CPU);
 * ``"pallas"``: the same slot grid through ``ops.sph``, whose density and
   forces are the hand-written CUDA kernels ``csrc/sph_density.cu`` and
   ``csrc/sph_forces.cu`` on a CUDA device (the name is the JAX package's,
