@@ -12,7 +12,11 @@
   own step (its captured graph, replayed once a call) runs ``check_steps``
   more times; each step is held to one reference step (``sph.step``, float64)
   from the program's state before it (``compare.state_gaps``), the widest
-  gap over the steps counted.
+  gap over the steps counted. The reference step takes the state's tick,
+  and for a resident grid the engine's visit order of coincident predicted
+  particles from their slots (``sph.resident_visit``). Beside them, not
+  held by a limit: ``pred_tie_max``, the most particles that share one
+  predicted point in any of those steps (1: none share).
 * ``frame_gap``: each sampled frame of the window against the reference's
   frame of the state it was rendered from (``render.frame``).
 
@@ -36,17 +40,30 @@ def window_invariants(pos, vel, lost: int, n: int, ph: dict) -> dict:
                 nonfinite=int((~ok).sum()), outside=int(outside.sum()))
 
 
+def reference_step(state, ph: dict, dtype=torch.float64):
+    """One reference step from a check state (pos, vel, tick, slots)."""
+    pos, vel, tick, slots = state
+    visit = (None if slots is None else
+             sph.resident_visit(slots, sph.predict(pos, vel, ph), ph))
+    return sph.step(pos, vel, ph, dtype, tick, visit)
+
+
 def step_gaps(states, ph: dict, dtype=torch.float64) -> dict:
     """The widest gaps of the program's steps ``states[i] -> states[i+1]``
-    against one reference step each (computed in ``dtype``)."""
+    (each (pos, vel, tick, slots)) against one reference step each
+    (computed in ``dtype``), and ``pred_tie_max``."""
     pos_gap = vel_gap = 0.0
-    for (p0, v0), (p1, v1) in zip(states, states[1:]):
-        rp, rv = sph.step(p0, v0, ph, dtype)
+    ties = 1
+    for s0, (p1, v1, _, _) in zip(states, states[1:]):
+        rp, rv = reference_step(s0, ph, dtype)
         g = compare.state_gaps(p1, v1, rp.double(), rv.double(), ph["h"],
                                ph["size"])
         pos_gap = max(pos_gap, g["pos_gap"])
         vel_gap = max(vel_gap, g["vel_gap"])
-    return dict(pos_gap=pos_gap, vel_gap=vel_gap)
+        _, count = torch.unique(sph.predict(s0[0], s0[1], ph), dim=0,
+                                return_counts=True)
+        ties = max(ties, int(count.max()))
+    return dict(pos_gap=pos_gap, vel_gap=vel_gap, pred_tie_max=ties)
 
 
 def frame_gaps(kept, config: dict, mix: dict, dtype=torch.float64) -> dict:
@@ -70,9 +87,9 @@ def control_gaps(states, kept, config: dict, mix: dict,
     float64 reference by the same comparisons."""
     ph = sph.physics(config)
     pos_gap = vel_gap = 0.0
-    for p0, v0 in states[:-1]:
-        cp, cv = sph.step(p0, v0, ph, dtype)
-        rp, rv = sph.step(p0, v0, ph, torch.float64)
+    for s0 in states[:-1]:
+        cp, cv = reference_step(s0, ph, dtype)
+        rp, rv = reference_step(s0, ph, torch.float64)
         g = compare.state_gaps(cp.double(), cv.double(), rp, rv, ph["h"],
                                ph["size"])
         pos_gap = max(pos_gap, g["pos_gap"])

@@ -166,6 +166,16 @@ def particles(state):
             int(state.tick), 0)
 
 
+def check_state(state):
+    """(pos, vel, tick, slots) of a held state as the check reads it: its
+    particles and tick, and for a resident grid the (row, slot, column) of
+    each particle's slot, i64[N, 3] (None for the per-step engines)."""
+    pos, vel, tick, _ = particles(state)
+    slots = ((state.pos_x < 5.0e8).nonzero() if hasattr(state, "pos_x")
+             else None)
+    return pos, vel, tick, slots
+
+
 def hand_state(app, pos, vel):
     """Give the app the inputs through its ``state`` setter; returns how
     far the state it holds then is from them (0: the same values)."""
@@ -343,10 +353,10 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool) -> dict:
 
     # the window's outputs: its last state, then the check's steps from it
     pos_w, vel_w, tick_w, lost_w = particles(held_state(app))
-    states = [(pos_w, vel_w)]
+    states = [check_state(held_state(app))]
     for _ in range(int(mix["check_steps"])):
         app.run(1)
-        states.append(particles(held_state(app))[:2])
+        states.append(check_state(held_state(app)))
     readings = dict(start_gap=start_gap,
                     tick_gap=abs(tick_w - tick0 - steps),
                     **check.window_invariants(pos_w, vel_w, lost_w, cell.n,

@@ -196,7 +196,7 @@ def test_the_ports_step_under_gravity_reads_within_the_limits():
     (the port's own first 180 steps take minutes on the CPU at K = 32),
     stepped until its own state holds particles at one point, then its
     next step held to the reference as a run's check holds it."""
-    from benchmark.run import hand_state, held_state, particles
+    from benchmark.run import check_state, hand_state, held_state, particles
     from tpufluid_torch.app import FluidApp
     from tpufluid_torch.models.scenes import dam_break_4k
 
@@ -207,18 +207,19 @@ def test_the_ports_step_under_gravity_reads_within_the_limits():
     assert particles(held_state(app))[0].shape == (4096, 2)
     for _ in range(4):
         app.run(1)
-        pos, vel = particles(held_state(app))[:2]
+        before = check_state(held_state(app))
+        pos, vel = before[:2]
         if torch.unique(pos, dim=0).shape[0] < pos.shape[0]:
             break
     else:
         pytest.fail("no particles met at one point")
     app.run(1)
-    states = [(pos, vel), particles(held_state(app))[:2]]
+    states = [before, check_state(held_state(app))]
     ph = _physics()
     gaps = check.step_gaps(states, ph)
     assert gaps["pos_gap"] <= LIMITS["pos_gap"], gaps
     assert gaps["vel_gap"] <= LIMITS["vel_gap"], gaps
     # the nearest-partner pairing read 0.389 on this step
-    ref = sph.step(pos, vel, ph)
-    old = _old_state_gaps(*states[1], *ref, ph["h"], ph["size"])
+    ref = check.reference_step(states[0], ph)
+    old = _old_state_gaps(*states[1][:2], *ref, ph["h"], ph["size"])
     assert old["vel_gap"] > LIMITS["vel_gap"], old

@@ -46,12 +46,12 @@ def _app(cfg, engine, seed=3):
 
 
 def _states(app, n_steps):
-    from benchmark.run import held_state, particles
+    from benchmark.run import check_state, held_state
 
-    out = [particles(held_state(app))[:2]]
+    out = [check_state(held_state(app))]
     for _ in range(n_steps):
         app.run(1)
-        out.append(particles(held_state(app))[:2])
+        out.append(check_state(held_state(app)))
     return out
 
 
@@ -98,8 +98,8 @@ def test_bfloat16_state_fails_the_comparison():
     app = _app(cfg, "resident")
     app.run(40)
     states = _states(app, 1)
-    rounded = [(p.to(torch.bfloat16).float(), v.to(torch.bfloat16).float())
-               for p, v in states]
+    rounded = [(p.to(torch.bfloat16).float(), v.to(torch.bfloat16).float(),
+                t, sl) for p, v, t, sl in states]
     ph = sph.physics(cfg)
     gaps = check.step_gaps([states[0], rounded[1]], ph)
     # one number over its limit fails the run
