@@ -41,11 +41,14 @@ Builds the CUDA kernels from ``tpufluid_torch/csrc`` and runs, in order:
     10 steps, the resident engine's mass and nearest-neighbour distance,
     the 200-step invariants of dense and resident), and the CLI's default
     ``run`` (the dense engine) on the reference's default scene for 64
-    steps, counters reset just before it (one launch of dense_density and
-    of dense_forces a step, no other kernel); then both kernels against
-    the roll passes, bitwise over the whole grid, on its last slot grid
-    ([267, 16, 384]) with the base flags, surface tension and adaptive
-    subsampling, timed against the passes;
+    steps, counters reset just before it (one launch of dense_build,
+    dense_density, dense_forces and dense_readback a step, no other
+    kernel); then both pass kernels against the roll passes, bitwise over
+    the whole grid, on its last slot grid ([267, 16, 384]) with the base
+    flags, surface tension and adaptive subsampling, timed against the
+    passes, and the build and read-back kernels against their plain
+    versions (``build_grid_cols``, ``readback_cols``) on the same state,
+    bitwise, timed against them;
 13. forces_integrate's variants against their plain versions, bitwise:
     x wrap at scene_1m with movers across the x walls, surface tension at
     scene_1m (and at h = 1.5, where it acts), adaptive subsampling on the
@@ -262,6 +265,12 @@ KERNELS = {
                       "tpufluid/ops/dense.py:122"),
     "dense_forces": ("tpufluid_torch/csrc/sph_forces.cu",
                      "tpufluid/ops/dense.py:146"),
+    # the counterparts of XLA's slot-grid scatter and read-back gather
+    # around the roll passes, no Pallas kernel
+    "dense_build": ("tpufluid_torch/csrc/dense_glue.cu",
+                    "tpufluid/ops/dense.py:76"),
+    "dense_readback": ("tpufluid_torch/csrc/dense_glue.cu",
+                       "tpufluid/ops/dense.py:353"),
     # the counterpart of XLA code (do_far under lax.cond), no Pallas kernel
     "far_reinsert": ("tpufluid_torch/csrc/far_reinsert.cu",
                      "tpufluid/ops/resident.py:396"),
@@ -921,7 +930,8 @@ def compare_dense(g, settings, params, label, flags=None):
     bitwise(got, want, f"{label} dense_forces {flags}")
     torch.cuda.synchronize()
     launched = {k: dense.LAUNCHES[k] - before[k] for k in before}
-    if launched != {"dense_density": 1, "dense_forces": 1}:
+    if launched != {"dense_density": 1, "dense_forces": 1, "dense_build": 0,
+                    "dense_readback": 0}:
         raise AssertionError(f"{label} dense launches {launched}")
     changed = 0
     if flags:
@@ -946,6 +956,61 @@ def compare_dense(g, settings, params, label, flags=None):
                           lambda: dense.density_pass(g, params.mass, h)),
         "dense_forces": (lambda: dense.forces(*fargs, **flags),
                          lambda: dense.force_pass(*fargs, **flags)),
+    }
+    return out, calls
+
+
+def compare_glue(state, settings, params, label):
+    """dense_build and dense_readback against ``build_grid_cols`` and
+    ``readback_cols``, bitwise, on the slot grid of ``state``'s next step
+    (its columns as the step passes them: stride-6 views of one [N, 6]
+    gather) and the density and forces the kernels give there, one launch
+    of each counted. Returns per-kernel dicts (max_abs_err, bound, grid)
+    and the calls for ``time_kernels``; the bounds count the build's
+    whole zeroed buffer (17 B a slot), its flat slots (8 B), keys (4 B)
+    and four columns (16 B) a particle, and the read-back's slot (8 B),
+    five values read and five written a particle."""
+    from tpufluid_torch import step as tstep
+    from tpufluid_torch.ops import dense, grid
+
+    pred = tstep.predict_positions(state.position, state.velocity,
+                                   params.delta, settings)
+    b = grid.bin_particles(grid.cell_id(pred, settings), settings)
+    g6 = torch.cat([pred, state.velocity, state.position], dim=1)[b.perm]
+    cols = tuple(g6[:, j] for j in range(4))
+    cells = b.sorted_cells
+    before = dict(dense.LAUNCHES)
+    got = dense.build(*cols, cells, settings)
+    want = dense.build_grid_cols(*cols, cells, settings)
+    bitwise(tuple(got), tuple(want), f"{label} dense_build")
+    h, n = settings.smoothing_radius, settings.kernel_norms()
+    d = torch.clamp(dense.density(want, params.mass, h), min=0.1)
+    fields = (d, *dense.forces(want, d, params, h, settings.sqr_radius,
+                               n.spiky_derivative, n.viscosity,
+                               torch.tensor(9, device=d.device)))
+    back = dense.readback(want.flat, fields)
+    bitwise(back, dense.readback_cols(want.flat, fields),
+            f"{label} dense_readback")
+    torch.cuda.synchronize()
+    launched = {k: dense.LAUNCHES[k] - before[k] for k in before}
+    if launched != dict.fromkeys(dense.LAUNCHES, 1):
+        raise AssertionError(f"{label} glue launches {launched}")
+    n_p, size = cells.shape[0], want.px.numel()
+    out = {}
+    for name, n_bytes in (("dense_build", 17 * size + 4 + 28 * n_p),
+                          ("dense_readback", 48 * n_p)):
+        b_ms, b_by = bound(n_bytes, 0)
+        out[name] = dict(max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
+                         grid=list(want.px.shape))
+    log(f"{label} {tuple(want.px.shape)}: {n_p} particles (dropped "
+        f"{int(want.n_dropped)}); dense_build bitwise equal to "
+        f"build_grid_cols, dense_readback to readback_cols")
+    calls = {
+        "dense_build": (lambda: dense.build(*cols, cells, settings),
+                        lambda: dense.build_grid_cols(*cols, cells,
+                                                      settings)),
+        "dense_readback": (lambda: dense.readback(want.flat, fields),
+                           lambda: dense.readback_cols(want.flat, fields)),
     }
     return out, calls
 
@@ -1139,7 +1204,8 @@ def cli_pallas_run(card):
     if not (m["tick"] == 300 and m["nan_positions"] == 0):
         raise AssertionError(f"CLI pallas run: {m}")
     if counts != {**dict.fromkeys(counts, 0), "sph_density": 200,
-                  "sph_forces": 200}:
+                  "sph_forces": 200, "dense_build": 200,
+                  "dense_readback": 200}:
         raise AssertionError(f"CLI pallas run launches: {counts}")
     return res
 
@@ -1147,13 +1213,15 @@ def cli_pallas_run(card):
 def cli_default_run(card):
     """The CLI's ``run`` with no --neighbor-mode (the dense engine) on the
     reference's default scene, 64 steps with the counters reset just
-    before them: one launch of dense_density and of dense_forces a step
-    and no other kernel. Then 120 more steps timed (CUDA events) and a
-    torch.profiler reading of 8; then both kernels against the roll
-    passes, bitwise over the whole grid, on the slot grid of its last
-    state, with the base flags (timed against the passes), surface
-    tension and adaptive subsampling. Returns the run's
-    results and the per-kernel dicts."""
+    before them: one launch of dense_build, dense_density, dense_forces
+    and dense_readback a step and no other kernel. Then 120 more steps
+    timed (CUDA events) and a torch.profiler reading of 8; then both pass
+    kernels against the roll passes, bitwise over the whole grid, on the
+    slot grid of its last state, with the base flags (timed against the
+    passes), surface tension and adaptive subsampling, and the build and
+    read-back kernels against their plain versions on the same state
+    (``compare_glue``, timed). Returns the run's results and the
+    per-kernel dicts."""
     from tpufluid_torch import cli
 
     args = cli.parser().parse_args(["run", "--device", "cuda", "--steps",
@@ -1176,7 +1244,8 @@ def cli_default_run(card):
             and not m["capacity_exceeded"]):
         raise AssertionError(f"CLI default run: {m}")
     if counts != {**dict.fromkeys(counts, 0), "dense_density": 64,
-                  "dense_forces": 64}:
+                  "dense_forces": 64, "dense_build": 64,
+                  "dense_readback": 64}:
         raise AssertionError(f"CLI default run launches: {counts}")
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1200,6 +1269,9 @@ def cli_default_run(card):
                        ("adaptive", dict(adaptive_subsampling=True))):
         fres, _ = compare_dense(g, s, prm, f"CLI default grid {key}", flags)
         kern["dense_forces"][key] = fres["dense_forces"]
+    glue, glue_calls = compare_glue(app.state, s, prm, "CLI default grid")
+    kern.update(glue)
+    calls.update(glue_calls)
     torch.use_deterministic_algorithms(False)
     time_kernels(calls, kern, f"CLI default grid {tuple(g.px.shape)}")
     return res, kern
@@ -2711,6 +2783,7 @@ def slab_runs(s8, dev, card):
                        n_valid=tstats["n_valid"].tolist())
             want = {f"{'sph' if mode == 'pallas' else 'dense'}_{k}": 16 * d
                     for k in ("density", "forces")}
+            want.update(dense_build=16 * d, dense_readback=16 * d)
             log(f"slab scene_1m D={d} {mode}: sorted position drift "
                 f"{drift:.3g} from the single-device step after 2 steps "
                 f"(bound 1e-6), drops {drops}; {res['ms_per_step']:.4f} "
@@ -3494,7 +3567,8 @@ def main() -> int:
             and not m["capacity_exceeded"]):
         raise AssertionError(f"scene_1m pallas run failed: {m}")
     if p_launches != {**dict.fromkeys(p_launches, 0), "sph_density": 200,
-                      "sph_forces": 200}:
+                      "sph_forces": 200, "dense_build": 200,
+                      "dense_readback": 200}:
         raise AssertionError(f"pallas run launches: {p_launches}")
     pallas_prof = profile_steps(papp, 16, "scene_1m pallas")
     del papp

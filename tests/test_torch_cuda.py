@@ -19,7 +19,11 @@ the largest K they stage. The dense engine's roll passes run as the
 kernels dense_density and dense_forces on the card: bitwise the plain
 passes on the same gates (rows wrapped), at the largest K they stage
 (raising one above it), and the dense step bitwise the step on the plain
-passes. The resident engine's variants, its batched
+passes; its slot-grid build and read-back (dense_build, dense_readback)
+bitwise build_grid_cols and readback_cols (over-full cells at K=8, 32 and
+the largest K, the step's strided columns, a slab's grid with ids past its
+last row), and the pallas-mode step, which runs them too, bitwise its
+plain twin. The resident engine's variants, its batched
 stacks and the physics pass are held bitwise: to their plain versions, the
 physics kernel to the split kernel pair, a batched step to the
 single-world steps. The tile kernels of
@@ -785,7 +789,8 @@ def test_dense_kernels_match_roll_passes(cuda, case, flag):
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert {k: dense.LAUNCHES[k] - before[k] for k in before} == {
-        "dense_density": 1, "dense_forces": 1}
+        "dense_density": 1, "dense_forces": 1, "dense_build": 0,
+        "dense_readback": 0}
     if flags and case in ("k8", "k32"):  # the flag changes the forces
         base = dense.force_pass(*args)
         assert not torch.equal(want[0][g.valid], base[0][g.valid])
@@ -830,24 +835,33 @@ def test_dense_kernels_refuse_k_above_limit(cuda):
         dense.forces(*args(grid_at(k_f + 1)))
 
 
-@pytest.mark.parametrize("flags", ["base", "variants"])
+@pytest.mark.parametrize("flags", ["base", "variants", "pallas"])
 def test_dense_step_runs_the_kernels(cuda, flags, monkeypatch):
     """``make_step(neighbor_mode="dense")`` on the card against the same
     step on the plain roll passes, bitwise every field over 5 steps; each
-    step launches dense_density and dense_forces once and calls neither
-    plain pass; a replay of a graphed burst of 4 counts 4 of each."""
+    step launches dense_build, dense_density, dense_forces and
+    dense_readback once and calls neither plain pass, and the plain twin
+    launches none of them; a replay of a graphed burst of 4 counts 4 of
+    each. ``pallas``: the pallas-mode step (sph_density and sph_forces
+    between the same build and read-back) against ``make_plain_step``."""
     from tpufluid_torch import step as steps
 
-    kw = {} if flags == "base" else dict(
-        surface_tension=True, adaptive_subsampling=True, x_boundary="wrap")
+    kw = dict(surface_tension=True, adaptive_subsampling=True,
+              x_boundary="wrap") if flags == "variants" else {}
+    mode = "pallas" if flags == "pallas" else "dense"
     s = tt.SimSettings(particle_count=3000, size=(9.0, 8.0),
                        cell_capacity=16)
     p = tt.TickParams.default(cuda, gravity=(0.0, -9.8), **ST_PARAMS_CUDA)
-    plain = steps._make_step(
-        s, "dense", kw.get("surface_tension", False), False,
-        kw.get("x_boundary", "bounce"),
-        kw.get("adaptive_subsampling", False),
-        passes=(dense.density_pass, dense.force_pass))
+    if mode == "pallas":
+        plain = steps.make_plain_step(s)
+        passes = {"sph_density": 1, "sph_forces": 1}
+    else:
+        plain = steps._make_step(
+            s, "dense", kw.get("surface_tension", False), False,
+            kw.get("x_boundary", "bounce"),
+            kw.get("adaptive_subsampling", False),
+            passes=(dense.density_pass, dense.force_pass))
+        passes = {"dense_density": 1, "dense_forces": 1}
     calls = []
 
     def counted(name):
@@ -860,28 +874,158 @@ def test_dense_step_runs_the_kernels(cuda, flags, monkeypatch):
 
     for name in ("density_pass", "force_pass"):
         monkeypatch.setattr(dense, name, counted(name))
-    kernel = steps.make_step(s, neighbor_mode="dense", **kw)
+
+    def launched(fn, *args):
+        """fn(*args), and the launches it made by kernel (nonzero only)."""
+        before = {**dense.LAUNCHES, **sph.LAUNCHES}
+        out = fn(*args)
+        torch.cuda.synchronize()
+        after = {**dense.LAUNCHES, **sph.LAUNCHES}
+        return out, {k: n - before[k] for k, n in after.items()
+                     if n != before[k]}
+
+    kernel = steps.make_step(s, neighbor_mode=mode, **kw)
     a = b = tt.init_state(s, cuda)
     fields = ("position", "predicted", "velocity", "density", "cell", "tick")
+    per_step = {"dense_build": 1, "dense_readback": 1, **passes}
     for i in range(5):
-        before = dict(dense.LAUNCHES)
-        a, b = kernel(a, p), plain(b, p)
-        torch.cuda.synchronize()
-        assert {k: dense.LAUNCHES[k] - before[k] for k in before} == {
-            "dense_density": 1, "dense_forces": 1}
+        a, made = launched(kernel, a, p)
+        assert made == per_step
+        b, made = launched(plain, b, p)
+        assert made == {}
         for f in fields:
             assert torch.equal(getattr(a, f), getattr(b, f)), (i, f)
     assert calls == []
     assert float(a.density.max()) > 0.1
     # a graphed burst counts its kernels at every replay, not only at the
     # capture
-    burst = steps.make_multi_step(s, 4, neighbor_mode="dense", **kw)
+    burst = steps.make_multi_step(s, 4, neighbor_mode=mode, **kw)
     a = burst(a, p)  # captures
-    before = dict(dense.LAUNCHES)
-    burst(a, p)
-    assert {k: dense.LAUNCHES[k] - before[k] for k in before} == {
-        "dense_density": 4, "dense_forces": 4}
+    _, made = launched(burst, a, p)
+    assert made == {k: 4 * n for k, n in per_step.items()}
     assert calls == []
+
+
+def _glue_case(cuda, case):
+    """(settings, dims, f32 [N, 6] rows whose first four columns are the
+    build's, sorted cells) for the slot-grid build: random particles with
+    an over-full cell at K=8 and 32 ("k8", "k32") and at the largest K
+    the dense kernels stage ("kmax"); the step's stride-6 columns of one
+    [N, 6] gather ("strided"); and a slab's local grid with i64 ids, some
+    the id past its last row as the slab step gives an id outside its
+    slab, more than K of them ("slab")."""
+    rng = np.random.default_rng(22)
+    k = {"k32": 32, "kmax": sph.max_capacity("dense_density")}.get(case, 8)
+    n = k + 3000 if case == "kmax" else 3000
+    s = tt.SimSettings(particle_count=n, size=(9.0, 8.0), cell_capacity=k)
+    pos = rng.uniform(-4.5, 4.0, (n, 2)).astype(np.float32)
+    full = k + 5 if case == "kmax" else 40  # in one cell
+    pos[100:100 + full] = (1.12, 1.02) + rng.uniform(0, 0.06, (full, 2))
+    rows = np.concatenate([pos, rng.normal(size=(n, 4))], 1)
+    rows = torch.from_numpy(rows.astype(np.float32)).to(cuda)
+    dims = None
+    cells = grid.cell_id(rows[:, :2], s)
+    if case == "slab":
+        w_loc = 14
+        dims = (s.grid_h, w_loc)
+        cells = cells.to(torch.int64)
+        lcx = cells % s.grid_w - 5
+        ok = (lcx >= 0) & (lcx < w_loc)
+        ok[:40] = False
+        cells = torch.where(ok, cells // s.grid_w * w_loc + lcx,
+                            s.grid_h * w_loc)
+        sorted_cells, perm = torch.sort(cells, stable=True)
+    else:
+        b = grid.bin_particles(cells, s)
+        sorted_cells, perm = b.sorted_cells, b.perm
+    rows = rows[perm]
+    if case != "strided":
+        rows = rows.t().contiguous().t()  # columns of stride 1
+    return s, dims, rows, sorted_cells
+
+
+@pytest.mark.parametrize("case", ["k8", "k32", "kmax", "strided", "slab"])
+def test_dense_build_matches_build_grid_cols(cuda, case):
+    """``dense.build`` (the kernel dense_build) against
+    ``build_grid_cols``, bitwise: each slot, the four grids, the mask and
+    the drop count, with one launch; particles dropped past K in every
+    case, and slots outside the slab's grid in "slab"."""
+    s, dims, rows, cells = _glue_case(cuda, case)
+    cols = tuple(rows[:, j] for j in range(4))
+    assert all(c.stride(0) == (6 if case == "strided" else 1)
+               for c in cols)
+    before = dict(dense.LAUNCHES)
+    got = dense.build(*cols, cells, s, dims=dims)
+    torch.cuda.synchronize()
+    assert {k: dense.LAUNCHES[k] - before[k] for k in before} == {
+        "dense_density": 0, "dense_forces": 0, "dense_build": 1,
+        "dense_readback": 0}
+    want = dense.build_grid_cols(*cols, cells, s, dims=dims)
+    for f in dense.DenseGrid._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        assert torch.equal(a, b), f
+    assert int(want.n_dropped) > 0
+    if case == "slab":
+        spare = int((want.flat == want.px.numel()).sum())
+        assert spare > int(want.n_dropped)
+
+
+@pytest.mark.parametrize("case", ["k8", "slab"])
+def test_dense_readback_matches_readback_cols(cuda, case):
+    """``dense.readback`` (the kernel dense_readback) against
+    ``readback_cols``, bitwise, on five random fields of the case's grid,
+    with one launch; every particle at the spare slot (dropped, or
+    outside the slab) reads (0.1, 0, 0, 0, 0)."""
+    s, dims, rows, cells = _glue_case(cuda, case)
+    g = dense.build_grid_cols(*(rows[:, j] for j in range(4)), cells, s,
+                              dims=dims)
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    fields = tuple(torch.randn(g.px.shape, generator=gen).to(cuda)
+                   for _ in range(5))
+    before = dict(dense.LAUNCHES)
+    got = dense.readback(g.flat, fields)
+    torch.cuda.synchronize()
+    assert {k: dense.LAUNCHES[k] - before[k] for k in before} == {
+        "dense_density": 0, "dense_forces": 0, "dense_build": 0,
+        "dense_readback": 1}
+    want = dense.readback_cols(g.flat, fields)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    spare = g.flat == g.px.numel()
+    assert int(spare.sum()) > 0
+    assert bool((got[0][spare] == 0.1).all())
+    assert all(bool((a[spare] == 0.0).all()) for a in got[1:])
+
+
+def test_dense_glue_wrappers_check_their_inputs(cuda):
+    """``dense.build`` refuses columns that are not f32 [N] and keys that
+    are not contiguous i32 / i64 [N]; ``dense.readback`` refuses slots that
+    are not contiguous i64 [N] and fields that are not contiguous f32 slot
+    grids; neither launches then."""
+    s, dims, rows, cells = _glue_case(cuda, "k8")
+    cols = tuple(rows[:, j] for j in range(4))
+    g = dense.build_grid_cols(*cols, cells, s)
+    fields = (g.px, g.py, g.vx, g.vy, g.px)
+    before = dict(dense.LAUNCHES)
+    bad_builds = [
+        (cols[0].double(), *cols[1:], cells),
+        (*cols[:3], rows[:, 3:5], cells),
+        (*cols, cells.float()),
+        (*cols, cells[:, None]),
+        (*cols, torch.stack([cells, cells], 1)[:, 0]),
+    ]
+    for args in bad_builds:
+        with pytest.raises(ValueError):
+            dense.build(*args, s)
+    for flat, fs in ((g.flat.int(), fields), (g.flat[:, None], fields),
+                     (torch.stack([g.flat, g.flat], 1)[:, 0], fields),
+                     (g.flat, (g.px.double(), *fields[1:])),
+                     (g.flat, (g.px.transpose(0, 2).contiguous()
+                               .transpose(0, 2), *fields[1:]))):
+        with pytest.raises(ValueError):
+            dense.readback(flat, fs)
+    assert dense.LAUNCHES == before
 
 
 def _valid_edge_grid(device):
@@ -1201,11 +1345,13 @@ def test_slab_pallas_step_matches_plain_on_card(cuda):
     pstep = make_plain_sharded_step(spec, mesh, debug=True)
     moved = 0
     for i in range(4):
-        before = dict(sph.LAUNCHES)
+        before = {**sph.LAUNCHES, **dense.LAUNCHES}
         k, kst = kstep(st, params)
         torch.cuda.synchronize()
-        assert {n: sph.LAUNCHES[n] - before[n] for n in before} == {
-            "sph_density": 2, "sph_forces": 2}
+        assert {n: {**sph.LAUNCHES, **dense.LAUNCHES}[n] - before[n]
+                for n in before} == {
+            "sph_density": 2, "sph_forces": 2, "dense_density": 0,
+            "dense_forces": 0, "dense_build": 2, "dense_readback": 2}
         p, pst = pstep(st, params)
         for a, b in zip(k.slabs, p.slabs):
             for f in ("position", "velocity", "valid", "tick"):

@@ -408,7 +408,9 @@ def test_dense_forces_cols_runs_the_roll_passes_on_cpu(flag, monkeypatch):
                                    ts.kernel_norms(), frame, **flags)
     assert calls == ["density_pass", "force_pass"]
     assert tdense.LAUNCHES == before == {"dense_density": 0,
-                                         "dense_forces": 0}
+                                         "dense_forces": 0,
+                                         "dense_build": 0,
+                                         "dense_readback": 0}
     kept = g.flat < g.px.numel()
     for a, f in zip(got, fields):
         assert torch.equal(a[kept], f.reshape(-1)[g.flat[kept]])
@@ -433,7 +435,8 @@ def test_dense_forces_cols_passes_override(monkeypatch):
     assert calls == ["density_plain", "forces_plain"]
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    assert tdense.LAUNCHES == {"dense_density": 0, "dense_forces": 0}
+    assert tdense.LAUNCHES == {"dense_density": 0, "dense_forces": 0,
+                               "dense_build": 0, "dense_readback": 0}
 
 
 def test_dense_wrappers_refuse_other_devices():

@@ -31,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # argtypes of each C entry point (every pointer and the stream as c_void_p)
 _SIGNATURES = {
     "tf_rebin": [_P] * 7 + [_P] * 4 + [_P] * 3 + [_I] * 3 + [_F] * 3
@@ -59,6 +60,9 @@ _SIGNATURES = {
     "tf_dense_density": [_P] * 5 + [_I] * 3 + [_F] * 2 + [_P],
     "tf_dense_forces": [_P] * 8 + [_P] * 4 + [_I] * 3 + [_I] * 2 + [_F] * 9
     + [_P],
+    "tf_dense_build": [_P] * 4 + [_L] * 4 + [_P, _I] + [_I] * 5 + [_P] * 2
+    + [_P],
+    "tf_dense_readback": [_P, _I, _L] + [_P] * 5 + [_P] + [_P],
     "tf_chamfer_push_field": [_P, _I, _I, _P],
     "tf_far_reinsert": [_P] * 7 + [_P] * 3 + [_P] * 4 + [_P] * 3 + [_I] * 6
     + [_F] * 3 + [_I] * 2 + [_P],

@@ -24,6 +24,13 @@ slots in shared memory, so takes K up to ``ops.sph.max_capacity``.
 ``ops.sph`` instead (the TPU kernels' rounding). Particles beyond capacity
 keep their state but leave the neighbour sums for the step, and read back
 the density floor and zero force.
+
+The slot grid's build and read-back around the passes dispatch the same
+way: ``build`` and ``readback`` launch ``dense_build`` and
+``dense_readback`` (``csrc/dense_glue.cu``) on a CUDA device, bitwise
+their plain versions ``build_grid_cols`` and ``readback_cols``, which run
+on the CPU. ``dense_forces_cols`` takes the plain versions wherever it is
+given ``passes``, so a step on plain passes stays plain end to end.
 """
 
 from __future__ import annotations
@@ -33,14 +40,15 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
-from ..params import EPSILON, SimSettings
+from ..params import SimSettings
 from . import kernels, sph
-from .fused import _check_grids, _on_cuda, _ptr, _stream
+from .fused import _check_grids, _launched, _on_cuda, _ptr, _stream
 from .prng import U32, position_seed, rand_unit_vector
 from .pairs import ORDINAL_SALT, PAIR_ORDER_SALT
 
 # kernel launches per wrapper (CUDA tensors only)
-LAUNCHES = {"dense_density": 0, "dense_forces": 0}
+LAUNCHES = {"dense_density": 0, "dense_forces": 0, "dense_build": 0,
+            "dense_readback": 0}
 
 
 class DenseGrid(NamedTuple):
@@ -100,6 +108,78 @@ def build_grid(pred_s, vel_s, sorted_cells, settings: SimSettings,
     """``build_grid_cols`` from [N, 2] predicted positions and velocities."""
     return build_grid_cols(pred_s[:, 0], pred_s[:, 1], vel_s[:, 0],
                            vel_s[:, 1], sorted_cells, settings, dims=dims)
+
+
+def build(pxs, pys, vxs, vys, sorted_cells: torch.Tensor,
+          settings: SimSettings, dims=None) -> DenseGrid:
+    """``build_grid_cols``: on a CUDA device the kernel ``dense_build``,
+    bitwise it. The columns are f32 [N] at any stride, ``sorted_cells``
+    contiguous i32 or i64 in ascending order. The four grids are views of
+    one [4, Gy, K, Gxp] buffer, ``valid`` and ``n_dropped`` of one byte
+    buffer behind it (``csrc/dense_glue.cu`` zeroes it with one memset)."""
+    cols = (pxs, pys, vxs, vys)
+    if not _on_cuda(*cols, sorted_cells):
+        return build_grid_cols(*cols, sorted_cells, settings, dims=dims)
+    n = sorted_cells.shape[0]
+    if (sorted_cells.dtype not in (torch.int32, torch.int64)
+            or sorted_cells.dim() != 1 or not sorted_cells.is_contiguous()):
+        raise ValueError(f"sorted_cells must be contiguous i32 or i64 [N], "
+                         f"got {sorted_cells.dtype}"
+                         f"{list(sorted_cells.shape)}")
+    for c in cols:
+        if c.dtype != torch.float32 or c.shape != (n,):
+            raise ValueError(f"columns must be f32[{n}], got "
+                             f"{c.dtype}{list(c.shape)}")
+    k = settings.cell_capacity
+    gy, gx = dims if dims is not None else (settings.grid_h, settings.grid_w)
+    gx_pad = -(-gx // 128) * 128
+    size = gy * k * gx_pad
+    dev = sorted_cells.device
+    flat = torch.empty(n, dtype=torch.int64, device=dev)
+    # csrc/dense_glue.cu's layout: f32[4][size], u8[size] valid, i32 count
+    buf = torch.empty(17 * size + 4, dtype=torch.uint8, device=dev)
+    err = _build.load().tf_dense_build(
+        *(_ptr(c) for c in cols), *(c.stride(0) for c in cols),
+        _ptr(sorted_cells), sorted_cells.element_size(), n, gy, k, gx,
+        gx_pad, _ptr(flat), _ptr(buf), _stream(dev))
+    _launched("dense_build", err, LAUNCHES)
+    shape = (gy, k, gx_pad)
+    grids = buf[:16 * size].view(torch.float32).view(4, *shape)
+    return DenseGrid(
+        flat=flat, px=grids[0], py=grids[1], vx=grids[2], vy=grids[3],
+        valid=buf[16 * size:17 * size].view(torch.bool).view(shape),
+        n_dropped=buf[17 * size:].view(torch.int32).view(()))
+
+
+def readback_cols(flat: torch.Tensor, fields):
+    """Each sorted particle's values of the five slot-grid ``fields``
+    (density, fx, fy, gx, gy) at its slot ``flat``, as five [N] columns; a
+    particle beyond capacity (slot = size) reads (0.1, 0, 0, 0, 0)."""
+    stack = torch.stack([a.reshape(-1) for a in fields], dim=1)
+    fill = torch.zeros((1, 5), dtype=torch.float32, device=stack.device)
+    fill[:, 0] = 0.1  # what a particle beyond capacity reads back
+    stack = torch.cat([stack, fill])
+    out = stack[torch.clamp(flat, max=stack.shape[0] - 1)]
+    return out[:, 0], out[:, 1], out[:, 2], out[:, 3], out[:, 4]
+
+
+def readback(flat: torch.Tensor, fields):
+    """``readback_cols``: on a CUDA device the kernel ``dense_readback``,
+    bitwise it; the columns are the rows of one [5, N] buffer."""
+    if not _on_cuda(flat, *fields):
+        return readback_cols(flat, fields)
+    _check_grids(fields[0].shape, *fields)
+    if (flat.dtype != torch.int64 or flat.dim() != 1
+            or not flat.is_contiguous()):
+        raise ValueError(f"flat must be contiguous i64 [N], got "
+                         f"{flat.dtype}{list(flat.shape)}")
+    n = flat.shape[0]
+    out = torch.empty((5, n), dtype=torch.float32, device=flat.device)
+    err = _build.load().tf_dense_readback(
+        _ptr(flat), n, fields[0].numel(), *(_ptr(a) for a in fields),
+        _ptr(out), _stream(flat.device))
+    _launched("dense_readback", err, LAUNCHES)
+    return tuple(out)
 
 
 _OFFSETS = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
@@ -317,32 +397,29 @@ def dense_forces_cols(pxs, pys, vxs, vys, sorted_cells,
                       surface_tension: bool = False,
                       adaptive_subsampling: bool = False, passes=None):
     """The dense pipeline on sorted columns: build the slot grid, density
-    (floored at EPSILON and 0.1), forces, and read each particle's values
-    back from its slot. The two passes are ``density`` and ``forces``
-    (the CUDA kernels on a CUDA device); ``pallas=True`` runs them through
-    ``ops.sph`` instead; ``passes``, a (density, forces) pair of the same
-    signatures, replaces them. Returns (density, f_pressure_x,
-    f_pressure_y, f_visc_x, f_visc_y, n_dropped), each [N]."""
+    (floored at 0.1, which covers the reference's EPSILON floor before it),
+    forces, and read each particle's values back from its slot. The two
+    passes are ``density`` and ``forces`` (the CUDA kernels on a CUDA
+    device); ``pallas=True`` runs them through ``ops.sph`` instead. The
+    build and read-back are ``build`` and ``readback``: on a CUDA device
+    the kernels ``dense_build`` and ``dense_readback``, on the CPU
+    ``build_grid_cols`` and ``readback_cols``. ``passes``, a (density,
+    forces) pair of the same signatures, replaces the two passes and runs
+    with the plain build and read-back on any device. Returns (density,
+    f_pressure_x, f_pressure_y, f_visc_x, f_visc_y, n_dropped), each [N]."""
     if passes is None:
         passes = ((sph.density, sph.forces) if pallas
                   else (density, forces))
+        build_fn, readback_fn = build, readback
+    else:
+        build_fn, readback_fn = build_grid_cols, readback_cols
     density_fn, forces_fn = passes
     h = float(settings.smoothing_radius)
-    grid = build_grid_cols(pxs, pys, vxs, vys, sorted_cells, settings,
-                           dims=dims)
-    dens_g = density_fn(grid, params.mass, h)
-    dens_g = torch.clamp(torch.clamp(dens_g, min=EPSILON), min=0.1)
+    grid = build_fn(pxs, pys, vxs, vys, sorted_cells, settings, dims=dims)
+    dens_g = torch.clamp(density_fn(grid, params.mass, h), min=0.1)
     args = (grid, dens_g, params, h, settings.sqr_radius,
             norms.spiky_derivative, norms.viscosity, frame)
     flags = dict(surface_tension=surface_tension,
                  adaptive_subsampling=adaptive_subsampling)
-    fx, fy, gx_, gy_ = forces_fn(*args, **flags)
-
-    stack = torch.stack([a.reshape(-1) for a in (dens_g, fx, fy, gx_, gy_)],
-                        dim=1)
-    fill = torch.zeros((1, 5), dtype=torch.float32, device=stack.device)
-    fill[:, 0] = 0.1  # what a particle beyond capacity reads back
-    stack = torch.cat([stack, fill])
-    out = stack[torch.clamp(grid.flat, max=stack.shape[0] - 1)]
-    return (out[:, 0], out[:, 1], out[:, 2], out[:, 3], out[:, 4],
-            grid.n_dropped)
+    fields = (dens_g, *forces_fn(*args, **flags))
+    return (*readback_fn(grid.flat, fields), grid.n_dropped)
