@@ -197,6 +197,9 @@ SHARD_DRIFT_4, SHARD_DRIFT_32 = 1e-4, 1e-2
 # the metaball coarse fields: |kernel - plain| <= FIELD_TOL * max(1, |plain|)
 FIELD_TOL = 1e-5
 SEED = 1234
+# the dense engine's kernels (tpufluid_torch._build.LAUNCHES names)
+DENSE_KERNELS = ("dense_density", "dense_forces", "dense_build",
+                 "dense_readback")
 # the H100 SXM's published peaks (at 700 W): HBM bytes/s, f32 (non-tensor)
 # operations/s
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -639,24 +642,19 @@ def compare_has_ff(settings, params, field, label):
 
 
 def reset_counts():
-    """Every kernel wrapper's count to 0, the far-mover pass's
-    (``resident.LAUNCHES``, apart from ``read_counts``) too."""
-    from tpufluid_torch.ops import (dense, far_sharded, fused, rebin,
-                                    render_coarse, resident, sph)
+    """Every kernel's launch count (``_build.LAUNCHES``) to 0, the
+    far-mover pass's (which ``read_counts`` leaves out) too."""
+    from tpufluid_torch._build import LAUNCHES
 
-    for counts in (fused.LAUNCHES, rebin.LAUNCHES, render_coarse.LAUNCHES,
-                   sph.LAUNCHES, resident.LAUNCHES, far_sharded.LAUNCHES,
-                   dense.LAUNCHES):
-        for name in counts:
-            counts[name] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def read_counts() -> dict:
-    from tpufluid_torch.ops import (dense, far_sharded, fused, rebin,
-                                    render_coarse, sph)
+    """Every kernel's launch count but the far-mover pass's."""
+    from tpufluid_torch._build import LAUNCHES
 
-    return {**fused.LAUNCHES, **rebin.LAUNCHES, **render_coarse.LAUNCHES,
-            **sph.LAUNCHES, **far_sharded.LAUNCHES, **dense.LAUNCHES}
+    return {n: v for n, v in LAUNCHES.items() if n != "far_reinsert"}
 
 
 def render_cli():
@@ -914,11 +912,12 @@ def compare_dense(g, settings, params, label, flags=None):
     ``g``, bitwise over the whole grid, each with one launch counted.
     Returns per-kernel dicts (max_abs_err, bound, live slots whose fx the
     flag changes) and the calls for ``time_kernels``."""
+    from tpufluid_torch._build import LAUNCHES
     from tpufluid_torch.ops import dense
 
     flags = flags or {}
     h, n = settings.smoothing_radius, settings.kernel_norms()
-    before = dict(dense.LAUNCHES)
+    before = dict(LAUNCHES)
     rho = dense.density(g, params.mass, h)
     rho_p = dense.density_pass(g, params.mass, h)
     bitwise((rho,), (rho_p,), f"{label} dense_density")
@@ -929,7 +928,7 @@ def compare_dense(g, settings, params, label, flags=None):
     want = dense.force_pass(*fargs, **flags)
     bitwise(got, want, f"{label} dense_forces {flags}")
     torch.cuda.synchronize()
-    launched = {k: dense.LAUNCHES[k] - before[k] for k in before}
+    launched = {k: LAUNCHES[k] - before[k] for k in DENSE_KERNELS}
     if launched != {"dense_density": 1, "dense_forces": 1, "dense_build": 0,
                     "dense_readback": 0}:
         raise AssertionError(f"{label} dense launches {launched}")
@@ -971,6 +970,7 @@ def compare_glue(state, settings, params, label):
     and four columns (16 B) a particle, and the read-back's slot (8 B),
     five values read and five written a particle."""
     from tpufluid_torch import step as tstep
+    from tpufluid_torch._build import LAUNCHES
     from tpufluid_torch.ops import dense, grid
 
     pred = tstep.predict_positions(state.position, state.velocity,
@@ -979,7 +979,7 @@ def compare_glue(state, settings, params, label):
     g6 = torch.cat([pred, state.velocity, state.position], dim=1)[b.perm]
     cols = tuple(g6[:, j] for j in range(4))
     cells = b.sorted_cells
-    before = dict(dense.LAUNCHES)
+    before = dict(LAUNCHES)
     got = dense.build(*cols, cells, settings)
     want = dense.build_grid_cols(*cols, cells, settings)
     bitwise(tuple(got), tuple(want), f"{label} dense_build")
@@ -992,8 +992,8 @@ def compare_glue(state, settings, params, label):
     bitwise(back, dense.readback_cols(want.flat, fields),
             f"{label} dense_readback")
     torch.cuda.synchronize()
-    launched = {k: dense.LAUNCHES[k] - before[k] for k in before}
-    if launched != dict.fromkeys(dense.LAUNCHES, 1):
+    launched = {k: LAUNCHES[k] - before[k] for k in DENSE_KERNELS}
+    if launched != dict.fromkeys(DENSE_KERNELS, 1):
         raise AssertionError(f"{label} glue launches {launched}")
     n_p, size = cells.shape[0], want.px.numel()
     out = {}
@@ -3266,6 +3266,7 @@ def graph_gates(s8, params, dev, card):
     import tpufluid_torch as tt
     from tpufluid_torch import cli, graphs
     from tpufluid_torch import step as steps
+    from tpufluid_torch._build import LAUNCHES
     from tpufluid_torch.ops import forcefield, resident
 
     grid_fields = ("pos_x", "pos_y", "vel_x", "vel_y", "occ_row", "tick",
@@ -3287,7 +3288,7 @@ def graph_gates(s8, params, dev, card):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     counts = {k: v for k, v in read_counts().items() if v}
-    far = resident.LAUNCHES["far_reinsert"]
+    far = LAUNCHES["far_reinsert"]
     for f in grid_fields:
         if not torch.equal(getattr(got, f), getattr(want, f)):
             raise AssertionError(f"burst under sync debug: {f} != eager")
@@ -3419,7 +3420,7 @@ def main() -> int:
     end.record()
     torch.cuda.synchronize()
     launches = read_counts()
-    far_launches = resident.LAUNCHES["far_reinsert"]
+    far_launches = _build.LAUNCHES["far_reinsert"]
     ms_step = start.elapsed_time(end) / 200
     m = app.metrics()
     ps, live = resident.to_particles(app.grid_state, app.settings)

@@ -56,11 +56,25 @@ import pytest
 import torch
 
 import tpufluid_torch as tt
+from tpufluid_torch._build import LAUNCHES
 from tpufluid_torch.ops import dense, fused, grid, resident, sph
 
 pytestmark = pytest.mark.cuda
 
 POS_TOL, VEL_TOL, RHO_TOL = 4.8e-7, 3.8e-5, 9.2e-5
+# the kernel names of each ops module in the one launch counter
+FUSED = ("rebin", "rebin_row_shift", "density", "density_wid",
+         "forces_integrate", "forces_integrate_has_ff",
+         "forces_integrate_wrap", "forces_integrate_surface_tension",
+         "forces_integrate_adaptive", "forces_integrate_wid", "physics")
+SPH = ("sph_density", "sph_forces")
+DENSE = ("dense_density", "dense_forces", "dense_build", "dense_readback")
+FAR_SHARDED = ("far_collect", "far_insert")
+
+
+def _counts(*groups):
+    """The launch counts of the kernels named in ``groups``."""
+    return {n: LAUNCHES[n] for g in groups for n in g}
 
 
 @pytest.fixture
@@ -101,7 +115,7 @@ def test_kernels_match_plain(cuda, k):
     p = tt.TickParams.default(cuda, gravity=(0.0, -9.8), mouse_state=1,
                               mouse_pos=(0.5, 0.5), mouse_force_radius=2.0)
     gs = _state(s, cuda, k)
-    before = {**fused.LAUNCHES, **sph.LAUNCHES}
+    before = _counts(FUSED, SPH)
     rargs = (gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, gs.occ_row, p.delta, s)
     got, want = fused.rebin(*rargs), fused.rebin_plain(*rargs)
     for a, b in zip(got, want):
@@ -122,7 +136,7 @@ def test_kernels_match_plain(cuda, k):
         assert _rel(a, b, live) <= tol
         assert torch.equal(a[~live], b[~live])
     torch.cuda.synchronize()
-    after = {**fused.LAUNCHES, **sph.LAUNCHES}
+    after = _counts(FUSED, SPH)
     want = dict.fromkeys(before, 0)
     want.update(rebin=1, density=1, forces_integrate=1)
     assert {n: after[n] - before[n] for n in before} == want
@@ -186,11 +200,11 @@ def test_coarse_metaball_matches_plain(cuda, k):
     s, _, gs = _scene_1m_state(cuda, k, 3)
     speed = torch.sqrt(gs.vel_x * gs.vel_x + gs.vel_y * gs.vel_y)
     args = (gs.pos_x, gs.pos_y, speed, gs.occ_row, s, 2)
-    before = render_coarse.LAUNCHES["metaball_coarse"]
+    before = LAUNCHES["metaball_coarse"]
     got = render_coarse.coarse_metaball_fields(*args)
     want = render_coarse.coarse_metaball_fields_plain(*args)
     torch.cuda.synchronize()
-    assert render_coarse.LAUNCHES["metaball_coarse"] == before + 1
+    assert LAUNCHES["metaball_coarse"] == before + 1
     for a, b in zip(got, want):
         assert a.shape == (2 * 524, 2 * 512)
         assert torch.equal(a, b)
@@ -214,13 +228,13 @@ def test_forces_has_ff_matches_plain(cuda):
     pres, invr = fused.density(px, py, vx, vy, occ, p.mass, p.delta,
                                p.pressure_constant, p.rest_density, s)
     fargs = (px, py, vx, vy, pres, invr, occ, p, s, gs.tick + 1)
-    before = dict(fused.LAUNCHES)
+    before = _counts(FUSED)
     new = fused.forces_integrate(*fargs, ff_cells=ffc)
     new_p = fused.forces_integrate_plain(*fargs, ff_cells=ffc)
     base = fused.forces_integrate(*fargs)
     torch.cuda.synchronize()
-    assert fused.LAUNCHES["forces_integrate"] == before["forces_integrate"] + 2
-    assert (fused.LAUNCHES["forces_integrate_has_ff"]
+    assert LAUNCHES["forces_integrate"] == before["forces_integrate"] + 2
+    assert (LAUNCHES["forces_integrate_has_ff"]
             == before["forces_integrate_has_ff"] + 1)
     live = px < fused.SENTINEL_HALF
     for a, b, tol in zip(new, new_p, [POS_TOL, POS_TOL, VEL_TOL, VEL_TOL]):
@@ -271,7 +285,7 @@ def test_sph_kernels_match_plain(cuda, case):
     scene = {"surface_tension": "st", "adaptive_subsampling": "clump"}
     s, p, g, d = _dense_grid(cuda, k, scene.get(case, "base"))
     h, n = s.smoothing_radius, s.kernel_norms()
-    before = dict(sph.LAUNCHES)
+    before = _counts(SPH)
     rho = sph.density(g, p.mass, h)
     rho_p = sph.density_plain(g, p.mass, h)
     assert torch.equal(rho, rho_p)
@@ -281,7 +295,7 @@ def test_sph_kernels_match_plain(cuda, case):
     got = sph.forces(*args, **flags)
     want = sph.forces_plain(*args, **flags)
     torch.cuda.synchronize()
-    assert {n_: sph.LAUNCHES[n_] - before[n_] for n_ in before} == {
+    assert {n_: LAUNCHES[n_] - before[n_] for n_ in before} == {
         "sph_density": 1, "sph_forces": 1}
     for a, b_ in zip(got, want):
         assert torch.equal(a, b_)
@@ -336,7 +350,7 @@ def test_forces_variants_match_plain(cuda, variant):
     pres, invr = fused.density(px, py, vx, vy, occ, p.mass, p.delta,
                                p.pressure_constant, p.rest_density, s)
     fargs = (px, py, vx, vy, pres, invr, occ, p, s, frame)
-    before = dict(fused.LAUNCHES)
+    before = _counts(FUSED)
     got = fused.forces_integrate(*fargs, **kw)
     want = fused.forces_integrate_plain(*fargs, **kw)
     base = fused.forces_integrate(*fargs)
@@ -351,7 +365,7 @@ def test_forces_variants_match_plain(cuda, variant):
     names = {"x_boundary": "wrap", "surface_tension": "surface_tension",
              "adaptive_subsampling": "adaptive"}
     for flag, name in names.items():
-        n = fused.LAUNCHES[f"forces_integrate_{name}"]
+        n = LAUNCHES[f"forces_integrate_{name}"]
         assert n == before[f"forces_integrate_{name}"] + (flag in kw)
 
 
@@ -379,7 +393,7 @@ def test_batched_kernels_match_plain(cuda):
     """rebin with row_shift, density and forces_integrate with wid on a
     3-world stack against their plain versions, bitwise."""
     s, g, bp, wid, rows = _stack(cuda, 3)
-    before = dict(fused.LAUNCHES)
+    before = _counts(FUSED)
     rargs = (g.pos_x, g.pos_y, g.vel_x, g.vel_y, g.occ_row, bp.delta, s)
     got = fused.rebin(*rargs, row_shift=-(wid * rows))
     want = fused.rebin_plain(*rargs, row_shift=-(wid * rows))
@@ -399,7 +413,7 @@ def test_batched_kernels_match_plain(cuda):
         assert torch.equal(a, b)
     assert not torch.equal(new[3][:rows], new[3][rows:2 * rows])
     for n in ("rebin_row_shift", "density_wid", "forces_integrate_wid"):
-        assert fused.LAUNCHES[n] == before[n] + 1
+        assert LAUNCHES[n] == before[n] + 1
 
 
 @pytest.mark.parametrize("k,flags", [
@@ -451,7 +465,7 @@ def test_physics_matches_split(cuda, k, flags):
                              generator=gen) * 3.0
             ff[:, :, :20] = 0.0
             extra = dict(ff_cells=tuple(f.contiguous().to(cuda) for f in ff))
-    before = fused.LAUNCHES["physics"]
+    before = LAUNCHES["physics"]
     got = fused.physics(px, py, vx, vy, occ, p, s, frame, **kw, **extra)
     wid = extra.get("wid")
     pres, invr = fused.density(px, py, vx, vy, occ, p.mass, p.delta,
@@ -462,7 +476,7 @@ def test_physics_matches_split(cuda, k, flags):
     plain = fused.physics_plain(px, py, vx, vy, occ, p, s, frame, **kw,
                                 **extra)
     torch.cuda.synchronize()
-    assert fused.LAUNCHES["physics"] == before + 1
+    assert LAUNCHES["physics"] == before + 1
     for a, b, c in zip(got, split, plain):
         assert torch.equal(a, b) and torch.equal(a, c)
 
@@ -483,11 +497,11 @@ def test_physics_tile_fits_shared_memory(cuda):
         fused.physics_tile(k_max + 1)
     s, gs = _tile_state(cuda, k_max + 1, 5, n_random=60, fill_row=False)
     p = tt.TickParams.default(cuda, gravity=(0.0, -9.8))
-    before = fused.LAUNCHES["physics"]
+    before = LAUNCHES["physics"]
     with pytest.raises(ValueError, match=f"{k_max}; use the split density"):
         fused.physics(gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, gs.occ_row, p,
                       s, gs.tick + 1)
-    assert fused.LAUNCHES["physics"] == before
+    assert LAUNCHES["physics"] == before
 
 
 def test_batched_step_matches_single_worlds(cuda):
@@ -608,7 +622,7 @@ def test_tile_kernels_bitwise(cuda, k, variant):
     dargs = (gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, occ, p.mass, p.delta,
              p.pressure_constant, p.rest_density, s)
     wid = kw.get("wid")
-    before = dict(fused.LAUNCHES)
+    before = _counts(FUSED)
     got = fused.density(*dargs, wid=wid)
     want = fused.density_plain(*dargs, wid=wid)
     for a, b in zip(got, want):
@@ -620,8 +634,8 @@ def test_tile_kernels_bitwise(cuda, k, variant):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    assert fused.LAUNCHES["density"] == before["density"] + 1
-    assert (fused.LAUNCHES["forces_integrate"]
+    assert LAUNCHES["density"] == before["density"] + 1
+    assert (LAUNCHES["forces_integrate"]
             == before["forces_integrate"] + 1)
 
 
@@ -702,7 +716,7 @@ def test_sph_tile_kernels_bitwise(cuda, case, flag):
                     and g.valid[:, :, 0].any() and g.valid[:, :, -1].any())
     p = tt.TickParams.default(cuda, gravity=(0.0, -9.8), **ST_PARAMS_CUDA)
     h, n = s.smoothing_radius, s.kernel_norms()
-    before = dict(sph.LAUNCHES)
+    before = _counts(SPH)
     rho_p = sph.density_plain(g, p.mass, h)
     assert torch.equal(sph.density(g, p.mass, h), rho_p)
     d = torch.clamp(torch.clamp(rho_p, min=tt.EPSILON), min=0.1)
@@ -714,7 +728,7 @@ def test_sph_tile_kernels_bitwise(cuda, case, flag):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    assert {n_: sph.LAUNCHES[n_] - before[n_] for n_ in before} == {
+    assert {n_: LAUNCHES[n_] - before[n_] for n_ in before} == {
         "sph_density": 1, "sph_forces": 1}
 
 
@@ -776,7 +790,7 @@ def test_dense_kernels_match_roll_passes(cuda, case, flag):
     if case == "edges":  # rows 0 and Gy-1 meet across the wrap
         assert bool(g.valid[0].any() and g.valid[-1].any())
     h, n = s.smoothing_radius, s.kernel_norms()
-    before = dict(dense.LAUNCHES)
+    before = _counts(DENSE)
     rho_p = dense.density_pass(g, p.mass, h)
     assert torch.equal(dense.density(g, p.mass, h), rho_p)
     d = torch.clamp(torch.clamp(rho_p, min=tt.EPSILON), min=0.1)
@@ -788,7 +802,7 @@ def test_dense_kernels_match_roll_passes(cuda, case, flag):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    assert {k: dense.LAUNCHES[k] - before[k] for k in before} == {
+    assert {k: LAUNCHES[k] - before[k] for k in before} == {
         "dense_density": 1, "dense_forces": 1, "dense_build": 0,
         "dense_readback": 0}
     if flags and case in ("k8", "k32"):  # the flag changes the forces
@@ -877,10 +891,10 @@ def test_dense_step_runs_the_kernels(cuda, flags, monkeypatch):
 
     def launched(fn, *args):
         """fn(*args), and the launches it made by kernel (nonzero only)."""
-        before = {**dense.LAUNCHES, **sph.LAUNCHES}
+        before = _counts(DENSE, SPH)
         out = fn(*args)
         torch.cuda.synchronize()
-        after = {**dense.LAUNCHES, **sph.LAUNCHES}
+        after = _counts(DENSE, SPH)
         return out, {k: n - before[k] for k, n in after.items()
                      if n != before[k]}
 
@@ -954,10 +968,10 @@ def test_dense_build_matches_build_grid_cols(cuda, case):
     cols = tuple(rows[:, j] for j in range(4))
     assert all(c.stride(0) == (6 if case == "strided" else 1)
                for c in cols)
-    before = dict(dense.LAUNCHES)
+    before = _counts(DENSE)
     got = dense.build(*cols, cells, s, dims=dims)
     torch.cuda.synchronize()
-    assert {k: dense.LAUNCHES[k] - before[k] for k in before} == {
+    assert {k: LAUNCHES[k] - before[k] for k in before} == {
         "dense_density": 0, "dense_forces": 0, "dense_build": 1,
         "dense_readback": 0}
     want = dense.build_grid_cols(*cols, cells, s, dims=dims)
@@ -983,10 +997,10 @@ def test_dense_readback_matches_readback_cols(cuda, case):
     gen = torch.Generator(device="cpu").manual_seed(5)
     fields = tuple(torch.randn(g.px.shape, generator=gen).to(cuda)
                    for _ in range(5))
-    before = dict(dense.LAUNCHES)
+    before = _counts(DENSE)
     got = dense.readback(g.flat, fields)
     torch.cuda.synchronize()
-    assert {k: dense.LAUNCHES[k] - before[k] for k in before} == {
+    assert {k: LAUNCHES[k] - before[k] for k in before} == {
         "dense_density": 0, "dense_forces": 0, "dense_build": 0,
         "dense_readback": 1}
     want = dense.readback_cols(g.flat, fields)
@@ -1007,7 +1021,7 @@ def test_dense_glue_wrappers_check_their_inputs(cuda):
     cols = tuple(rows[:, j] for j in range(4))
     g = dense.build_grid_cols(*cols, cells, s)
     fields = (g.px, g.py, g.vx, g.vy, g.px)
-    before = dict(dense.LAUNCHES)
+    before = _counts(DENSE)
     bad_builds = [
         (cols[0].double(), *cols[1:], cells),
         (*cols[:3], rows[:, 3:5], cells),
@@ -1025,7 +1039,7 @@ def test_dense_glue_wrappers_check_their_inputs(cuda):
                                .transpose(0, 2), *fields[1:]))):
         with pytest.raises(ValueError):
             dense.readback(flat, fs)
-    assert dense.LAUNCHES == before
+    assert _counts(DENSE) == before
 
 
 def _valid_edge_grid(device):
@@ -1068,11 +1082,11 @@ def test_rebin_valid_matches_plain(cuda, case):
         valid[stale] = 0.0
         assert int(stale.sum()) > 0
     args = (px, py, vx, vy, valid, dt, s)
-    before = trebin.LAUNCHES["rebin_valid"]
+    before = LAUNCHES["rebin_valid"]
     got = trebin.rebin_valid(*args)
     want = trebin.rebin_valid_plain(*args)
     torch.cuda.synchronize()
-    assert trebin.LAUNCHES["rebin_valid"] == before + 1
+    assert LAUNCHES["rebin_valid"] == before + 1
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert float(want[4].sum()) > 0
@@ -1135,14 +1149,14 @@ def test_rebin_tiles_bitwise(cuda, k, stack):
                   .repeat_interleave(rows) * rows)
     args = (gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, gs.occ_row,
             1.0 / 120.0, s)
-    before = dict(fused.LAUNCHES)
+    before = _counts(FUSED)
     got = fused.rebin(*args, row_shift=shift)
     want = fused.rebin_plain(*args, row_shift=shift)
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    assert fused.LAUNCHES["rebin"] == before["rebin"] + 1
-    assert (fused.LAUNCHES["rebin_row_shift"]
+    assert LAUNCHES["rebin"] == before["rebin"] + 1
+    assert (LAUNCHES["rebin_row_shift"]
             == before["rebin_row_shift"] + int(stack))
     assert int(want[5].sum()) > 0  # far movers
     if not sparse:
@@ -1184,11 +1198,11 @@ def test_coarse_metaball_tiles_match_plain(cuda, case):
     s, gs, sup = _coarse_case(cuda, case)
     speed = torch.sqrt(gs.vel_x * gs.vel_x + gs.vel_y * gs.vel_y)
     args = (gs.pos_x, gs.pos_y, speed, gs.occ_row, s, sup)
-    before = render_coarse.LAUNCHES["metaball_coarse"]
+    before = LAUNCHES["metaball_coarse"]
     got = render_coarse.coarse_metaball_fields(*args)
     want = render_coarse.coarse_metaball_fields_plain(*args)
     torch.cuda.synchronize()
-    assert render_coarse.LAUNCHES["metaball_coarse"] == before + 1
+    assert LAUNCHES["metaball_coarse"] == before + 1
     gy, _, gx = gs.pos_x.shape
     for a, b in zip(got, want):
         assert a.shape == (sup * gy, sup * gx)
@@ -1214,10 +1228,10 @@ def test_set_mouse_on_card(cuda):
     pos_t = app.params.mouse_pos
     app.set_mouse(pos=(0.0, 0.0), state=-1)
     assert app.params.mouse_pos is pos_t and pos_t.device.type == "cuda"
-    before = fused.LAUNCHES["forces_integrate"]
+    before = LAUNCHES["forces_integrate"]
     app.run(16)
     torch.cuda.synchronize()
-    assert fused.LAUNCHES["forces_integrate"] == before + 16
+    assert LAUNCHES["forces_integrate"] == before + 16
     m = app.metrics()
     assert m["tick"] == 16 and m["lost_particles"] == 0
     st = app.state
@@ -1275,12 +1289,12 @@ def test_sharded_step_matches_plain_on_card(cuda, d, has_ff):
                                              has_force_field=has_ff)
     sgs = shard_grid_state(gs, spec, mesh)
     for i in range(4):
-        before = dict(fused.LAUNCHES)
+        before = _counts(FUSED)
         k, kst = kstep(sgs, params, *extra)
         torch.cuda.synchronize()
-        assert fused.LAUNCHES["rebin_row_shift"] == before[
+        assert LAUNCHES["rebin_row_shift"] == before[
             "rebin_row_shift"] + d
-        assert fused.LAUNCHES["forces_integrate"] == before[
+        assert LAUNCHES["forces_integrate"] == before[
             "forces_integrate"] + d
         p, pst = pstep(sgs, params, *extra)
         kg, pg = unshard_grid_state(k), unshard_grid_state(p)
@@ -1345,10 +1359,10 @@ def test_slab_pallas_step_matches_plain_on_card(cuda):
     pstep = make_plain_sharded_step(spec, mesh, debug=True)
     moved = 0
     for i in range(4):
-        before = {**sph.LAUNCHES, **dense.LAUNCHES}
+        before = _counts(SPH, DENSE)
         k, kst = kstep(st, params)
         torch.cuda.synchronize()
-        assert {n: {**sph.LAUNCHES, **dense.LAUNCHES}[n] - before[n]
+        assert {n: LAUNCHES[n] - before[n]
                 for n in before} == {
             "sph_density": 2, "sph_forces": 2, "dense_density": 0,
             "dense_forces": 0, "dense_build": 2, "dense_readback": 2}
@@ -1436,11 +1450,11 @@ def test_far_reinsert_matches_plain(cuda, case):
     n_far = int(rb[5].sum())
     lost0 = gs.lost + rb[6].sum().to(torch.int32)
     counter = torch.zeros(1, dtype=torch.int64, device=cuda)
-    before = resident.LAUNCHES["far_reinsert"]
+    before = LAUNCHES["far_reinsert"]
     got = resident.far_reinsert(gs, *(t.clone() for t in rb[:5]), rb[5],
                                 lost0.clone(), p.delta, step.settings,
                                 step.far_capacity, counter)
-    assert resident.LAUNCHES["far_reinsert"] == before + 1
+    assert LAUNCHES["far_reinsert"] == before + 1
     *want, dropped = resident._reinsert_far(gs, *rb[:4], rb[5].sum(), p.delta,
                                             step.settings, step.far_capacity)
     for a, b in zip(got, (*want, lost0 + dropped)):
@@ -1494,14 +1508,14 @@ def test_graphed_resident_burst_matches_eager(cuda, case):
     eager = resident.make_eager_grid_multi_step(s, 6, **kw)
     fields = ("pos_x", "pos_y", "vel_x", "vel_y", "occ_row", "tick", "lost")
     for i in range(2):
-        before = dict(fused.LAUNCHES)
-        far0 = resident.LAUNCHES["far_reinsert"]
+        before = _counts(FUSED)
+        far0 = LAUNCHES["far_reinsert"]
         got = run(gs, p, *extra[i])
         torch.cuda.synchronize()
-        assert {n: fused.LAUNCHES[n] - before[n] for n in ("rebin", "density",
+        assert {n: LAUNCHES[n] - before[n] for n in ("rebin", "density",
                 "forces_integrate")} == dict.fromkeys(
             ("rebin", "density", "forces_integrate"), 6)
-        assert resident.LAUNCHES["far_reinsert"] == far0 + 6
+        assert LAUNCHES["far_reinsert"] == far0 + 6
         want = eager(gs, p, *extra[i])
         for f in fields:
             assert torch.equal(getattr(got, f), getattr(want, f)), (i, f)
@@ -1618,7 +1632,7 @@ def test_far_sharded_matches_plain(cuda, case):
         mesh, sgs.bands, [dt] * d_n, shard.band_shifts(spec, mesh), s)
     total = sum(r[5].sum() for r in reb).to(torch.int32)
     n_far = int(total)
-    before = dict(fs.LAUNCHES)
+    before = _counts(FAR_SHARDED)
     got = [fs.far_collect(b.pos_x, b.pos_y, b.vel_x, b.vel_y, b.occ_row,
                           reb[d][5][1:rloc + 1], total, dt, s, d * rloc,
                           fcap) for d, b in enumerate(sgs.bands)]
@@ -1647,7 +1661,7 @@ def test_far_sharded_matches_plain(cuda, case):
         _, gcy = fused._cells(*(allp_plain[:, i] for i in range(4)), dt, s)
         mine.append(int(((allp_plain[:, 4] > 0.5) & (gcy >= d * rloc)
                          & (gcy < (d + 1) * rloc)).sum()))
-    assert fs.LAUNCHES == {n: before[n] + d_n for n in before}
+    assert _counts(FAR_SHARDED) == {n: before[n] + d_n for n in before}
     assert (n_far == 0) == (case == "none")
     if case == "over":
         assert sum(int(w[1]) for w in want) > 0
@@ -1696,10 +1710,10 @@ def test_graphed_sharded_step_matches_eager(cuda, d, has_ff):
     fields_ = ("pos_x", "pos_y", "vel_x", "vel_y", "occ_row", "tick", "lost")
     for i in range(6):
         extra = fields[i // 3]
-        before = {**fused.LAUNCHES, **fs.LAUNCHES}
+        before = _counts(FUSED, FAR_SHARDED)
         a, ast = kstep(sgs, p, *extra)
         torch.cuda.synchronize()
-        after = {**fused.LAUNCHES, **fs.LAUNCHES}
+        after = _counts(FUSED, FAR_SHARDED)
         for n in ("rebin_row_shift", "density", "forces_integrate",
                   "far_collect", "far_insert"):
             assert after[n] == before[n] + d, (i, n)

@@ -52,6 +52,7 @@ from tpufluid_torch.parallel import (
     make_sharded_resident_step, make_sharded_step, shard,
     shard_grid_state, unshard_grid_state)
 
+from graph_stand_in import stand_in_graphs  # noqa: F401 (a fixture)
 from test_torch_shard_jax import (
     POS_TOL, VEL_TOL, _far_mover_scene, _jax_sharded, _settings, _within)
 
@@ -248,41 +249,6 @@ def test_post_merge_occ_row_is_occ_row_of(d):
     assert inserted > 0
 
 
-class _StandInGraph:
-    """A stand-in for ``graphs.StepGraph`` on the CPU: the capture runs the
-    body once, and a replay runs it again with the mesh's notes muted (a
-    CUDA graph replays kernels, not the Python that noted them)."""
-
-    muted = False
-
-    def __init__(self, body, device, what):
-        self.body = body
-        body()
-        graphs.CAPTURES.append(dict(what=what, capture_s=0.0,
-                                    instantiate_s=0.0, nodes=None,
-                                    launches={}))
-
-    def replay(self, n):
-        _StandInGraph.muted = True
-        try:
-            for _ in range(n):
-                self.body()
-        finally:
-            _StandInGraph.muted = False
-
-
-@pytest.fixture
-def stand_in_graphs(monkeypatch):
-    note, begin = shard.Mesh.note, shard.Mesh.begin_step
-    monkeypatch.setattr(graphs, "StepGraph", _StandInGraph)
-    monkeypatch.setattr(graphs, "on_side_stream", lambda fn, dev: fn())
-    monkeypatch.setattr(shard, "_graphable", lambda mesh: True)
-    monkeypatch.setattr(shard.Mesh, "note", lambda self, *a, **k: (
-        None if _StandInGraph.muted else note(self, *a, **k)))
-    monkeypatch.setattr(shard.Mesh, "begin_step", lambda self: (
-        None if _StandInGraph.muted else begin(self)))
-
-
 def test_graphed_row_band_step_plumbing(stand_in_graphs):
     """The graphed row-band step on D = 2 (stand-in graph) against its
     eager twin over 4 steps, the field swapped after 2: bitwise; the
@@ -357,9 +323,9 @@ def test_graphable_meshes_and_tree():
     """Only a mesh of one CUDA device is captured (several cards and the
     CPU run eagerly); a tensor tree flattens and rebuilds itself."""
     cuda = [torch.device("cuda", 0), torch.device("cuda", 1)]
-    assert shard._graphable(shard.Mesh([cuda[0]] * 4))
-    assert not shard._graphable(shard.Mesh(cuda))
-    assert not shard._graphable(shard.Mesh([CPU] * 2))
+    assert graphs.graphable(*shard.Mesh([cuda[0]] * 4).devices)
+    assert not graphs.graphable(*shard.Mesh(cuda).devices)
+    assert not graphs.graphable(*shard.Mesh([CPU] * 2).devices)
     gs = resident.init_grid_state(_settings(n=64), CPU)
     tree = ((gs, gs), tt.TickParams.default(CPU), None,
             dict(n=torch.arange(3)))

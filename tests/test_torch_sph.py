@@ -42,6 +42,7 @@ from tpufluid.ops import pairs as jpairs
 from tpufluid.ops.pallas import sph as jsph
 
 from tpufluid_torch import interop
+from tpufluid_torch._build import LAUNCHES
 from tpufluid_torch.ops import dense as tdense
 from tpufluid_torch.ops import grid as tgrid
 from tpufluid_torch.ops import kernels as tkernels
@@ -63,6 +64,8 @@ def _one_torch_thread():
 VEL_TOL, RHO_TOL = 3.8e-5, 9.2e-5
 H = 0.2
 FRAME = 7
+DENSE_KERNELS = ("dense_density", "dense_forces", "dense_build",
+                 "dense_readback")
 
 
 def _rel_err(got, want):
@@ -386,7 +389,7 @@ def _counted(monkeypatch, module, names, calls):
                                   "adaptive_subsampling"])
 def test_dense_forces_cols_runs_the_roll_passes_on_cpu(flag, monkeypatch):
     """On CPU tensors ``dense_forces_cols`` runs ``density_pass`` and
-    ``force_pass`` once each, launches no kernel (``dense.LAUNCHES`` stays
+    ``force_pass`` once each, launches no kernel (``_build.LAUNCHES`` stays
     0), and reads back at each particle's slot what the two passes give,
     bitwise; a particle beyond capacity reads the density floor and zero
     force."""
@@ -403,14 +406,12 @@ def test_dense_forces_cols_runs_the_roll_passes_on_cpu(flag, monkeypatch):
                                     **flags))
     calls = []
     _counted(monkeypatch, tdense, ("density_pass", "force_pass"), calls)
-    before = dict(tdense.LAUNCHES)
+    before = {n: LAUNCHES[n] for n in DENSE_KERNELS}
     got = tdense.dense_forces_cols(px, py, vx, vy, cells, ts, tp,
                                    ts.kernel_norms(), frame, **flags)
     assert calls == ["density_pass", "force_pass"]
-    assert tdense.LAUNCHES == before == {"dense_density": 0,
-                                         "dense_forces": 0,
-                                         "dense_build": 0,
-                                         "dense_readback": 0}
+    assert ({n: LAUNCHES[n] for n in DENSE_KERNELS} == before
+            == dict.fromkeys(DENSE_KERNELS, 0))
     kept = g.flat < g.px.numel()
     for a, f in zip(got, fields):
         assert torch.equal(a[kept], f.reshape(-1)[g.flat[kept]])
@@ -435,8 +436,8 @@ def test_dense_forces_cols_passes_override(monkeypatch):
     assert calls == ["density_plain", "forces_plain"]
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    assert tdense.LAUNCHES == {"dense_density": 0, "dense_forces": 0,
-                               "dense_build": 0, "dense_readback": 0}
+    assert ({n: LAUNCHES[n] for n in DENSE_KERNELS}
+            == dict.fromkeys(DENSE_KERNELS, 0))
 
 
 def test_dense_wrappers_refuse_other_devices():
@@ -470,10 +471,11 @@ def test_sph_density_plain_matches_pallas():
     s, p, _, _ = scene("base")
     jg, _ = jax_grid("base")
     tg = interop.dense_grid_from_numpy(jg, "cpu")
-    before = dict(tsph.LAUNCHES)
+    before = {n: LAUNCHES[n] for n in ("sph_density", "sph_forces")}
     got = tsph.density(tg, interop.tick_params_from_numpy(p, "cpu").mass,
                        s.smoothing_radius)
-    assert tsph.LAUNCHES == before  # the CPU runs the plain version
+    # the CPU runs the plain version
+    assert {n: LAUNCHES[n] for n in ("sph_density", "sph_forces")} == before
     want = pallas_outputs()[0]
     assert got.shape == (32, 8, 128)
     _within(got, want, RHO_TOL, "rho")

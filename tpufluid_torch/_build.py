@@ -8,6 +8,11 @@ which is then loaded with ``ctypes``. The library lands in ``tpufluid_torch/_bui
 a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads at once. A failed build raises with the compiler's
 output; nothing falls back.
+
+The kernel wrappers of ``ops`` launch through the helpers at the end:
+``on_cuda`` picks the kernel or the plain version, ``ptr`` and ``stream``
+make the arguments, and ``launched`` counts each launch in ``LAUNCHES``
+or raises with the CUDA error.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
@@ -170,3 +177,55 @@ def build_log() -> str:
 
 def error_string(err: int) -> str:
     return f"{err} ({load().tf_error_string(err).decode()})"
+
+
+# kernel launches by name (CUDA tensors only). The qualified names count
+# the launches of a kernel that took a variant: forces_integrate with an
+# obstacle field (has_ff), x wrap, surface tension, adaptive subsampling
+# or a batched world stack (wid); rebin with row_shift, density with wid.
+LAUNCHES = dict.fromkeys((
+    # ops.fused
+    "rebin", "rebin_row_shift", "density", "density_wid",
+    "forces_integrate", "forces_integrate_has_ff", "forces_integrate_wrap",
+    "forces_integrate_surface_tension", "forces_integrate_adaptive",
+    "forces_integrate_wid", "physics",
+    # ops.rebin, ops.render_coarse, ops.sph
+    "rebin_valid", "metaball_coarse", "sph_density", "sph_forces",
+    # ops.resident: the far-mover pass, one a step of the kernel step on a
+    # CUDA device, gate open or not
+    "far_reinsert",
+    # ops.far_sharded: one of each a band a step of the row-band sharded
+    # step on a CUDA device, gate open or not
+    "far_collect", "far_insert",
+    # ops.dense
+    "dense_density", "dense_forces", "dense_build", "dense_readback"), 0)
+
+
+def on_cuda(*tensors) -> bool:
+    """True for CUDA tensors, False for CPU tensors; raises otherwise."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"tensors on {t.device} and {dev}")
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise NotImplementedError(f"no kernel for device {dev}")
+    return True
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def launched(name: str, err: int) -> None:
+    """Raise on a nonzero CUDA error of a launch of ``name``, else count
+    it in ``LAUNCHES``."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{error_string(err)}")
+    LAUNCHES[name] += 1

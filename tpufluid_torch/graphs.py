@@ -1,24 +1,27 @@
-"""CUDA graphs of the step bursts: the counterpart of the JAX package's
+"""CUDA graphs of the steps: the counterpart of the JAX package's
 ``jax.jit(lax.scan(step))``, which runs a burst of ticks as one device
-program with no host round-trip between ticks; and of the sharded steps'
-``jax.jit(shard_map(step))``, one device program a call (``CallGraph``).
+program with no host round-trip between ticks, and of the sharded steps'
+``jax.jit(shard_map(step))``, one device program a call.
 
-A burst's step is captured once as a CUDA graph over static buffers: the
-state it reads (and overwrites with its result), the params' copies and
-any field's. A burst copies its inputs into them, replays the graph once
-per step and hands back a copy of the result, never a buffer that the
-next replay overwrites. The first burst runs its first step eagerly, on a
-side stream (that step builds the kernels, sets their shared-memory limits
-and fills the step's caches, none of which a capture may do), and captures
-the graph from that step's result. A replay launches the same kernels in
+A step is captured once as a CUDA graph (``Graph``) over static copies of
+its arguments: the state it reads (a burst's body writes its result back
+into it), the params and any field. A call copies its inputs into them,
+replays the graph once per step and hands back copies of the body's
+outputs, never a buffer that the next replay overwrites. The graphs are
+cached by key (``Runners``): a key's first call runs its first step
+eagerly, on a side stream (that step builds the kernels, sets their
+shared-memory limits and fills the step's caches, none of which a capture
+may do), then captures the graph. A replay launches the same kernels in
 the same order as the eager step, so a graphed burst is bitwise its eager
 burst. A capture that fails raises; nothing falls back to the eager loop.
+Calls are graphed where ``graphable`` says so.
 
-Launch counts: a kernel wrapper counts a launch when Python calls it,
-which a replay does not do. The counts a capture made are taken back and
-added again on every replay, so the counters read the launches that ran.
-A sharded step's mesh notes its collectives as Python makes them; a
-``CallGraph`` keeps its capture's notes and notes them again per replay.
+Launch counts: a kernel wrapper counts a launch in ``_build.LAUNCHES``
+when Python calls it, which a replay does not do. The counts a capture
+made are taken back and added again on every replay, so the counter reads
+the launches that ran. A sharded step's mesh notes its collectives as
+Python makes them; a graph keeps its capture's notes and notes them again
+per replay.
 """
 
 from __future__ import annotations
@@ -26,45 +29,34 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import time
 
 import torch
 
+from ._build import LAUNCHES
+from .params import SimSettings
 from .utils.profiling import span
 
 
-def _counters():
-    """Every kernel wrapper's launch-count dict."""
-    from .ops import (dense, far_sharded, fused, rebin, render_coarse,
-                      resident, sph)
+def graphable(*devices) -> bool:
+    """Whether calls on ``devices`` (a step's device, or a mesh's shards')
+    replay a CUDA graph: all on one CUDA device. A mesh over several cards
+    runs eagerly (a capture across cards is untested), as does the CPU."""
+    return len(set(devices)) == 1 and devices[0].type == "cuda"
 
-    return (fused.LAUNCHES, rebin.LAUNCHES, render_coarse.LAUNCHES,
-            sph.LAUNCHES, resident.LAUNCHES, far_sharded.LAUNCHES,
-            dense.LAUNCHES)
+
+@functools.cache
+def _field_names(kind) -> tuple:
+    return tuple(f.name for f in dataclasses.fields(kind))
 
 
 def signature(obj) -> tuple:
     """Shapes and types of a dataclass of tensors (the static copies a
     graph of it holds)."""
-    return tuple((f.name, tuple(getattr(obj, f.name).shape),
-                  getattr(obj, f.name).dtype)
-                 for f in dataclasses.fields(obj))
-
-
-def clone_fields(obj, device=None):
-    """A copy of a dataclass of tensors, each field cloned (onto
-    ``device`` where given)."""
-    def one(t):
-        return (t if device is None else t.to(device)).clone()
-
-    return dataclasses.replace(obj, **{
-        f.name: one(getattr(obj, f.name)) for f in dataclasses.fields(obj)})
-
-
-def copy_fields(dst, src) -> None:
-    """Each tensor field of ``src`` copied into ``dst``'s, in place."""
-    for f in dataclasses.fields(dst):
-        getattr(dst, f.name).copy_(getattr(src, f.name))
+    return tuple((n, tuple(t.shape), t.dtype)
+                 for n, t in ((n, getattr(obj, n))
+                              for n in _field_names(type(obj))))
 
 
 def on_side_stream(fn, device):
@@ -94,82 +86,6 @@ def node_count(graph: torch.cuda.CUDAGraph):
     return int(n.value) if err == 0 else None
 
 
-# every capture's record: what, capture_s, instantiate_s, nodes, launches
-CAPTURES: list = []
-# the burst runners by key: (family, runner)
-_RUNNERS: dict = {}
-
-
-def burst(key, family, device, n_steps: int, step, build, state, *inputs):
-    """``n_steps`` of ``step(state, *inputs)`` as a burst: the calls of the
-    runner cached under ``key`` (``runner(state, n_steps, *inputs)``,
-    replays of a graph). A key's first burst runs its first step eagerly on
-    a side stream, then builds the runner from that step's result
-    (``build(state, *inputs)``), dropping the runners of the same
-    ``family`` under other keys (a step's graphs go when the step is
-    rebuilt at another cell capacity)."""
-    if n_steps <= 0:
-        return state
-    hit = _RUNNERS.get(key)
-    if hit is None:
-        state = on_side_stream(lambda: step(state, *inputs), device)
-        for k in [k for k, (f, _) in _RUNNERS.items() if f == family]:
-            del _RUNNERS[k]
-        hit = _RUNNERS[key] = (family, build(state, *inputs))
-        n_steps -= 1
-        if n_steps == 0:
-            return state
-    return hit[1](state, n_steps, *inputs)
-
-
-class StepGraph:
-    """``body()`` captured as a CUDA graph on ``device``; ``replay(n)`` runs
-    it n times on the current stream. ``capture_s``, ``instantiate_s``:
-    the host seconds of the capture and of the instantiation; ``nodes``:
-    the graph's node count; ``launches``: the kernel launches of one
-    replay, by counter."""
-
-    def __init__(self, body, device, what: str):
-        with span("tpufluid_torch.capture"):
-            self._capture(body, torch.device(device), what)
-
-    def _capture(self, body, device, what: str) -> None:
-        counts = _counters()
-        before = [dict(c) for c in counts]
-        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
-        stream = torch.cuda.Stream(device)
-        stream.wait_stream(torch.cuda.current_stream(device))
-        t0 = time.perf_counter()
-        try:
-            with torch.cuda.graph(self.graph, stream=stream):
-                body()
-            t1 = time.perf_counter()
-            self.graph.instantiate()
-        except Exception as err:
-            raise RuntimeError(f"capturing {what} as a CUDA graph failed: "
-                               f"{err}") from err
-        finally:
-            delta = [{n: c[n] - b.get(n, 0) for n in c}
-                     for c, b in zip(counts, before)]
-            for c, b in zip(counts, before):
-                c.update(b)
-        self.instantiate_s = time.perf_counter() - t1
-        self.capture_s = t1 - t0
-        self.nodes = node_count(self.graph)
-        self._delta = [{n: v for n, v in d.items() if v} for d in delta]
-        self.launches = {n: v for d in self._delta for n, v in d.items()}
-        CAPTURES.append(dict(what=what, capture_s=self.capture_s,
-                             instantiate_s=self.instantiate_s,
-                             nodes=self.nodes, launches=self.launches))
-
-    def replay(self, n: int) -> None:
-        for _ in range(n):
-            self.graph.replay()
-        for counts, d in zip(_counters(), self._delta):
-            for name, v in d.items():
-                counts[name] += v * n
-
-
 def flatten(obj, out=None):
     """(tensors, spec) of a tree of tensors: dataclasses, tuples, lists,
     dicts and None around them. ``unflatten(spec, tensors)`` rebuilds it."""
@@ -192,74 +108,157 @@ def flatten(obj, out=None):
     return out, spec
 
 
+def leaves(obj, out=None) -> list:
+    """``flatten(obj)[0]`` without the spec: a call's tensors, on the host
+    path of every replay."""
+    out = [] if out is None else out
+    if isinstance(obj, torch.Tensor):
+        out.append(obj)
+    elif isinstance(obj, (tuple, list)):
+        for x in obj:
+            leaves(x, out)
+    elif isinstance(obj, dict):
+        for x in obj.values():
+            leaves(x, out)
+    elif obj is not None:  # a dataclass
+        for n in _field_names(type(obj)):
+            leaves(getattr(obj, n), out)
+    return out
+
+
 def unflatten(spec, tensors):
-    it = iter(tensors)
-
-    def build(sp):
-        if sp == "t":
-            return next(it)
-        if sp is None:
-            return None
-        kind, parts = sp
-        if kind is dict:
-            return {k: build(v) for k, v in parts}
-        if kind in (tuple, list):
-            return kind(build(v) for v in parts)
-        return kind(**{k: build(v) for k, v in parts})
-
-    return build(spec)
+    return _unflatten(spec, iter(tensors))
 
 
-class CallGraph:
-    """``fn(*args)`` captured once as a CUDA graph over static copies of
-    the tensors of ``args`` (``flat``, ``spec``: ``flatten(args)``); a call
-    with the tensors of arguments of the same structure and shapes copies
-    them in, replays once, and hands back clones of the outputs in
-    ``fn``'s structure, never the static buffers. ``mesh``: a sharded
-    step's mesh; the collectives the capture noted are noted again on
-    every replay (``Mesh.replayed``), so an audit of a replay counts one
-    step's traffic."""
+def _unflatten(spec, it):
+    # a module-level recursion: a nested one would be a reference cycle
+    # that keeps ``tensors`` (a call's results) alive until the collector
+    # runs
+    if spec == "t":
+        return next(it)
+    if spec is None:
+        return None
+    kind, parts = spec
+    if kind is dict:
+        return {k: _unflatten(v, it) for k, v in parts}
+    if kind in (tuple, list):
+        return kind(_unflatten(v, it) for v in parts)
+    return kind(**{k: _unflatten(v, it) for k, v in parts})
 
-    def __init__(self, fn, flat, spec, device, what: str, mesh=None):
-        self.inputs = [t.clone() for t in flat]
-        self._out = None
+
+# every capture's record: what, capture_s, instantiate_s, nodes, launches
+CAPTURES: list = []
+
+
+class Graph:
+    """``body(*static)`` captured as one CUDA graph on ``device``, where
+    ``static`` holds clones of the tensors of ``args`` in their tree. A
+    call ``graph(flat, n)`` with the tensors of arguments of the same tree
+    and shapes (``leaves(args)``) copies them in, replays ``n`` times
+    and hands back clones of the body's outputs in its tree, never the
+    static buffers; a body whose steps carry a state writes it back into
+    its static arguments. ``mesh``: a sharded step's mesh; the collectives
+    the capture noted are noted again on every replay
+    (``Mesh.replayed``), so an audit of a replay counts one step's traffic.
+
+    ``capture_s``, ``instantiate_s``: the host seconds of the capture and
+    of the instantiation; ``nodes``: the graph's node count; ``launches``:
+    the kernel launches of one replay, by name."""
+
+    def __init__(self, body, args, device, what: str, mesh=None):
+        flat, spec = flatten(args)
+        self.static = [t.clone() for t in flat]
         self.mesh = mesh
 
-        def body():
-            self._out = flatten(fn(*unflatten(spec, self.inputs)))
+        def run():
+            self._outs, self._out_spec = flatten(
+                body(*unflatten(spec, self.static)))
 
         with (mesh.recording() if mesh is not None
-              else contextlib.nullcontext()) as notes:
-            self.graph = StepGraph(body, device, what)
+              else contextlib.nullcontext()) as notes, \
+                span("tpufluid_torch.capture"):
+            before = dict(LAUNCHES)
+            try:
+                self._capture(run, torch.device(device), what)
+            finally:
+                self.launches = {n: v - before[n]
+                                 for n, v in LAUNCHES.items()
+                                 if v != before[n]}
+                LAUNCHES.update(before)
+            CAPTURES.append(dict(what=what, capture_s=self.capture_s,
+                                 instantiate_s=self.instantiate_s,
+                                 nodes=self.nodes, launches=self.launches))
         self.notes = notes
 
-    def __call__(self, flat):
-        for dst, src in zip(self.inputs, flat):
+    def _capture(self, run, device, what: str) -> None:
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(self.graph, stream=stream):
+                run()
+            t1 = time.perf_counter()
+            self.graph.instantiate()
+        except Exception as err:
+            raise RuntimeError(f"capturing {what} as a CUDA graph failed: "
+                               f"{err}") from err
+        self.instantiate_s = time.perf_counter() - t1
+        self.capture_s = t1 - t0
+        self.nodes = node_count(self.graph)
+
+    def replay(self, n: int) -> None:
+        for _ in range(n):
+            self.graph.replay()
+
+    def __call__(self, flat, n: int = 1):
+        for dst, src in zip(self.static, flat):
             dst.copy_(src)
-        self.graph.replay(1)
+        self.replay(n)
+        for name, v in self.launches.items():
+            LAUNCHES[name] += v * n
         if self.mesh is not None:
-            self.mesh.replayed(self.notes)
-        outs, spec = self._out
-        return unflatten(spec, [t.clone() for t in outs])
+            for _ in range(n):
+                self.mesh.replayed(self.notes)
+        return unflatten(self._out_spec, [t.clone() for t in self._outs])
 
 
-def graphed_calls(fn, device, what: str, mesh=None):
-    """``call(*args)``: ``fn(*args)`` replayed as a ``CallGraph``, one per
-    argument structure with its tensors' shapes, dtypes and devices. Its
-    first call runs ``fn`` eagerly on a side stream (kernel builds,
-    shared-memory limits, cached tables), returns that result and captures
-    the graph from its arguments; later calls replay."""
-    cache = {}
+def _family(key) -> tuple:
+    """``key`` with its settings' cell capacity taken out: the keys of the
+    same step built at another K."""
+    return tuple(dataclasses.replace(x, cell_capacity=1)
+                 if isinstance(x, SimSettings) else x for x in key)
 
-    def call(*args):
-        flat, spec = flatten(args)
-        key = (spec, tuple((tuple(t.shape), t.dtype, t.device)
-                           for t in flat))
-        g = cache.get(key)
-        if g is None:
-            out = on_side_stream(lambda: fn(*args), device)
-            cache[key] = CallGraph(fn, flat, spec, device, what, mesh)
-            return out
-        return g(flat)
 
-    return call
+class Runners(dict):
+    """Graphs by key, each with its family (``_family``): a capture drops
+    the graphs of its family under other keys (a step's graphs go when the
+    step is rebuilt at another cell capacity)."""
+
+    def burst(self, key, device, n: int, step, body, what: str, *args,
+              mesh=None):
+        """``n`` calls of ``step(*args)``, each result the next call's
+        first argument (a burst of steps; ``n = 1`` for a call), as
+        replays of the ``Graph`` of ``body`` cached under ``key``. A key's
+        first call runs ``step`` once eagerly on a side stream, then
+        captures ``body`` over ``args``."""
+        if n <= 0:
+            return args[0]
+        hit = self.get(key)
+        if hit is None:
+            out = on_side_stream(lambda: step(*args), device)
+            family = _family(key)
+            for k in [k for k, (f, _) in self.items() if f == family]:
+                del self[k]
+            hit = self[key] = (family, Graph(body, args, device, what,
+                                             mesh))
+            n -= 1
+            if n == 0:
+                return out
+            args = (out,) + args[1:]
+        return hit[1](leaves(args), n)
+
+
+# the step bursts' graphs (a sharded step keeps its own)
+_RUNNERS = Runners()
+burst = _RUNNERS.burst

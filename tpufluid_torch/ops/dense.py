@@ -16,7 +16,7 @@ reference. ``density`` and ``forces`` dispatch on where the grid lies: on
 the CPU they run the passes; on a CUDA device they launch the hand-written
 kernels ``dense_density`` (``csrc/sph_density.cu``) and ``dense_forces``
 (``csrc/sph_forces.cu``), bitwise the passes over the whole grid, counted
-in ``LAUNCHES``, or raise; they never fall back. Those are the pallas
+in ``_build.LAUNCHES``, or raise; they never fall back. Those are the pallas
 engine's tile kernels with the roll's semantics: rows wrap, and each pair
 term rounds as the passes round it. Each stages a tile of cells with all K
 slots in shared memory, so takes K up to ``ops.sph.max_capacity``.
@@ -42,13 +42,10 @@ import torch
 from .. import _build
 from ..params import SimSettings
 from . import kernels, sph
-from .fused import _check_grids, _launched, _on_cuda, _ptr, _stream
+from .._build import launched, on_cuda, ptr, stream
+from .fused import _check_grids
 from .prng import U32, position_seed, rand_unit_vector
 from .pairs import ORDINAL_SALT, PAIR_ORDER_SALT
-
-# kernel launches per wrapper (CUDA tensors only)
-LAUNCHES = {"dense_density": 0, "dense_forces": 0, "dense_build": 0,
-            "dense_readback": 0}
 
 
 class DenseGrid(NamedTuple):
@@ -118,7 +115,7 @@ def build(pxs, pys, vxs, vys, sorted_cells: torch.Tensor,
     one [4, Gy, K, Gxp] buffer, ``valid`` and ``n_dropped`` of one byte
     buffer behind it (``csrc/dense_glue.cu`` zeroes it with one memset)."""
     cols = (pxs, pys, vxs, vys)
-    if not _on_cuda(*cols, sorted_cells):
+    if not on_cuda(*cols, sorted_cells):
         return build_grid_cols(*cols, sorted_cells, settings, dims=dims)
     n = sorted_cells.shape[0]
     if (sorted_cells.dtype not in (torch.int32, torch.int64)
@@ -139,10 +136,10 @@ def build(pxs, pys, vxs, vys, sorted_cells: torch.Tensor,
     # csrc/dense_glue.cu's layout: f32[4][size], u8[size] valid, i32 count
     buf = torch.empty(17 * size + 4, dtype=torch.uint8, device=dev)
     err = _build.load().tf_dense_build(
-        *(_ptr(c) for c in cols), *(c.stride(0) for c in cols),
-        _ptr(sorted_cells), sorted_cells.element_size(), n, gy, k, gx,
-        gx_pad, _ptr(flat), _ptr(buf), _stream(dev))
-    _launched("dense_build", err, LAUNCHES)
+        *(ptr(c) for c in cols), *(c.stride(0) for c in cols),
+        ptr(sorted_cells), sorted_cells.element_size(), n, gy, k, gx,
+        gx_pad, ptr(flat), ptr(buf), stream(dev))
+    launched("dense_build", err)
     shape = (gy, k, gx_pad)
     grids = buf[:16 * size].view(torch.float32).view(4, *shape)
     return DenseGrid(
@@ -166,7 +163,7 @@ def readback_cols(flat: torch.Tensor, fields):
 def readback(flat: torch.Tensor, fields):
     """``readback_cols``: on a CUDA device the kernel ``dense_readback``,
     bitwise it; the columns are the rows of one [5, N] buffer."""
-    if not _on_cuda(flat, *fields):
+    if not on_cuda(flat, *fields):
         return readback_cols(flat, fields)
     _check_grids(fields[0].shape, *fields)
     if (flat.dtype != torch.int64 or flat.dim() != 1
@@ -176,9 +173,9 @@ def readback(flat: torch.Tensor, fields):
     n = flat.shape[0]
     out = torch.empty((5, n), dtype=torch.float32, device=flat.device)
     err = _build.load().tf_dense_readback(
-        _ptr(flat), n, fields[0].numel(), *(_ptr(a) for a in fields),
-        _ptr(out), _stream(flat.device))
-    _launched("dense_readback", err, LAUNCHES)
+        ptr(flat), n, fields[0].numel(), *(ptr(a) for a in fields),
+        ptr(out), stream(flat.device))
+    launched("dense_readback", err)
     return tuple(out)
 
 
@@ -329,7 +326,7 @@ def density(grid: DenseGrid, mass, h: float) -> torch.Tensor:
     if not isinstance(mass, torch.Tensor):
         mass = torch.as_tensor(mass, dtype=torch.float32,
                                device=grid.px.device)
-    if not _on_cuda(grid.px, grid.py, grid.valid, mass):
+    if not on_cuda(grid.px, grid.py, grid.valid, mass):
         return density_pass(grid, mass, h)
     gy, k, gx = grid.px.shape
     _check_grids((gy, k, gx), grid.px, grid.py)
@@ -338,10 +335,11 @@ def density(grid: DenseGrid, mass, h: float) -> torch.Tensor:
     hf = kernels._f32(float(h))
     norm = kernels._f32(4.0 / (kernels.PI * hf**8))  # as kernels.poly6
     err = _build.load().tf_dense_density(
-        _ptr(grid.px), _ptr(grid.py), _ptr(grid.valid),
-        _ptr(mass.to(torch.float32).reshape(1)), _ptr(out), gy, k, gx,
-        kernels._h2(hf), norm, _stream(grid.px.device))
-    sph._launched_at("dense_density", err, k, LAUNCHES)
+        ptr(grid.px), ptr(grid.py), ptr(grid.valid),
+        ptr(mass.to(torch.float32).reshape(1)), ptr(out), gy, k, gx,
+        kernels._h2(hf), norm, stream(grid.px.device))
+    sph.check_capacity("dense_density", err, k)
+    launched("dense_density", err)
     return out
 
 
@@ -351,8 +349,8 @@ def forces(grid: DenseGrid, dens_g, params, h: float, sqr_radius: float,
            adaptive_subsampling: bool = False):
     """``force_pass``: on a CUDA device the kernel ``dense_forces``,
     bitwise the pass over the whole grid."""
-    if not _on_cuda(grid.px, grid.py, grid.vx, grid.vy, grid.valid, dens_g,
-                    params.mass):
+    if not on_cuda(grid.px, grid.py, grid.vx, grid.vy, grid.valid, dens_g,
+                   params.mass):
         return force_pass(grid, dens_g, params, h, sqr_radius, spiky_norm,
                           visc_norm, frame, surface_tension,
                           adaptive_subsampling)
@@ -368,14 +366,15 @@ def forces(grid: DenseGrid, dens_g, params, h: float, sqr_radius: float,
     hf, h2 = f32(float(h)), kernels._h2(float(h))
     pi_h8 = kernels.PI * hf**8
     err = _build.load().tf_dense_forces(
-        _ptr(grid.px), _ptr(grid.py), _ptr(grid.vx), _ptr(grid.vy),
-        _ptr(grid.valid), _ptr(dens_g), _ptr(sph._scalars(params)), _ptr(fr),
-        *(_ptr(o) for o in outs), gy, k, gx,
+        ptr(grid.px), ptr(grid.py), ptr(grid.vx), ptr(grid.vy),
+        ptr(grid.valid), ptr(dens_g), ptr(sph._scalars(params)), ptr(fr),
+        *(ptr(o) for o in outs), gy, k, gx,
         int(surface_tension), int(adaptive_subsampling),
         hf, h2, f32(sqr_radius), f32(spiky_norm), f32(visc_norm),
         f32(2.0 * hf**3), f32(-24.0 / pi_h8), f32(8.0 / pi_h8),
-        f32(3.0 * h2), _stream(dev))
-    sph._launched_at("dense_forces", err, k, LAUNCHES)
+        f32(3.0 * h2), stream(dev))
+    sph.check_capacity("dense_forces", err, k)
+    launched("dense_forces", err)
     return tuple(outs)
 
 

@@ -27,15 +27,12 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from .._build import launched, on_cuda, ptr, stream
 from ..params import SimSettings
 from . import fused
 from . import resident as residentops
 from .dense import ranks
 from .fused import SENTINEL_HALF
-
-# kernel launches (CUDA tensors only), one each a band a step of the
-# sharded step on a CUDA device, gate open or not
-LAUNCHES = {"far_collect": 0, "far_insert": 0}
 
 PACKET_W = 5
 
@@ -118,7 +115,7 @@ def far_collect(px, py, vx, vy, occ_row, far_n, total, dt,
     ``csrc/far_sharded.cu``, gated on ``total`` on the device (with it 0
     neither output is written); on the CPU :func:`far_packet_plain`."""
     grids = (px, py, vx, vy)
-    if not fused._on_cuda(*grids, occ_row, far_n, total):
+    if not on_cuda(*grids, occ_row, far_n, total):
         return far_packet_plain(*grids, dt, settings, row_off, far_capacity)
     rloc, k, gx = px.shape
     _check_band(grids, occ_row, (rloc, k, gx))
@@ -130,11 +127,11 @@ def far_collect(px, py, vx, vy, occ_row, far_n, total, dt,
     pk_drop = torch.empty((), dtype=torch.int32, device=dev)
     h_inv, half_x, half_y, cx_max, cy_max = fused._rebin_consts(settings)
     err = _build.load().tf_far_band_collect(
-        *(fused._ptr(t) for t in (*grids, occ_row, far_n, total)),
-        fused._ptr(fused._as_f32(dt, dev).reshape(1)), fused._ptr(packet),
-        fused._ptr(pk_drop), rloc, k, gx, row_off, far_capacity, h_inv,
-        half_x, half_y, cx_max, cy_max, fused._stream(dev))
-    fused._launched("far_collect", err, LAUNCHES)
+        *(ptr(t) for t in (*grids, occ_row, far_n, total)),
+        ptr(fused._as_f32(dt, dev).reshape(1)), ptr(packet),
+        ptr(pk_drop), rloc, k, gx, row_off, far_capacity, h_inv,
+        half_x, half_y, cx_max, cy_max, stream(dev))
+    launched("far_collect", err)
     return packet, pk_drop
 
 
@@ -146,7 +143,7 @@ def far_insert(g4, occ_row, lost, allp, total, pk_drop, dt,
     ``csrc/far_sharded.cu`` updates ``g4``, ``occ_row`` and ``lost`` (i32
     0-d) in place, gated on ``total`` on the device; on the CPU
     :func:`insert_far_plain`."""
-    if not fused._on_cuda(*g4, occ_row, lost, allp, total, pk_drop):
+    if not on_cuda(*g4, occ_row, lost, allp, total, pk_drop):
         g4, occ, dropped = insert_far_plain(g4, allp, dt, settings, row_off)
         return g4, occ, lost + dropped + pk_drop
     rloc, k, gx = g4[0].shape
@@ -168,10 +165,10 @@ def far_insert(g4, occ_row, lost, allp, total, pk_drop, dt,
     gslot = torch.empty(n_pad if big else 1, dtype=torch.int32, device=dev)
     h_inv, half_x, half_y, cx_max, cy_max = fused._rebin_consts(settings)
     err = lib.tf_far_band_insert(
-        fused._ptr(allp), m, fused._ptr(total), fused._ptr(pk_drop),
-        fused._ptr(fused._as_f32(dt, dev).reshape(1)), fused._ptr(keys),
-        fused._ptr(gslot), *(fused._ptr(t) for t in (*g4, occ_row, lost)),
+        ptr(allp), m, ptr(total), ptr(pk_drop),
+        ptr(fused._as_f32(dt, dev).reshape(1)), ptr(keys),
+        ptr(gslot), *(ptr(t) for t in (*g4, occ_row, lost)),
         rloc, k, gx, row_off, settings.grid_w, h_inv, half_x, half_y,
-        cx_max, cy_max, fused._stream(dev))
-    fused._launched("far_insert", err, LAUNCHES)
+        cx_max, cy_max, stream(dev))
+    launched("far_insert", err)
     return tuple(g4), occ_row, lost

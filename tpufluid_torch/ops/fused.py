@@ -20,7 +20,7 @@ then carry a leading [W] dim (``delta`` stays one scalar).
 Each wrapper dispatches on where its tensors lie. On the CPU it runs the
 plain PyTorch version beside it (``rebin_plain``, ...). On a CUDA device it
 launches the hand-written kernel from ``tpufluid_torch/csrc`` and counts
-the launch in ``LAUNCHES``, or raises; it never falls back.
+the launch in ``_build.LAUNCHES``, or raises; it never falls back.
 
 Plain versions and kernels share one reduction order, which is also the
 TPU kernels': candidates by slot (ascending, below ``occ3``), and for each
@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from .._build import LAUNCHES, launched, on_cuda, ptr, stream
 from ..params import EPSILON, SimSettings
 from . import prng
 
@@ -56,18 +57,6 @@ PI = math.pi
 SENTINEL = 1.0e9
 SENTINEL_HALF = 5.0e8
 MAX_SPEED = 500.0  # compute.wgsl:118-122
-
-# kernel launches per wrapper (CUDA tensors only). The qualified names
-# count the launches of a kernel that took a variant: forces_integrate
-# with an obstacle field (has_ff), x wrap, surface tension, adaptive
-# subsampling or a batched world stack (wid); rebin with row_shift,
-# density with wid.
-LAUNCHES = {"rebin": 0, "rebin_row_shift": 0, "density": 0,
-            "density_wid": 0, "forces_integrate": 0,
-            "forces_integrate_has_ff": 0, "forces_integrate_wrap": 0,
-            "forces_integrate_surface_tension": 0,
-            "forces_integrate_adaptive": 0, "forces_integrate_wid": 0,
-            "physics": 0}
 
 # variant flag bits of the forces and physics kernels (resident_math.cuh)
 _WRAP, _HAS_FF, _ST, _ADAPT = 1, 2, 4, 8
@@ -200,19 +189,6 @@ def _one_world(sc: torch.Tensor, wid_t):
 
 # ----------------------------------------------------------------- checks
 
-def _on_cuda(*tensors) -> bool:
-    """True for CUDA tensors, False for CPU tensors; raises otherwise."""
-    dev = tensors[0].device
-    for t in tensors:
-        if t.device != dev:
-            raise ValueError(f"tensors on {t.device} and {dev}")
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise NotImplementedError(f"no kernel for device {dev}")
-    return True
-
-
 def _check_grids(shape, *grids):
     for g in grids:
         if g.shape != shape or g.dtype != torch.float32 or not g.is_contiguous():
@@ -238,22 +214,6 @@ def _opt_rows(t, gy: int, name: str, device):
     t = torch.as_tensor(t, dtype=torch.int32, device=device).contiguous()
     _check_occ(t, gy, name)
     return t
-
-
-def _ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
-
-
-def _stream(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def _launched(name: str, err: int, launches=LAUNCHES) -> None:
-    """Raise on a nonzero CUDA error of a launch, else count it."""
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
-                           f"{_build.error_string(err)}")
-    launches[name] += 1
 
 
 def _outputs(out, shape, dev):
@@ -372,7 +332,7 @@ def rebin(pos_x, pos_y, vel_x, vel_y, occ_row, dt, settings: SimSettings,
     i32[Gy] for batched world stacks (row y takes the slots whose cell
     row minus ``row_shift[y]`` is y).
     """
-    if not _on_cuda(pos_x, pos_y, vel_x, vel_y, occ_row):
+    if not on_cuda(pos_x, pos_y, vel_x, vel_y, occ_row):
         return rebin_plain(pos_x, pos_y, vel_x, vel_y, occ_row, dt, settings,
                            row_shift)
     gy, k, gx = pos_x.shape
@@ -387,11 +347,11 @@ def rebin(pos_x, pos_y, vel_x, vel_y, occ_row, dt, settings: SimSettings,
     h_inv, half_x, half_y, cx_max, cy_max = _rebin_consts(settings)
     lib = _build.load()
     err = lib.tf_rebin(
-        _ptr(pos_x), _ptr(pos_y), _ptr(vel_x), _ptr(vel_y), _ptr(occ_row),
-        _ptr(shift), _ptr(dt), *(_ptr(o) for o in outs),
-        _ptr(counts[0]), _ptr(counts[1]), _ptr(counts[2]),
-        gy, k, gx, h_inv, half_x, half_y, cx_max, cy_max, _stream(dev))
-    _launched("rebin", err)
+        ptr(pos_x), ptr(pos_y), ptr(vel_x), ptr(vel_y), ptr(occ_row),
+        ptr(shift), ptr(dt), *(ptr(o) for o in outs),
+        ptr(counts[0]), ptr(counts[1]), ptr(counts[2]),
+        gy, k, gx, h_inv, half_x, half_y, cx_max, cy_max, stream(dev))
+    launched("rebin", err)
     if shift is not None:
         LAUNCHES["rebin_row_shift"] += 1
     return (*outs, counts[0], counts[1], counts[2])
@@ -453,7 +413,7 @@ def density(pos_x, pos_y, vel_x, vel_y, occ_row, mass, dt,
     world of each row for batched world stacks; the scalars may then be
     [W]. On a CUDA device ``csrc/density.cu`` runs on the tile it picks
     from K (:func:`density_tile`)."""
-    if not _on_cuda(pos_x, pos_y, vel_x, vel_y, occ_row):
+    if not on_cuda(pos_x, pos_y, vel_x, vel_y, occ_row):
         return density_plain(pos_x, pos_y, vel_x, vel_y, occ_row, mass, dt,
                              pressure_constant, rest_density, settings, wid)
     gy, k, gx = pos_x.shape
@@ -469,10 +429,10 @@ def density(pos_x, pos_y, vel_x, vel_y, occ_row, mass, dt,
     invr = torch.empty((gy, k, gx), dtype=torch.float32, device=dev)
     lib = _build.load()
     err = lib.tf_density(
-        _ptr(pos_x), _ptr(pos_y), _ptr(vel_x), _ptr(vel_y), _ptr(occ_row),
-        _ptr(wid_t), _ptr(sc), _ptr(pres), _ptr(invr), gy, k, gx, h2, norm,
-        half_x, half_y, _stream(dev))
-    _launched("density", err)
+        ptr(pos_x), ptr(pos_y), ptr(vel_x), ptr(vel_y), ptr(occ_row),
+        ptr(wid_t), ptr(sc), ptr(pres), ptr(invr), gy, k, gx, h2, norm,
+        half_x, half_y, stream(dev))
+    launched("density", err)
     if wid_t is not None:
         LAUNCHES["density_wid"] += 1
     return pres, invr
@@ -821,7 +781,7 @@ def forces_integrate(pos_x, pos_y, vel_x, vel_y, pres, invr, occ_row,
     flags = _flags(x_boundary, ff_cells, surface_tension,
                    adaptive_subsampling)
     ffs = () if ff_cells is None else tuple(ff_cells)
-    if not _on_cuda(pos_x, pos_y, vel_x, vel_y, pres, invr, occ_row, *ffs):
+    if not on_cuda(pos_x, pos_y, vel_x, vel_y, pres, invr, occ_row, *ffs):
         return _into(out, forces_integrate_plain(
             pos_x, pos_y, vel_x, vel_y, pres, invr, occ_row, params,
             settings, frame, ff_cells, x_boundary, surface_tension,
@@ -839,12 +799,12 @@ def forces_integrate(pos_x, pos_y, vel_x, vel_y, pres, invr, occ_row,
     outs = _outputs(out, (gy, k, gx), dev)
     lib = _build.load()
     err = lib.tf_forces(
-        _ptr(pos_x), _ptr(pos_y), _ptr(vel_x), _ptr(vel_y), _ptr(pres),
-        _ptr(invr), _ptr(occ_row), _ptr(wid_t), _ptr(sc), _ptr(fr),
-        *([_ptr(f) for f in ffs] if ffs else [None, None]),
-        *(_ptr(o) for o in outs), gy, k, gx, flags,
-        _consts_struct(settings), _stream(dev))
-    _launched("forces_integrate", err)
+        ptr(pos_x), ptr(pos_y), ptr(vel_x), ptr(vel_y), ptr(pres),
+        ptr(invr), ptr(occ_row), ptr(wid_t), ptr(sc), ptr(fr),
+        *([ptr(f) for f in ffs] if ffs else [None, None]),
+        *(ptr(o) for o in outs), gy, k, gx, flags,
+        _consts_struct(settings), stream(dev))
+    launched("forces_integrate", err)
     _count_variants(flags, wid_t)
     return tuple(outs)
 
@@ -881,7 +841,7 @@ def physics(pos_x, pos_y, vel_x, vel_y, occ_row, params,
     flags = _flags(x_boundary, ff_cells, surface_tension,
                    adaptive_subsampling)
     ffs = () if ff_cells is None else tuple(ff_cells)
-    if not _on_cuda(pos_x, pos_y, vel_x, vel_y, occ_row, *ffs):
+    if not on_cuda(pos_x, pos_y, vel_x, vel_y, occ_row, *ffs):
         return _into(out, physics_plain(
             pos_x, pos_y, vel_x, vel_y, occ_row, params, settings, frame,
             ff_cells, x_boundary, surface_tension, adaptive_subsampling,
@@ -900,14 +860,14 @@ def physics(pos_x, pos_y, vel_x, vel_y, occ_row, params,
     h2, norm, _, _ = _density_consts(settings)
     lib = _build.load()
     err = lib.tf_physics(
-        _ptr(pos_x), _ptr(pos_y), _ptr(vel_x), _ptr(vel_y), _ptr(occ_row),
-        _ptr(wid_t), _ptr(sc), _ptr(fr),
-        *([_ptr(f) for f in ffs] if ffs else [None, None]),
-        *(_ptr(o) for o in outs), gy, k, gx, flags, h2, norm,
-        _consts_struct(settings), _stream(dev))
+        ptr(pos_x), ptr(pos_y), ptr(vel_x), ptr(vel_y), ptr(occ_row),
+        ptr(wid_t), ptr(sc), ptr(fr),
+        *([ptr(f) for f in ffs] if ffs else [None, None]),
+        *(ptr(o) for o in outs), gy, k, gx, flags, h2, norm,
+        _consts_struct(settings), stream(dev))
     if err != 0 and k > physics_max_capacity():  # the launcher found no tile
         raise ValueError(f"physics: cell_capacity {k} is above the largest "
                          f"the kernel stages in shared memory, "
                          f"{physics_max_capacity()}{_USE_SPLIT}")
-    _launched("physics", err)
+    launched("physics", err)
     return tuple(outs)

@@ -24,7 +24,7 @@ a step path. It is ported for completeness, with its own semantics:
 On the CPU :func:`rebin_valid` runs :func:`rebin_valid_plain`; on a CUDA
 device it launches ``csrc/rebin_valid.cu`` (on the tile of target cells it
 picks from K: :func:`rebin_valid_tile`) and counts the launch in
-``LAUNCHES``, or raises; it never falls back.
+``_build.LAUNCHES``, or raises; it never falls back.
 """
 
 from __future__ import annotations
@@ -33,11 +33,8 @@ import torch
 
 from .. import _build
 from ..params import SimSettings
-from .fused import (_as_f32, _cells, _check_grids, _f32, _launched, _on_cuda,
-                    _ptr, _rebin_consts, _stream, _tile)
-
-# kernel launches (CUDA tensors only)
-LAUNCHES = {"rebin_valid": 0}
+from .._build import launched, on_cuda, ptr, stream
+from .fused import _as_f32, _cells, _check_grids, _f32, _rebin_consts, _tile
 
 
 def rebin_valid_tile(k: int):
@@ -99,7 +96,7 @@ def rebin_valid(pos_x, pos_y, vel_x, vel_y, valid_f, dt,
     vel_x', vel_y', valid_f', lost') as the JAX kernel does: far movers and
     arrivals beyond K are left out of the output and counted in ``lost'``
     (per source cell, divided over its K slots)."""
-    if not _on_cuda(pos_x, pos_y, vel_x, vel_y, valid_f):
+    if not on_cuda(pos_x, pos_y, vel_x, vel_y, valid_f):
         return rebin_valid_plain(pos_x, pos_y, vel_x, vel_y, valid_f, dt,
                                  settings)
     gy, k, gx = pos_x.shape
@@ -110,8 +107,8 @@ def rebin_valid(pos_x, pos_y, vel_x, vel_y, valid_f, dt,
             for _ in range(6)]
     h_inv, half_x, half_y, cx_max, cy_max = _rebin_consts(settings)
     err = _build.load().tf_rebin_valid(
-        _ptr(pos_x), _ptr(pos_y), _ptr(vel_x), _ptr(vel_y), _ptr(valid_f),
-        _ptr(dt), *(_ptr(o) for o in outs), gy, k, gx, h_inv, half_x,
-        half_y, cx_max, cy_max, _f32(1.0 / k), _stream(dev))
-    _launched("rebin_valid", err, LAUNCHES)
+        ptr(pos_x), ptr(pos_y), ptr(vel_x), ptr(vel_y), ptr(valid_f),
+        ptr(dt), *(ptr(o) for o in outs), gy, k, gx, h_inv, half_x,
+        half_y, cx_max, cy_max, _f32(1.0 / k), stream(dev))
+    launched("rebin_valid", err)
     return tuple(outs)

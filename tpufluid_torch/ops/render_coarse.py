@@ -17,7 +17,7 @@ the field.
 
 On the CPU :func:`coarse_metaball_fields` runs the plain version beside
 it; on a CUDA device it launches ``csrc/metaball_coarse.cu`` and counts
-the launch in ``LAUNCHES``, or raises.
+the launch in ``_build.LAUNCHES``, or raises.
 """
 
 from __future__ import annotations
@@ -27,13 +27,11 @@ import torch
 
 from .. import _build
 from ..params import SimSettings
-from .fused import _check_occ, _f32, _launched, _on_cuda, _ptr, _stream
+from .._build import launched, on_cuda, ptr, stream
+from .fused import _check_occ, _f32
 
 # cells of horizontal reach: the 2.5h influence radius fits in +-3 cells
 DX_REACH = 3
-
-# kernel launches (CUDA tensors only)
-LAUNCHES = {"metaball_coarse": 0}
 
 
 def _consts(settings: SimSettings, sup: int):
@@ -119,7 +117,7 @@ def coarse_metaball_fields(pos_x, pos_y, speed, occ_row,
     """(density, velocity_factor) f32[sup*Gy, sup*Gxp] on the coarse world
     lattice. pos_x / pos_y / speed: slot grids f32[Gy, K, Gxp] (empty
     slots at pos = SENTINEL, speed 0); occ_row: i32[Gy]."""
-    if not _on_cuda(pos_x, pos_y, speed, occ_row):
+    if not on_cuda(pos_x, pos_y, speed, occ_row):
         return coarse_metaball_fields_plain(pos_x, pos_y, speed, occ_row,
                                             settings, supersample)
     gy, k, gxp = pos_x.shape
@@ -132,8 +130,8 @@ def coarse_metaball_fields(pos_x, pos_y, speed, occ_row,
     dens = torch.empty((sup * gy, sup * gxp), dtype=torch.float32, device=dev)
     velf = torch.empty_like(dens)
     err = _build.load().tf_metaball_coarse(
-        _ptr(pos_x), _ptr(pos_y), _ptr(speed), _ptr(occ_row), _ptr(dens),
-        _ptr(velf), gy, k, gxp, sup, n_rows, neg_inv_tau, h_s, off_x, off_y,
-        _stream(dev))
-    _launched("metaball_coarse", err, LAUNCHES)
+        ptr(pos_x), ptr(pos_y), ptr(speed), ptr(occ_row), ptr(dens),
+        ptr(velf), gy, k, gxp, sup, n_rows, neg_inv_tau, h_s, off_x, off_y,
+        stream(dev))
+    launched("metaball_coarse", err)
     return dens, velf

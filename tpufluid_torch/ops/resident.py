@@ -42,6 +42,7 @@ from typing import Tuple
 import torch
 
 from .. import _build, graphs
+from .._build import launched, on_cuda, ptr, stream
 from ..params import SimSettings
 from ..state import ParticleState, init_state
 from . import grid as gridops
@@ -247,12 +248,6 @@ def put_flat(grid: torch.Tensor, flat: torch.Tensor, vals: torch.Tensor):
     return buf[:size].reshape(grid.shape)
 
 
-# far-mover pass launches (csrc/far_reinsert.cu; CUDA tensors only), one a
-# step of the kernel step on a CUDA device, gate open or not. Apart from
-# fused.LAUNCHES, which counts the step's rebin and physics kernels.
-LAUNCHES = {"far_reinsert": 0}
-
-
 def _pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
@@ -270,7 +265,7 @@ def far_reinsert(gs: GridState, px, py, vx, vy, occ_row, far_n, lost, dt,
     1 to ``far_steps`` (i64[1]) when it is not; no host read. On the CPU the
     plain version runs whatever the count (the step gates it there)."""
     grids = (px, py, vx, vy)
-    if not fused._on_cuda(*grids, occ_row, far_n, lost, *_grid_tensors(gs)):
+    if not on_cuda(*grids, occ_row, far_n, lost, *_grid_tensors(gs)):
         *out, dropped = _reinsert_far(gs, *grids, far_n.sum(), dt, settings,
                                       far_capacity)
         return (*out, lost + dropped)
@@ -296,13 +291,13 @@ def far_reinsert(gs: GridState, px, py, vx, vy, occ_row, far_n, lost, dt,
                         dtype=torch.int32, device=dev)
     h_inv, half_x, half_y, cx_max, cy_max = fused._rebin_consts(settings)
     err = lib.tf_far_reinsert(
-        *(fused._ptr(t) for t in _grid_tensors(gs)[:5]), fused._ptr(far_n),
-        fused._ptr(fused._as_f32(dt, dev).reshape(1)), fused._ptr(keys),
-        fused._ptr(movers), fused._ptr(gslot),
-        *(fused._ptr(t) for t in (*grids, occ_row, lost, far_steps)),
+        *(ptr(t) for t in _grid_tensors(gs)[:5]), ptr(far_n),
+        ptr(fused._as_f32(dt, dev).reshape(1)), ptr(keys),
+        ptr(movers), ptr(gslot),
+        *(ptr(t) for t in (*grids, occ_row, lost, far_steps)),
         gy, k, gx, _rows(settings), settings.grid_w, far_capacity, h_inv,
-        half_x, half_y, cx_max, cy_max, fused._stream(dev))
-    fused._launched("far_reinsert", err, LAUNCHES)
+        half_x, half_y, cx_max, cy_max, stream(dev))
+    launched("far_reinsert", err)
     return (*grids, occ_row, lost)
 
 
@@ -418,12 +413,10 @@ class GridStep:
             raise ValueError(f"unknown x_boundary {x_boundary!r}")
         if n_worlds < 1:
             raise ValueError(f"n_worlds {n_worlds} < 1")
-        # a step of the same arguments but K: its burst graphs go when
-        # this step captures its own
-        self.family = (dataclasses.replace(settings, cell_capacity=1),
-                       far_capacity, x_boundary, has_force_field,
-                       surface_tension, adaptive_subsampling, n_worlds,
-                       kernels)
+        # its burst graphs' key (``graphs.Runners``): the step's arguments,
+        # one step to a key through ``make_grid_step``'s cache
+        self.key = (settings, far_capacity, x_boundary, has_force_field,
+                    surface_tension, adaptive_subsampling, n_worlds, kernels)
         self.settings = settings = pad_capacity(settings)
         k = settings.cell_capacity
         self.rows_w = _rows(settings)
@@ -541,42 +534,15 @@ class GridStep:
 
     def burst(self, gs: GridState, params, n_steps: int,
               forcefield=None) -> GridState:
-        """``n_steps`` steps on a CUDA device as replays of this step's
-        CUDA graph (``graphs.burst``); fresh tensors out."""
-        ff_cells = self.cells(forcefield)
+        """``n_steps`` steps as replays of this step's CUDA graph
+        (``graphs.burst``), which overwrites its static state with each
+        step's result (``advance(out=)``); fresh tensors out."""
         dev = gs.pos_x.device
         return graphs.burst(
-            (self, dev, graphs.signature(params)), (self.family, dev), dev,
-            n_steps, self.advance,
-            lambda g, p, ff: _ResidentGraph(self, g, p, ff), gs, params,
-            ff_cells)
-
-
-class _ResidentGraph:
-    """A resident step captured as one CUDA graph over a static state that
-    it reads and then overwrites with its result (``advance(out=)``), the
-    params' static copies and the field's cell samples' static copies; a
-    call copies its inputs in, replays the graph once a step, and hands
-    back a copy of the result, never the static buffers."""
-
-    def __init__(self, step: GridStep, gs: GridState, params, ff_cells):
-        dev = gs.pos_x.device
-        self.gs = graphs.clone_fields(gs, dev)
-        self.params = graphs.clone_fields(params, dev)
-        self.ff = (None if ff_cells is None
-                   else tuple(f.clone() for f in ff_cells))
-        self.graph = graphs.StepGraph(
-            lambda: step.advance(self.gs, self.params, self.ff, out=self.gs),
-            dev, f"the resident step {list(step.shape)}")
-
-    def __call__(self, gs: GridState, n_steps: int, params, ff_cells):
-        graphs.copy_fields(self.gs, gs)
-        graphs.copy_fields(self.params, params)
-        if ff_cells is not None:
-            for dst, src in zip(self.ff, ff_cells):
-                dst.copy_(src)
-        self.graph.replay(n_steps)
-        return graphs.clone_fields(self.gs)
+            self.key + (dev, graphs.signature(params)), dev, n_steps,
+            self.advance, lambda g, p, ff: self.advance(g, p, ff, out=g),
+            f"the resident step {list(self.shape)}", gs, params,
+            self.cells(forcefield))
 
 
 def _world_cells(forcefield: torch.Tensor, settings: SimSettings,
@@ -609,7 +575,7 @@ def make_grid_multi_step(settings: SimSettings, n_steps: int, **kw):
     step = eager.step
 
     def run(gs: GridState, params, *forcefield) -> GridState:
-        if gs.pos_x.device.type == "cuda":
+        if graphs.graphable(gs.pos_x.device):
             return step.burst(gs, params, n_steps, *forcefield)
         return eager(gs, params, *forcefield)
 

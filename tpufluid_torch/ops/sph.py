@@ -6,7 +6,7 @@ Each wrapper dispatches on where its tensors lie. On the CPU it runs the
 plain PyTorch version beside it (``density_plain``, ``forces_plain``). On a
 CUDA device it launches the hand-written kernel from
 ``tpufluid_torch/csrc`` (``sph_density.cu``, ``sph_forces.cu``) and counts
-the launch in ``LAUNCHES``, or raises; it never falls back. The kernels
+the launch in ``_build.LAUNCHES``, or raises; it never falls back. The kernels
 stage a tile of cells with all K slots in shared memory, so each takes K
 up to a limit (``max_capacity``); above it the wrapper raises.
 
@@ -32,13 +32,12 @@ import torch
 
 from .. import _build
 from . import prng
-from .fused import _check_grids, _launched, _on_cuda, _ptr, _stream
+from .._build import launched, on_cuda, ptr, stream
+from .fused import _check_grids
 from .kernels import _f32, div
 from .pairs import ORDINAL_SALT, PAIR_ORDER_SALT
 
 PI = math.pi
-# kernel launches per wrapper (CUDA tensors only)
-LAUNCHES = {"sph_density": 0, "sph_forces": 0}
 
 
 def _rows3(a: torch.Tensor):
@@ -85,13 +84,12 @@ def _tile(name: str, k: int):
     return packed >> 8, packed & 255
 
 
-def _launched_at(name: str, err: int, k: int, launches=LAUNCHES) -> None:
-    """Count a launch of ``name`` at capacity ``k`` in ``launches``, or
-    raise: naming the largest K the kernel takes where ``k`` is above it
-    (the launcher finds no tile then), else with the CUDA error."""
+def check_capacity(name: str, err: int, k: int) -> None:
+    """Where a launch of ``name`` at capacity ``k`` failed and ``k`` is
+    above the largest K the kernel takes (the launcher finds no tile
+    then), raise naming that K."""
     if err != 0 and k > max_capacity(name):
         raise _above_limit(name, k)
-    _launched(name, err, launches)
 
 
 def density_tile(k: int):
@@ -138,7 +136,7 @@ def density(grid, mass, h: float) -> torch.Tensor:
     if not isinstance(mass, torch.Tensor):
         mass = torch.as_tensor(mass, dtype=torch.float32,
                                device=grid.px.device)
-    if not _on_cuda(grid.px, grid.py, grid.valid, mass):
+    if not on_cuda(grid.px, grid.py, grid.valid, mass):
         return density_plain(grid, mass, h)
     gy, k, gx = grid.px.shape
     _check_grids((gy, k, gx), grid.px, grid.py)
@@ -148,9 +146,10 @@ def density(grid, mass, h: float) -> torch.Tensor:
     out = torch.empty((gy, k, gx), dtype=torch.float32, device=dev)
     h2, norm = _density_consts(float(h))
     err = _build.load().tf_sph_density(
-        _ptr(grid.px), _ptr(grid.py), _ptr(grid.valid), _ptr(m), _ptr(out),
-        gy, k, gx, h2, norm, _stream(dev))
-    _launched_at("sph_density", err, k)
+        ptr(grid.px), ptr(grid.py), ptr(grid.valid), ptr(m), ptr(out),
+        gy, k, gx, h2, norm, stream(dev))
+    check_capacity("sph_density", err, k)
+    launched("sph_density", err)
     return out
 
 
@@ -338,8 +337,8 @@ def forces(grid, dens_g, params, h: float, sqr_radius: float,
     ``surface_tension`` folds the colour-field force into f;
     ``adaptive_subsampling`` strides each cell's pressure candidates by
     1/5/13 as the target's density crosses 150/200."""
-    if not _on_cuda(grid.px, grid.py, grid.vx, grid.vy, grid.valid, dens_g,
-                    params.mass):
+    if not on_cuda(grid.px, grid.py, grid.vx, grid.vy, grid.valid, dens_g,
+                   params.mass):
         return forces_plain(grid, dens_g, params, h, sqr_radius, spiky_norm,
                             visc_norm, frame, surface_tension,
                             adaptive_subsampling)
@@ -354,12 +353,13 @@ def forces(grid, dens_g, params, h: float, sqr_radius: float,
     c = _forces_consts(float(h), float(sqr_radius), float(spiky_norm),
                        float(visc_norm))
     err = _build.load().tf_sph_forces(
-        _ptr(grid.px), _ptr(grid.py), _ptr(grid.vx), _ptr(grid.vy),
-        _ptr(grid.valid), _ptr(dens_g), _ptr(sc), _ptr(fr),
-        *(_ptr(o) for o in outs), gy, k, gx,
+        ptr(grid.px), ptr(grid.py), ptr(grid.vx), ptr(grid.vy),
+        ptr(grid.valid), ptr(dens_g), ptr(sc), ptr(fr),
+        *(ptr(o) for o in outs), gy, k, gx,
         int(surface_tension), int(adaptive_subsampling),
         c["h"], c["h2"], c["sqr_radius"], c["spiky_norm"], c["visc_norm"],
         c["c_r3"], c["c_r2"], c["c_half_h"], c["st_grad_norm"],
-        c["st_lap_norm"], c["c_3h2"], _stream(dev))
-    _launched_at("sph_forces", err, k)
+        c["st_lap_norm"], c["c_3h2"], stream(dev))
+    check_capacity("sph_forces", err, k)
+    launched("sph_forces", err)
     return tuple(outs)

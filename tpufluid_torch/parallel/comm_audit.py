@@ -6,7 +6,7 @@ mesh (``parallel.shard.Mesh``) notes each collective it makes while a
 recording is open, once per call with its per-shard operand, as a jaxpr
 holds it; ``audit_step`` runs one step under a recording. A step that
 replays a CUDA graph notes again what its capture noted
-(``graphs.CallGraph``), so a replay audits as the eager step. The
+(``graphs.Graph``), so a replay audits as the eager step. The
 far-mover packet is noted as conditional on every step, whether its gate
 opens or not, as JAX counts the ``lax.cond`` branch it traced.
 

@@ -55,7 +55,7 @@ records each transfer of a step for ``comm_audit.audit_step``.
 
 One program a call: on a mesh of one CUDA device, each call of either
 sharded step replays one CUDA graph of the whole step
-(``graphs.graphed_calls``), the counterpart of the JAX package's
+(``graphs.Runners``), the counterpart of the JAX package's
 ``jax.jit(shard_map(step))``, bitwise the eager step
 (``make_eager_sharded_resident_step``, ``make_eager_sharded_step``). A
 mesh over several cards runs eagerly, decided from ``mesh.devices`` when
@@ -355,13 +355,6 @@ def _merge_row(a4, b4, bcnt: torch.Tensor, k: int):
     return out, occ, over
 
 
-def _graphable(mesh: Mesh) -> bool:
-    """A mesh whose shards all lie on one CUDA device: its step can be
-    captured as one CUDA graph. A mesh over several cards runs eagerly
-    (a capture across cards is untested)."""
-    return len(set(mesh.devices)) == 1 and mesh.devices[0].type == "cuda"
-
-
 _RESIDENT_KERNELS = (fused.rebin, fused.density, fused.forces_integrate)
 _RESIDENT_PLAIN = (fused.rebin_plain, fused.density_plain,
                    fused.forces_integrate_plain)
@@ -595,10 +588,16 @@ def _make_sharded_step(spec: ResidentShardSpec, mesh: Mesh, x_boundary: str,
                                .to(torch.int32).to(dev0) for b in out])
         return tuple(out), n_valid
 
-    graphed = graph and _graphable(mesh)
-    run = (graphs.graphed_calls(
-        advance, devices[0], f"the row-band sharded step, D={n_dev} "
-        f"[{rloc}, {k}, {gxp}]", mesh) if graphed else advance)
+    graphed = graph and graphs.graphable(*devices)
+    runners = graphs.Runners()
+    what = f"the row-band sharded step, D={n_dev} [{rloc}, {k}, {gxp}]"
+
+    def run(bands, params, cells):
+        if not graphed:
+            return advance(bands, params, cells)
+        return runners.burst(graphs.signature(params), devices[0], 1,
+                             advance, advance, what, bands, params, cells,
+                             mesh=mesh)
 
     def step(sgs: ShardedGridState, params, forcefield=None):
         if len(sgs.bands) != n_dev:
@@ -987,11 +986,19 @@ def _make_slab_step(spec: ShardSpec, mesh: Mesh, has_force_field: bool,
                                for st in stats]) for k in stats[0]}
         return tuple(slabs), out
 
-    graphed = graph and _graphable(mesh)
-    run = (graphs.graphed_calls(
-        advance, devices[0], f"the slab-sharded step, D={n_dev}, "
-        f"{neighbor_mode}{'' if passes is None else ' (plain passes)'}",
-        mesh) if graphed else advance)
+    graphed = graph and graphs.graphable(*devices)
+    runners = graphs.Runners()
+    what = (f"the slab-sharded step, D={n_dev}, {neighbor_mode}"
+            f"{'' if passes is None else ' (plain passes)'}")
+
+    def run(slabs, params, forcefield):
+        if not graphed:
+            return advance(slabs, params, forcefield)
+        key = (graphs.signature(params),
+               None if forcefield is None
+               else (tuple(forcefield.shape), forcefield.dtype))
+        return runners.burst(key, devices[0], 1, advance, advance, what,
+                             slabs, params, forcefield, mesh=mesh)
 
     def step(state: ShardedState, params, forcefield=None):
         if len(state.slabs) != n_dev:

@@ -24,7 +24,6 @@ and every constant tensor is made once per device.
 
 from __future__ import annotations
 
-import dataclasses
 import functools
 from typing import Optional
 
@@ -306,28 +305,31 @@ def make_multi_step(settings: SimSettings, n_steps: int, **kw):
     eager burst, a Python loop. Memoised on its arguments, so
     ``FluidApp.run`` reuses one per burst size; the burst sizes of one step
     share its graph."""
-    key = (settings, n_steps, tuple(sorted(kw.items())))
-    hit = _MULTI_STEP_CACHE.get(key)
+    flags = tuple(sorted(kw.items()))
+    hit = _MULTI_STEP_CACHE.get((settings, n_steps, flags))
     if hit is not None:
         return hit
     eager = make_eager_multi_step(settings, n_steps, **kw)
-    flags = tuple(sorted(kw.items()))
+    what = (f"the {kw.get('neighbor_mode', 'grid')} step of "
+            f"{settings.particle_count} particles")
+
+    def body(state: ParticleState, params, *forcefield) -> ParticleState:
+        # the state the next replay reads is the static one
+        out = eager.step(state, params, *forcefield)
+        for f in ("position", "velocity", "tick"):
+            getattr(state, f).copy_(getattr(out, f))
+        return out
 
     def run(state: ParticleState, params, *forcefield) -> ParticleState:
         dev = state.position.device
-        if dev.type != "cuda":
+        if not graphs.graphable(dev):
             return eager(state, params, *forcefield)
-        inputs = (flags, dev, graphs.signature(params),
-                  tuple((tuple(f.shape), f.dtype) for f in forcefield))
-        family = (dataclasses.replace(settings, cell_capacity=1),) + inputs
-        what = (f"the {kw.get('neighbor_mode', 'grid')} step of "
-                f"{settings.particle_count} particles")
-        return graphs.burst(
-            (settings,) + inputs, family, dev, n_steps, eager.step,
-            lambda st, *a: _ParticleGraph(eager.step, what, st, *a), state,
-            params, *forcefield)
+        key = (settings, flags, dev, graphs.signature(params),
+               tuple((tuple(f.shape), f.dtype) for f in forcefield))
+        return graphs.burst(key, dev, n_steps, eager.step, body, what,
+                            state, params, *forcefield)
 
-    _MULTI_STEP_CACHE[key] = run
+    _MULTI_STEP_CACHE[settings, n_steps, flags] = run
     return run
 
 
@@ -344,41 +346,3 @@ def make_eager_multi_step(settings: SimSettings, n_steps: int, **kw):
     run.step = step
     return run
 
-
-class _ParticleGraph:
-    """A per-step engine's step captured as one CUDA graph over a static
-    state: the step reads its position, velocity and tick and the graph
-    ends by copying the result's into them; the params and the field are
-    static copies. A call copies its inputs in, replays the graph once a
-    step, and hands back copies, never the static buffers."""
-
-    def __init__(self, step, what: str, state: ParticleState, params,
-                 *forcefield):
-        dev = state.position.device
-        self.state = graphs.clone_fields(state, dev)
-        self.params = graphs.clone_fields(params, dev)
-        self.field = tuple(f.to(dev).clone() for f in forcefield)
-        self.out = None
-
-        def body():
-            out = step(self.state, self.params, *self.field)
-            for f in ("position", "velocity", "tick"):
-                getattr(self.state, f).copy_(getattr(out, f))
-            self.out = out
-
-        self.graph = graphs.StepGraph(body, dev, what)
-
-    def __call__(self, state: ParticleState, n_steps: int, params,
-                 *forcefield) -> ParticleState:
-        for f in ("position", "velocity", "tick"):
-            getattr(self.state, f).copy_(getattr(state, f))
-        graphs.copy_fields(self.params, params)
-        for dst, src in zip(self.field, forcefield):
-            dst.copy_(src)
-        self.graph.replay(n_steps)
-        return ParticleState(
-            position=self.state.position.clone(),
-            predicted=self.out.predicted.clone(),
-            velocity=self.state.velocity.clone(),
-            density=self.out.density.clone(), cell=self.out.cell.clone(),
-            tick=self.state.tick.clone())
