@@ -41,7 +41,8 @@ their plain versions on D shards of one card; config 5's audited bytes
 of one sharded step at scene_4m on 8 shards of the card equal the formula;
 the resident step's far-mover pass (csrc/far_reinsert.cu, gated on the
 device) bitwise its plain version, and every burst replayed as a CUDA
-graph bitwise its eager burst, the resident one with no host sync; the
+graph bitwise its eager burst, the resident one with no host sync, as
+the resident metaball frame's render; the
 row-band sharded step's far-mover kernels (csrc/far_sharded.cu) bitwise
 their plain versions, and both sharded steps replayed as a CUDA graph a
 call bitwise their eager twins (a swapped field, no host sync, audited).
@@ -1569,6 +1570,33 @@ def test_resident_burst_replays_without_sync(cuda):
     for f in ("pos_x", "pos_y", "vel_x", "vel_y", "occ_row", "tick", "lost"):
         assert torch.equal(getattr(got, f), getattr(want, f))
     assert run.step.far_steps >= 2
+
+
+def test_frame_render_queues_without_sync(cuda):
+    """The resident metaball frame's render after 16 ticks, under
+    ``torch.cuda.set_sync_debug_mode("error")``: its constants come from
+    the tables the warm frame built (``render.table``), so render_frame
+    and to_rgba8 copy nothing from the host and never wait (the ticks run
+    outside the guard: their audit reads by design). The u8 frame is
+    bitwise the frame rendered from the same state after clearing the
+    tables."""
+    from tpufluid_torch.app import FluidApp
+    from tpufluid_torch.ops import render
+
+    s = tt.SimSettings(particle_count=3000, size=(9.0, 8.0), cell_capacity=8)
+    app = FluidApp(s, device=cuda, neighbor_mode="resident")
+    for _ in app.iter_frames(1, 320, 180):  # captures, builds the tables
+        pass
+    app.run(16)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = render.to_rgba8(app.render_frame(320, 180))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    render.clear_tables()
+    want = render.to_rgba8(app.render_frame(320, 180))
+    assert torch.equal(got, want)
+    assert got[..., :3].max() > 0
 
 
 # ------------------------ the sharded steps' far pass and one-program form

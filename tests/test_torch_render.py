@@ -11,6 +11,8 @@ numpy inputs.
   tie can flip a pixel); on these scenes every pixel is equal.
 * The committed golden PNGs (tests/golden/render_*.png), on the state
   tests/test_render_golden.py builds, with its criteria.
+* The render's constants (``ops.render.table``): made once per key of
+  values, frames bitwise those rendered from cleared tables.
 """
 
 import dataclasses
@@ -22,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import tpufluid
 from tpufluid.ops import grid as jgrid
@@ -40,6 +43,7 @@ from tpufluid_torch.ops import render_coarse as tcoarse
 from tpufluid_torch.ops import render_grid as trgrid
 from tpufluid_torch.ops import resident as tresident
 from tpufluid_torch.utils import io as tio
+from tpufluid_torch.utils import profiling
 
 
 @pytest.fixture(autouse=True)
@@ -214,6 +218,47 @@ def test_render_metaball_state_matches_grid():
     b = trgrid.render_metaball_grid(tresident.from_particles(tps, ts), ts,
                                     W, H, tcam)
     assert torch.equal(a, b)
+
+
+def test_render_tables_made_once_a_key():
+    """render_metaball_grid over two cameras at two sizes, in turns and
+    each time through a new but equal Camera: every frame is bitwise the
+    frame rendered after clearing the tables, ``render_tables`` counts one
+    build per distinct key (four cameras' matrices, one shading table),
+    and a SimSettings that differs only in cell_capacity finds the same
+    tables. The cache keeps the newest ``MAX_TABLES`` keys."""
+    s, _, gs = frame_scene()
+    ts = interop.settings_from(s)
+    tg = interop.grid_state_from_numpy(gs, "cpu")
+    _, cam_a = _cams(s)
+    cam_b = trender.Camera(center=(-0.3, 0.2), view_size=(3.0, 3.0 * H / W))
+    cases = [(cam, w, h) for cam in (cam_a, cam_b)
+             for w, h in ((W, H), (96, 54))]
+    fresh = []
+    for cam, w, h in cases:
+        trender.clear_tables()
+        fresh.append(trgrid.render_metaball_grid(tg, ts, w, h, cam))
+    trender.clear_tables()
+
+    def turns(settings):
+        for (cam, w, h), want in zip(cases, fresh):
+            got = trgrid.render_metaball_grid(tg, settings, w, h,
+                                              dataclasses.replace(cam))
+            assert torch.equal(got, want), (cam, w, h)
+
+    builds = []
+    for settings in (ts, ts, dataclasses.replace(ts, cell_capacity=16)):
+        with profile(activities=[ProfilerActivity.CPU]):
+            turns(settings)
+        builds.append(profiling.record().counts.get("render_tables", 0))
+    assert builds == [len(cases) + 1, 0, 0]
+
+    for i in range(trender.MAX_TABLES + 2):
+        assert trender.table(("test", i), lambda: i) == i
+    assert len(trender._TABLES) == trender.MAX_TABLES
+    assert trender.table(("test", trender.MAX_TABLES + 1), None) == (
+        trender.MAX_TABLES + 1)
+    trender.clear_tables()
 
 
 # ------------------------------------------------------------- goldens

@@ -16,6 +16,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import tpufluid_torch as tt
 from tpufluid_torch.app import FluidApp
+from tpufluid_torch.ops import render
 from tpufluid_torch.utils import profiling
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -85,6 +86,7 @@ def test_spans_parents_requests_and_reads():
     app = _app()
     app.run(4)  # the first audit's baseline read comes in the session
     serial = app._runs + 1
+    render.clear_tables()  # the first frame builds the render's two tables
 
     def work():
         app.run(20)  # audits at ticks 8, 16, 24
@@ -115,14 +117,19 @@ def test_spans_parents_requests_and_reads():
         assert all(s.request == n for _, s in kids)
         assert kids[2][1].counts == {"host_reads": 1}
         i_r = kids[1][0]
-        assert [s.name for s in rec.spans if s.parent == i_r] == [
-            "tpufluid_torch.render.coarse", "tpufluid_torch.render.resample",
-            "tpufluid_torch.render.shade", "tpufluid_torch.rgba8"]
+        assert [(s.name, s.counts) for s in rec.spans if s.parent == i_r] == [
+            ("tpufluid_torch.render.coarse", {}),
+            ("tpufluid_torch.render.resample",
+             {"render_tables": 1} if n == 0 else {}),
+            ("tpufluid_torch.render.shade",
+             {"render_tables": 1} if n == 0 else {}),
+            ("tpufluid_torch.rgba8", {})]
         assert f.start_ns <= kids[0][1].start_ns <= kids[2][1].end_ns \
             <= f.end_ns
     # the run's first audit reads two, each other audit (two in the run,
     # two a frame) one; and each frame's readback
-    assert rec.counts == {"host_reads": 2 + 2 + 2 * 2 + 2}
+    assert rec.counts == {"host_reads": 2 + 2 + 2 * 2 + 2,
+                          "render_tables": 2}
     assert all(s.end_ns >= s.start_ns > 0 for s in rec.spans)
     assert "device_allocs" not in str(rec.spans)  # none on the CPU
 
@@ -134,6 +141,20 @@ def test_spans_parents_requests_and_reads():
     for s in rec.spans:
         gap = min(abs(t - s.start_ns) for t in twins[s.name])
         assert gap < 2e6, (s.name, gap)
+
+
+def test_render_tables_built_in_the_first_frame():
+    """Over iter_frames(4) of one size the render's constants (the
+    camera's bilinear matrices, the shading's colours) are built once
+    each, in the first frame, and frames 2-4 build none."""
+    app = _app()
+    render.clear_tables()
+    _, rec = _profiled(lambda: list(app.iter_frames(4, 48, 27)))
+    builds = [0] * 4
+    for s in rec.spans:
+        builds[s.request] += s.counts.get("render_tables", 0)
+    assert builds == [2, 0, 0, 0]
+    assert rec.counts["render_tables"] == 2
 
 
 def test_regrow_shrink_and_state_spans():

@@ -16,6 +16,7 @@ Plain PyTorch: no kernel of the JAX package lies on this path.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 from typing import Tuple
@@ -24,7 +25,35 @@ import torch
 
 from ..params import SimSettings
 from ..state import ParticleState
+from ..utils.profiling import count
 from . import grid as gridops
+
+# The render's constants (bilinear weights, shading colours) on the device,
+# each under the values it is made from; the newest MAX_TABLES are kept.
+MAX_TABLES = 8
+_TABLES: collections.OrderedDict = collections.OrderedDict()
+
+
+def table(key, build):
+    """What ``build()`` returns, made once per ``key`` and reused by every
+    later frame with an equal key: such a frame copies nothing from the
+    host and so never waits for the device's queue. ``key`` holds values
+    (the device, sizes, the camera's numbers), never a ``SimSettings``
+    object, which the app swaps at each change of ``cell_capacity``. Each
+    build counts ``render_tables``."""
+    if key in _TABLES:
+        _TABLES.move_to_end(key)
+        return _TABLES[key]
+    count("render_tables")
+    value = _TABLES[key] = build()
+    if len(_TABLES) > MAX_TABLES:
+        _TABLES.popitem(last=False)
+    return value
+
+
+def clear_tables() -> None:
+    """Drop every cached table (the next frame of each key builds anew)."""
+    _TABLES.clear()
 
 
 @dataclasses.dataclass(frozen=True)

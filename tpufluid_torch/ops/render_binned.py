@@ -25,7 +25,7 @@ from ..params import SimSettings
 from ..state import ParticleState
 from .dense import ranks
 from .render import (DEFAULT_SPRITE_COLORS, Camera, _div, _smoothstep,
-                     sprite_colors)
+                     sprite_colors, table)
 
 
 def _bin_particles(xy_world, values, camera: Camera, width, height,
@@ -169,6 +169,18 @@ def render_particles_binned(state: ParticleState, settings: SimSettings,
     return torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
 
 
+def _shade_consts(dev, background, density_clamp_blue: bool):
+    """(log 6, slow colour, fast colour, background, clamp blue or None)
+    on ``dev``: the shading's constants, made once (``render.table``)."""
+    f32 = torch.float32
+    return (torch.log(torch.tensor(6.0, dtype=f32, device=dev)),
+            torch.tensor([0.0, 0.5, 1.0], dtype=f32, device=dev),
+            torch.tensor([1.0, 0.0, 0.0], dtype=f32, device=dev),
+            torch.tensor(background, dtype=f32, device=dev),
+            torch.tensor([0.0, 0.0, 1.0], dtype=f32, device=dev)
+            if density_clamp_blue else None)
+
+
 def shade_metaball(density, vel_factor,
                    background: Tuple[float, float, float] = (0.0, 0.0, 0.0),
                    density_clamp_blue: bool = False):
@@ -176,10 +188,11 @@ def shade_metaball(density, vel_factor,
     factor) fields -> rgba f32[H, W, 4] (blue body, white edge highlight,
     red tint by speed; optional density > 50 solid-blue clamp,
     shaders/fluid_shader.wgsl:101-103)."""
-    dev = density.device
-    f32 = torch.float32
+    log6, slow, fast, bg, blue = table(
+        ("shade", density.device, tuple(background), density_clamp_blue),
+        lambda: _shade_consts(density.device, background,
+                              density_clamp_blue))
     vel_factor = vel_factor * 0.01
-    log6 = torch.log(torch.tensor(6.0, dtype=f32, device=dev))
     vel_factor = torch.log1p(5.0 * vel_factor) / log6
     vel_factor = vel_factor.clamp(0.0, 1.0)
 
@@ -187,16 +200,12 @@ def shade_metaball(density, vel_factor,
     edge = _smoothstep(0.7, 1.0, density) - _smoothstep(1.0, 1.5, density)
     edge = edge * (1.0 + vel_factor * 2.0)
 
-    slow = torch.tensor([0.0, 0.5, 1.0], dtype=f32, device=dev)
-    fast = torch.tensor([1.0, 0.0, 0.0], dtype=f32, device=dev)
     base = (slow + (fast - slow) * vel_factor[..., None]) * interior[..., None]
     color = base + edge[..., None]
     alpha = interior.clamp(0.0, 1.0)
-    bg = torch.tensor(background, dtype=f32, device=dev)
     rgb = color.clamp(0.0, 1.0)
     rgb = bg + (rgb - bg) * alpha[..., None]
     if density_clamp_blue:
-        blue = torch.tensor([0.0, 0.0, 1.0], dtype=f32, device=dev)
         rgb = torch.where((density > 50.0)[..., None], blue, rgb)
     return torch.cat([rgb, torch.ones_like(alpha[..., None])], dim=-1)
 

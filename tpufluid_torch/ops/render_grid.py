@@ -25,7 +25,7 @@ import torch
 from ..params import SimSettings
 from ..state import ParticleState
 from ..utils.profiling import span
-from .render import Camera, _div
+from .render import Camera, _div, table
 from .render_binned import shade_metaball
 from .render_coarse import coarse_metaball_fields
 
@@ -57,18 +57,29 @@ def _check_full_f32_matmul() -> None:
             "torch.set_float32_matmul_precision('highest')")
 
 
+def _weights(size, h, width: int, height: int, camera: Camera,
+             supersample: int, hc: int, wc: int, dev):
+    """(wx f32[Wc, W], wy f32[Hc, H]): the camera's bilinear matrices."""
+    step = h / supersample
+    half = torch.tensor(size, dtype=torch.float32, device=dev) * 0.5
+    xs, ys = camera.pixel_axes(width, height, dev)
+    return (_axis_weights(xs, wc, half[0] + h, step),
+            _axis_weights(ys, hc, half[1] + h, step))
+
+
 def resample_fields(fields, settings: SimSettings, width: int, height: int,
                     camera: Camera, supersample: int):
     """Bilinear-resample [Hc, Wc] world-lattice fields to the [H, W]
-    camera viewport with two matrix products per field."""
+    camera viewport with two matrix products per field. The matrices are
+    made once a camera (``render.table``)."""
     hc, wc = fields[0].shape
     dev = fields[0].device
-    h = settings.smoothing_radius
-    step = h / supersample
-    half = torch.tensor(settings.size, dtype=torch.float32, device=dev) * 0.5
-    xs, ys = camera.pixel_axes(width, height, dev)
-    wx = _axis_weights(xs, wc, half[0] + h, step)
-    wy = _axis_weights(ys, hc, half[1] + h, step)
+    size, h = settings.size, settings.smoothing_radius
+    wx, wy = table(
+        ("resample", dev, tuple(size), h, width, height,
+         tuple(camera.center), tuple(camera.view_size), supersample, hc, wc),
+        lambda: _weights(size, h, width, height, camera, supersample, hc,
+                         wc, dev))
     _check_full_f32_matmul()
     return tuple(torch.matmul(torch.matmul(wy.T, f), wx) for f in fields)
 
